@@ -1,0 +1,57 @@
+"""Carry repro's params over to the port, so both run on the same weights.
+
+``params_from_jax(tree, cfg)`` takes repro's param pytree with every leaf
+already a numpy array (``jax.tree.map(np.asarray, params)`` on the caller's
+side: this package imports no jax) and returns the port's params:
+
+  * each stacked ``blocks/seg{i}`` leaf (leading layer axis) is split into
+    the port's per-layer dicts, following ``build_segments``;
+  * bf16 arrays (numpy's ml_dtypes bfloat16) are reinterpreted bit for bit;
+  * each binary dense gets its packed sign words (``w_packed``) from its
+    latent weight, as the port's own init does.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.binary_dense import with_packed
+from repro_torch.device import resolve_device
+from repro_torch.models import lm_common as lc
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.array(a)                  # a writable copy the tensor may own
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _packed(tree: dict) -> dict:
+    """Add w_packed to every binary dense (a dict with a w_latent)."""
+    if "w_latent" in tree:
+        return with_packed(tree)
+    return {k: _packed(v) if isinstance(v, dict) else v for k, v in tree.items()}
+
+
+def params_from_jax(tree: dict, cfg: ModelConfig, *, device="cuda") -> dict:
+    device = resolve_device(device)
+    out = {k: _map(v, lambda a: _tensor(a, device))
+           for k, v in tree.items() if k != "blocks"}
+    blocks = []
+    for si, (sig, start, count) in enumerate(lc.build_segments(cfg)):
+        seg = tree["blocks"][f"seg{si}"]
+        for i in range(count):
+            blocks.append(_packed(_map(seg, lambda a, i=i: _tensor(a[i], device))))
+    out["blocks"] = blocks
+    return out

@@ -1,0 +1,111 @@
+"""Layers as plain functions over dicts of tensors (port of repro/nn/layers.py).
+
+Conventions, as in repro: dense weights are stored (in_dim, out_dim) and
+applied as x @ w; param and compute dtypes are passed by the caller. Init
+functions draw from an explicit ``torch.Generator`` on an explicit device,
+with repro's distributions (not its numbers).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def _normal(shape, generator, device):
+    return torch.randn(shape, generator=generator, device=device,
+                       dtype=torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# dense / embedding
+# ---------------------------------------------------------------------------
+
+def dense_init(in_dim: int, out_dim: int, *, generator, device, bias: bool = False,
+               dtype=torch.bfloat16, scale: float | None = None) -> dict:
+    scale = scale if scale is not None else 1.0 / math.sqrt(in_dim)
+    p = {"w": (_normal((in_dim, out_dim), generator, device) * scale).to(dtype)}
+    if bias:
+        p["b"] = torch.zeros((out_dim,), dtype=dtype, device=device)
+    return p
+
+
+def dense_apply(p: dict, x: torch.Tensor, *, compute_dtype=torch.bfloat16):
+    y = x.to(compute_dtype) @ p["w"].to(compute_dtype)
+    if "b" in p:
+        y = y + p["b"].to(compute_dtype)
+    return y
+
+
+def embedding_init(vocab: int, dim: int, *, generator, device,
+                   dtype=torch.bfloat16) -> dict:
+    return {"table": (_normal((vocab, dim), generator, device) * 0.02).to(dtype)}
+
+
+def embedding_lookup(p: dict, ids: torch.Tensor, *, compute_dtype=torch.bfloat16):
+    return p["table"][ids].to(compute_dtype)
+
+
+def embedding_logits(p: dict, x: torch.Tensor, *, compute_dtype=torch.bfloat16):
+    """Tied-head readout: x @ table.T."""
+    return x.to(compute_dtype) @ p["table"].to(compute_dtype).T
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm_init(dim: int, *, device, dtype=torch.float32) -> dict:
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+
+
+def rmsnorm_apply(p: dict, x: torch.Tensor, *, eps: float = 1e-6):
+    """In f32 inside, back to x's dtype."""
+    xf = x.to(torch.float32)
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps) * p["scale"].to(torch.float32)
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# gated MLP (SwiGLU) for float transformer blocks
+# ---------------------------------------------------------------------------
+
+def swiglu_init(dim: int, hidden: int, *, generator, device,
+                dtype=torch.bfloat16) -> dict:
+    kw = dict(generator=generator, device=device, dtype=dtype)
+    return {"w_gate": dense_init(dim, hidden, **kw),
+            "w_up": dense_init(dim, hidden, **kw),
+            "w_down": dense_init(hidden, dim, **kw)}
+
+
+def swiglu_apply(p: dict, x: torch.Tensor, *, compute_dtype=torch.bfloat16):
+    """silu in f32, as repro/models/lm_common.py:88."""
+    g = dense_apply(p["w_gate"], x, compute_dtype=compute_dtype)
+    u = dense_apply(p["w_up"], x, compute_dtype=compute_dtype)
+    h = F.silu(g.to(torch.float32)).to(compute_dtype) * u
+    return dense_apply(p["w_down"], h, compute_dtype=compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary position embedding
+# ---------------------------------------------------------------------------
+
+def rope_freqs(dim: int, *, base: float = 10000.0, device=None):
+    return 1.0 / (base ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                        device=device) / dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, base: float = 10000.0):
+    """x (..., S, H, D) with D even; positions (..., S). The head splits into
+    halves (x1, x2), not interleaved pairs."""
+    d = x.shape[-1]
+    inv = rope_freqs(d, base=base, device=x.device)
+    ang = positions[..., :, None].to(torch.float32) * inv      # (..., S, D/2)
+    cos = torch.cos(ang)[..., :, None, :]
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)

@@ -1,0 +1,142 @@
+"""The CUDA kernels on the card, against their plain torch versions.
+
+Every test here carries the ``cuda`` marker and skips without an NVIDIA
+GPU (the kernels have no CPU mode). The file imports no jax and nothing of
+``repro``, so it runs on the machine with the card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: the int8 GEMM is exact (integer dots of +-1 vectors). Flash
+attention matches the plain version within tests/test_attention.py's TOLS:
+2e-5 in f32 (the online softmax sums in another order) and 3e-2 in bf16
+(the kernel also rounds p to bf16 before p @ v, as the TPU kernel does).
+The model check runs f32 on both devices; its only differences come before
+sign() and are ~1e-6, so 1e-4 holds unless a value sits that close to 0.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import smoke_config  # noqa: E402
+from repro_torch.core.binarize import pack_bits, pack_signs_int8  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
+                                                 flash_attention_plain)
+from repro_torch.kernels.int8_matmul import (int8_matmul,  # noqa: E402
+                                             int8_matmul_plain)
+from repro_torch.models import get_model  # noqa: E402
+
+torch.set_num_threads(2)
+
+pytestmark = pytest.mark.cuda
+
+TOLS = {"float32": 2e-5, "bfloat16": 3e-2}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _gen(dev, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return g
+
+
+# (M, K, N): tiles that divide, ragged M / N / K tails, and the serving
+# path's decode and prefill shapes (bin_out's K = 6912 is 13.5 x 512)
+INT8_SHAPES = [(128, 256, 128), (256, 1024, 512), (5, 96, 40), (1, 32, 1),
+               (77, 160, 130), (8, 2560, 6912), (8, 6912, 2560), (300, 6912, 2560)]
+
+
+@pytest.mark.parametrize("m,k,n", INT8_SHAPES)
+def test_int8_kernel_exact(dev, m, k, n):
+    g = _gen(dev, m + k + n)
+    a = pack_signs_int8(torch.randn(m, k, generator=g, device=dev))
+    pw = pack_bits(torch.randn(n, k, generator=g, device=dev))
+    before = int8_matmul.launches
+    got = int8_matmul(a, pw)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == before + 1
+    assert torch.equal(got, int8_matmul_plain(a, pw))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_binary_dense_kernel_equals_cpu(dev, dtype):
+    g = _gen(dev, 7)
+    x = torch.randn(3, 5, 256, generator=g, device=dev).to(getattr(torch, dtype))
+    w = pack_bits(torch.rand(256, 96, generator=g, device=dev).T * 2 - 1)
+    got = ops.binary_dense(x, w, mode="int8")
+    want = ops.binary_dense(x.cpu(), w.cpu(), mode="int8")
+    assert torch.equal(got.cpu(), want)
+
+
+# (causal, G, S, T, kv_len, q_offset): ragged S, per-row kv_len with a row
+# of length 1, a query block from further down the sequence, GQA
+FLASH_CASES = [
+    (True, 1, 40, 40, None, 0),
+    (True, 4, 40, 40, [40, 1], 0),
+    (False, 1, 24, 40, [33, 7], 0),
+    (False, 4, 40, 40, None, 0),
+    (True, 4, 24, 56, [56, 41], 32),
+    (True, 1, 152, 152, [152, 77], 0),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [16, 64, 80, 128])
+@pytest.mark.parametrize("causal,g,s,t,kv_len,q_offset", FLASH_CASES)
+def test_flash_kernel_matches_plain(dev, dtype, d, causal, g, s, t, kv_len, q_offset):
+    hkv = 2
+    gen = _gen(dev, d + s + t)
+    q, k, v = (torch.randn(2, n, h, d, generator=gen, device=dev).to(getattr(torch, dtype))
+               for n, h in ((s, hkv * g), (t, hkv), (t, hkv)))
+    kvl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, kv_len=kvl, q_offset=q_offset)
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal, kv_len=kvl, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert got.dtype == v.dtype and got.shape == (2, s, hkv * g, d)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOLS[dtype],
+                               atol=TOLS[dtype])
+
+
+def test_flash_kernel_rejects_what_it_does_not_take(dev):
+    q = torch.zeros(1, 4, 2, 48, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(q, q, q, causal=True)
+    q = torch.zeros(1, 4, 2, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="Dv == D"):
+        flash_attention(q, q, q[..., :32].contiguous(), causal=True)
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), q.half(), q.half(), causal=True)
+
+
+def test_smoke_model_on_card_matches_cpu(dev):
+    """The smoke LM (f32, its int8 binary FFN kept) prefilled on the card —
+    flash kernel and int8 kernel — against the same params on the CPU,
+    which run the plain versions; with the launch counts of one forward."""
+    cfg = smoke_config("stablelm-3b").replace(compute_dtype="float32",
+                                              param_dtype="float32")
+    api = get_model(cfg)
+    params = api.init(0, device="cpu")
+    to_dev = (lambda t: {k: to_dev(v) for k, v in t.items()} if isinstance(t, dict)
+              else [to_dev(v) for v in t] if isinstance(t, list) else t.to(dev))
+    params_dev = to_dev(params)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (3, 16)).astype(np.int32)
+    lens = np.array([16, 9, 2], np.int32)
+    n_binary = sum(cfg.policy.block_is_binary(i, cfg.n_layers) for i in range(cfg.n_layers))
+    i0, f0 = int8_matmul.launches, flash_attention.launches
+    got, _ = api.prefill(params_dev, {"tokens": torch.from_numpy(toks).to(dev)},
+                         max_len=24, seq_lens=torch.from_numpy(lens).to(dev))
+    assert int8_matmul.launches - i0 == 2 * n_binary
+    assert flash_attention.launches - f0 == cfg.n_layers
+    want, _ = api.prefill(params, {"tokens": torch.from_numpy(toks)}, max_len=24,
+                          seq_lens=torch.from_numpy(lens))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
