@@ -6,8 +6,8 @@
 Phases, one output line each (or a few), every failure raising:
 
   1. the device: torch's name for it and nvidia-smi's name and power limit;
-  2. build: both CUDA kernels compiled from src/repro_torch/csrc (one nvcc
-     each, started together);
+  2. build: all five CUDA kernels compiled from src/repro_torch/csrc (one
+     nvcc each, started together);
   3. int8: the int8-binary GEMM kernel against its plain version at the
      serving path's shapes (decode M = 8, prefill M = 8 x 128 and 8 x 256,
      bin_in (N, K) = (6912, 2560) and bin_out (2560, 6912)) and a ragged
@@ -29,12 +29,31 @@ Phases, one output line each (or a few), every failure raising:
      the plain attention on a small batch; a third run under torch.profiler
      gives the device time by kernel and the device's busy share of the
      second run's wall time;
-  6. a JSON line of the kernels: launches in the serving run, largest
-     error, times and bounds;
+  6. xnor: the XNOR-popcount GEMM against its plain version, exactly, at
+     the MNIST net's hidden layers (M = 1, 128, 256, 512; N = K = 1024),
+     ragged K (40, 100, 384) and the spec-draft shape (8, 6912, 2560); the
+     yardstick is the same cuBLAS call as int8's, on unpacked signs;
+  7. hybrid_dense: the fused binary layer bit-exact at (256, 1024, 1024)
+     and at ragged M; no PyTorch call computes it, so no yardstick;
+  8. bf16_matmul: the bf16 GEMM within 2e-2 (tests/test_kernels.py), with
+     hardtanh off and on, at (256, 1024, 512) and the MNIST float layers at
+     batch 256 (fc0's K = 784, fc3's N = 10); the yardstick is torch.mm;
+  9. mnist: the paper's net, the port's quickstart path: the hybrid net
+     trains 2 epochs on SyntheticMnist, packs and runs packed inference,
+     with the launch counts zeroed just before and read just after (B1
+     exactly twice per forward); the float net trains too (no B1); both
+     beat 0.6 test accuracy; packed logits through B1, through B2 and with
+     latents are bitwise equal; packed inferences per second at batch 1
+     and 256 (the paper's Table I protocol), warm, without an L2 flush;
+ 10. a JSON line of the kernels: launches on their paths (B2 and B3 in the
+     serving run, B1 in the MNIST run, B5 and B6 on none), largest error,
+     times and bounds;
 
 and last, ``{"ok": true, "device": {...}}``. Without a GPU it exits non-zero
-and prints no result. Times are CUDA-event medians, with the 50 MB L2
-flushed before each timed call (the serving path meets its weights cold).
+and prints no result. Kernel times are CUDA-event medians of the device's
+time for one call, with the 50 MB L2 flushed before each timed call (the
+serving path meets its weights cold).
+Every phase's lines also go to build/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -53,14 +72,25 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core.binarize import pack_bits, pack_signs_int8, unpack_bits  # noqa: E402
+from repro_torch.core import hybrid_mlp as H  # noqa: E402
+from repro_torch.core.binarize import pack_bits, pack_signs_int8, packed_len, unpack_bits  # noqa: E402
+from repro_torch.data.synthetic import SyntheticMnist  # noqa: E402
+from repro_torch.examples import quickstart  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.bf16_matmul import bf16_matmul, bf16_matmul_plain  # noqa: E402
+from repro_torch.kernels.binary_matmul import binary_matmul, binary_matmul_plain  # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
                                                  flash_attention_plain)
+from repro_torch.kernels.hybrid_dense import hybrid_dense, hybrid_dense_plain  # noqa: E402
 from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_plain  # noqa: E402
 from repro_torch.models import get_model, lm_common as lc  # noqa: E402
 from repro_torch.nn.layers import embedding_lookup  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
+
+KERNELS = {  # name -> wrapper; every launch count is zeroed before each path
+    "int8_matmul": int8_matmul, "flash_attention": flash_attention,
+    "binary_matmul": binary_matmul, "hybrid_dense": hybrid_dense,
+    "bf16_matmul": bf16_matmul}
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s, int8
 # tensor-core ops/s, bf16 tensor-core flop/s
@@ -68,27 +98,58 @@ HBM_BPS = 3.35e12
 INT8_OPS = 1979e12
 BF16_FLOPS = 989e12
 BF16_TOL = 3e-2          # tests/test_attention.py TOLS[bfloat16]
+GEMM_TOL = 2e-2          # tests/test_kernels.py, bf16_matmul
 SEED = 0
+OUT_DIR = Path(__file__).resolve().parent / "build"     # listed in .gitignore
+RECORD: dict[str, list] = {}
 # scaled_dot_product_attention takes Hq != Hkv (enable_gqa) from torch 2.5 on
 SDPA_GQA = tuple(int(x) for x in torch.__version__.split(".")[:2]) >= (2, 5)
 
 
 def log(tag: str, **kw) -> None:
+    RECORD.setdefault(tag, []).append(kw)
     print(f"{tag} " + json.dumps(kw), flush=True)
 
 
+def counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def zero_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
 class Timer:
-    """Median CUDA-event time of one call, L2 flushed before each call."""
+    """Median CUDA-event time of one call, L2 flushed before each call.
+
+    The device is held busy (torch.cuda._sleep) for twice the time the host
+    takes to enqueue the call, so the start event, the call's kernels and
+    the end event are all queued before the device reaches them: the
+    interval is the device's time for the call, not the wrapper's Python
+    time, which exceeds a small kernel's own."""
 
     def __init__(self, device):
         self.flush = torch.empty(64 << 20, dtype=torch.int8, device=device)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(10 ** 7)
+        end.record()
+        end.synchronize()
+        self.cycles_per_ms = 10 ** 7 / start.elapsed_time(end)
 
     def __call__(self, fn, reps: int = 20, warmup: int = 3) -> float:
         for _ in range(warmup):
             fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        hold = int(self.cycles_per_ms * (2e3 * (time.perf_counter() - t0) + 0.05))
+        torch.cuda.synchronize()
         times = []
         for _ in range(reps):
             self.flush.zero_()
+            torch.cuda._sleep(hold)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -107,6 +168,26 @@ def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
 # ---------------------------------------------------------------------------
 # phase 3: int8-binary GEMM
 # ---------------------------------------------------------------------------
+
+def int_library(a8, pw, k, want, timer, name) -> tuple[float, str]:
+    """The yardstick of the binary GEMMs: one cuBLAS call on +-1 operands
+    unpacked beforehand, checked equal to the plain version, and timed."""
+    m, n = a8.shape[0], pw.shape[0]
+    if m > 16 and n % 8 == 0 and k % 8 == 0:          # torch._int_mm's limits
+        lib_call = "torch._int_mm(int8 (M,K), int8 (K,N))"
+        w8t = unpack_bits(pw, k, torch.int8).T        # (K, N) column-major
+        lib = lambda: torch._int_mm(a8, w8t)          # noqa: E731
+    else:
+        # f32 without TF32 (torch's default) is exact here: every partial
+        # sum of +-1 terms is an integer below 2**24
+        lib_call = "torch.mm(f32 (M,K), f32 (K,N)), TF32 off"
+        af, wft = a8.float(), unpack_bits(pw, k, torch.float32).T
+        lib = lambda: torch.mm(af, wft)               # noqa: E731
+    lib_err = int((lib().to(torch.int32) - want).abs().max())
+    if lib_err != 0:
+        raise AssertionError(f"{lib_call} differs from plain at {name}: {lib_err}")
+    return timer(lib), lib_call
+
 
 INT8_CASES = [  # (name, M, N, K)
     ("decode bin_in", 8, 6912, 2560),
@@ -130,21 +211,7 @@ def phase_int8(dev, gen, timer) -> list[dict]:
             raise AssertionError(f"int8 kernel differs from plain at {name}: {err}")
         ms = timer(lambda: int8_matmul(a, pw))
         plain_ms = timer(lambda: int8_matmul_plain(a, pw), reps=10)
-        # the yardstick: one cuBLAS call on operands unpacked beforehand
-        if m > 16 and n % 8 == 0 and k % 8 == 0:      # torch._int_mm's limits
-            lib_call = "torch._int_mm(int8 (M,K), int8 (K,N))"
-            w8t = unpack_bits(pw, k, torch.int8).T    # (K, N) column-major
-            lib = lambda: torch._int_mm(a, w8t)       # noqa: E731
-        else:
-            # f32 without TF32 (torch's default) is exact here: every partial
-            # sum of +-1 terms is an integer below 2**24
-            lib_call = "torch.mm(f32 (M,K), f32 (K,N)), TF32 off"
-            af, wft = a.float(), unpack_bits(pw, k, torch.float32).T
-            lib = lambda: torch.mm(af, wft)           # noqa: E731
-        lib_err = int((lib().to(torch.int32) - want).abs().max())
-        if lib_err != 0:
-            raise AssertionError(f"{lib_call} differs from plain at {name}: {lib_err}")
-        lib_ms = timer(lib)
+        lib_ms, lib_call = int_library(a, pw, k, want, timer, name)
         b_ms, b_by = bound(m * k + n * k / 8 + 4 * m * n, 2.0 * m * n * k, INT8_OPS)
         row = dict(case=name, M=m, N=n, K=k, max_abs_err=err, ms=ms,
                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
@@ -290,10 +357,9 @@ def phase_serve(dev, card: str) -> dict:
                for _ in range(N_REQUESTS)]
 
     # the main path, with the launch counts zeroed just before it
-    int8_matmul.launches = flash_attention.launches = 0
+    zero_counts()
     out, wall, eng = _serve_once(api, params, prompts)
-    launches = {"int8_matmul": int8_matmul.launches,
-                "flash_attention": flash_attention.launches}
+    launches = counts()
     waves, steps = eng.stats["prefills"], eng.stats["decode_steps"]
     for o in out:
         if len(o) != MAX_NEW or not all(0 <= t < cfg.vocab for t in o):
@@ -303,6 +369,8 @@ def phase_serve(dev, card: str) -> dict:
                              f"+ {steps} decode steps, {n_binary} binary blocks")
     if launches["flash_attention"] != cfg.n_layers * waves:
         raise AssertionError(f"flash launches {launches} for {waves} prefill waves")
+    if any(launches[k] for k in ("binary_matmul", "hybrid_dense", "bf16_matmul")):
+        raise AssertionError(f"the int8 LM launched another kernel: {launches}")
     out2, wall2, _ = _serve_once(api, params, prompts)
     if out2 != out:
         raise AssertionError("a second run of the same requests gave other tokens")
@@ -340,6 +408,217 @@ def phase_serve(dev, card: str) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 6: XNOR-popcount GEMM
+# ---------------------------------------------------------------------------
+
+XNOR_CASES = [  # (name, M, N, K)
+    ("mnist hidden, batch 128 (training)", 128, 1024, 1024),
+    ("mnist hidden, batch 1", 1, 1024, 1024),
+    ("mnist hidden, batch 256", 256, 1024, 1024),
+    ("mnist hidden, batch 512 (eval)", 512, 1024, 1024),
+    ("ragged K 40", 8, 24, 40),
+    ("ragged K 100", 32, 48, 100),
+    ("K 384, Kp 12", 64, 64, 384),
+    ("spec draft bin_in", 8, 6912, 2560),
+]
+
+
+def phase_xnor(dev, gen, timer) -> list[dict]:
+    rows = []
+    for name, m, n, k in XNOR_CASES:
+        pa = pack_bits(torch.randn(m, k, generator=gen, device=dev))
+        pw = pack_bits(torch.randn(n, k, generator=gen, device=dev))
+        got, want = binary_matmul(pa, pw, k), binary_matmul_plain(pa, pw, k)
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max())
+        if err != 0:
+            raise AssertionError(f"xnor kernel differs from plain at {name}: {err}")
+        ms = timer(lambda: binary_matmul(pa, pw, k))
+        plain_ms = timer(lambda: binary_matmul_plain(pa, pw, k), reps=10)
+        lib_ms, lib_call = int_library(unpack_bits(pa, k, torch.int8), pw, k, want,
+                                       timer, name)
+        kp = packed_len(k)
+        b_ms, b_by = bound(4 * (m * kp + n * kp + m * n), 2.0 * m * n * k, INT8_OPS)
+        row = dict(case=name, M=m, N=n, K=k, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, library_call=lib_call)
+        log("xnor", **row)
+        rows.append(row)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 7: fused hybrid dense
+# ---------------------------------------------------------------------------
+
+HYBRID_CASES = [  # (name, M, N, K)
+    ("mnist hidden, batch 256", 256, 1024, 1024),
+    ("ragged M 77", 77, 1024, 1024),
+]
+
+
+def phase_hybrid(dev, gen, timer) -> list[dict]:
+    rows = []
+    for name, m, n, k in HYBRID_CASES:
+        pa = pack_bits(torch.randn(m, k, generator=gen, device=dev))
+        pw = pack_bits(torch.randn(n, k, generator=gen, device=dev))
+        scale = torch.randn(n, generator=gen, device=dev) * 0.1 + 0.5
+        shift = torch.randn(n, generator=gen, device=dev) * 0.1
+        args = (pa, pw, scale, shift, k)
+        got, want = hybrid_dense(*args), hybrid_dense_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"hybrid_dense kernel differs from plain at {name}: "
+                                 f"{int((got != want).sum())} words")
+        ms = timer(lambda: hybrid_dense(*args))
+        plain_ms = timer(lambda: hybrid_dense_plain(*args), reps=10)
+        kp = packed_len(k)
+        b_ms, b_by = bound(4 * (m * kp + n * kp + 2 * n + m * n / 32), 2.0 * m * n * k,
+                           INT8_OPS)
+        row = dict(case=name, M=m, N=n, K=k, max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                   library_call="none: no single PyTorch call computes it")
+        log("hybrid_dense", **row)
+        rows.append(row)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 8: bf16 GEMM
+# ---------------------------------------------------------------------------
+
+BF16_CASES = [  # (name, M, N, K, hardtanh)
+    ("mnist fc0, batch 256", 256, 1024, 784, False),
+    ("mnist fc0, batch 256, hardtanh", 256, 1024, 784, True),
+    ("mnist fc3, batch 256", 256, 10, 1024, False),
+    ("mnist fc3, batch 256, hardtanh", 256, 10, 1024, True),
+    ("256 x 1024 x 512", 256, 512, 1024, False),
+    ("256 x 1024 x 512, hardtanh", 256, 512, 1024, True),
+]
+
+
+def _bf16_library(dev):
+    """torch.mm on the bf16 operands, with an f32 output where the installed
+    torch takes ``out_dtype`` (its CUDA mm.dtype overload)."""
+    x = torch.ones(2, 2, dtype=torch.bfloat16, device=dev)
+    try:
+        torch.mm(x, x, out_dtype=torch.float32)
+    except (TypeError, NotImplementedError, RuntimeError):
+        return (lambda a, w: torch.mm(a, w)), "torch.mm(bf16, bf16) -> bf16 output"
+    return ((lambda a, w: torch.mm(a, w, out_dtype=torch.float32)),
+            "torch.mm(bf16, bf16, out_dtype=torch.float32)")
+
+
+def phase_bf16(dev, gen, timer) -> list[dict]:
+    mm, lib_call = _bf16_library(dev)
+    rows = []
+    for name, m, n, k, ht in BF16_CASES:
+        a = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+        w = (torch.randn(k, n, generator=gen, device=dev) / k ** 0.5).to(torch.bfloat16)
+        got, want = bf16_matmul(a, w, hardtanh=ht), bf16_matmul_plain(a, w, hardtanh=ht)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=GEMM_TOL, atol=GEMM_TOL):
+            raise AssertionError(f"bf16 kernel vs plain at {name}: {err}")
+        lib_out = mm(a, w).float()
+        if not torch.allclose(lib_out, bf16_matmul_plain(a, w), rtol=GEMM_TOL, atol=GEMM_TOL):
+            raise AssertionError(f"{lib_call} vs plain at {name}")
+        ms = timer(lambda: bf16_matmul(a, w, hardtanh=ht))
+        plain_ms = timer(lambda: bf16_matmul_plain(a, w, hardtanh=ht), reps=10)
+        lib_ms = timer(lambda: mm(a, w))
+        b_ms, b_by = bound(2 * (m * k + k * n) + 4 * m * n, 2.0 * m * n * k, BF16_FLOPS)
+        row = dict(case=name, M=m, N=n, K=k, hardtanh=ht, max_abs_err=err, ms=ms,
+                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                   library_call=lib_call + (" (no clamp)" if ht else ""))
+        log("bf16", **row)
+        rows.append(row)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the paper's MNIST net (the port's quickstart path)
+# ---------------------------------------------------------------------------
+
+MNIST_BATCHES = (1, 256)      # the paper's Table I
+INFER_REPS = 200
+
+
+def _train(hybrid: bool, data, dev) -> tuple[dict, list, float]:
+    t0 = time.perf_counter()
+    params = H.mlp_init(SEED, hybrid=hybrid, device=dev)
+    params, accs = quickstart.train(params, data)
+    torch.cuda.synchronize()
+    return params, accs, time.perf_counter() - t0
+
+
+def _infer_ms(fn) -> float:
+    """Mean time of one call over INFER_REPS back-to-back calls, warm and
+    without an L2 flush: the host's launch time counts, as it does for a
+    user calling the model in a loop."""
+    for _ in range(10):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(INFER_REPS):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / INFER_REPS
+
+
+def phase_mnist(dev, card: str) -> dict:
+    data = SyntheticMnist(n_train=2048, n_test=512, seed=SEED)
+    xt = torch.from_numpy(data.test[0]).to(dev)
+    steps = quickstart.EPOCHS * (len(data.train[0]) // quickstart.BATCH)
+    forwards = steps + quickstart.EPOCHS + 1       # + an eval per epoch + packed inference
+
+    # the main path, with the launch counts zeroed just before it: train,
+    # pack, packed inference through B1
+    zero_counts()
+    params, accs, train_s = _train(True, data, dev)
+    packed = H.mlp_pack(params)
+    logits = H.mlp_apply_packed(packed, xt)
+    torch.cuda.synchronize()
+    launches = counts()
+    if launches != {**{k: 0 for k in KERNELS}, "binary_matmul": 2 * forwards}:
+        raise AssertionError(f"hybrid MNIST launches {launches}, {forwards} forwards")
+    if not accs[-1] > 0.6:
+        raise AssertionError(f"hybrid net test accuracy {accs}")
+
+    zero_counts()
+    fparams, faccs, ftrain_s = _train(False, data, dev)
+    if any(counts().values()):
+        raise AssertionError(f"the float net launched a kernel: {counts()}")
+    if not faccs[-1] > 0.6:
+        raise AssertionError(f"float net test accuracy {faccs}")
+
+    # exact integer dots through the same f32 BatchNorm: B1, B2 and the
+    # eval-with-latents path give the same logits, bit for bit
+    logits_int8 = H.mlp_apply_packed(packed, xt, mode="int8")
+    logits_latent, _ = H.mlp_apply(params, xt, training=False)
+    if not (torch.equal(logits, logits_int8) and torch.equal(logits, logits_latent)):
+        raise AssertionError("packed logits through B1, B2 and with latents differ")
+    if tuple(logits.shape) != (512, 10) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError("packed logits not finite / of the wrong shape")
+    packed_acc = float((logits.argmax(-1).cpu() == torch.from_numpy(data.test[1])).float().mean())
+
+    fpacked = H.mlp_pack(fparams)
+    infer = {}
+    for label, p in (("float", fpacked), ("hybrid", packed)):
+        for b in MNIST_BATCHES:
+            xb = xt[:b].contiguous()
+            ms = _infer_ms(lambda: H.mlp_apply_packed(p, xb))
+            infer[f"{label}_b{b}"] = {"ms": ms, "inferences_per_s": b / ms * 1e3}
+    row = dict(card=card, dims=list(H.DIMS), train_steps=steps, forwards=forwards,
+               launches=launches, hybrid_test_acc=accs, float_test_acc=faccs,
+               hybrid_packed_test_acc=packed_acc, hybrid_train_s=train_s,
+               float_train_s=ftrain_s, packed_inference=infer,
+               weight_bytes={"hybrid": H.weight_memory_bytes(hybrid=True),
+                             "float": H.weight_memory_bytes(hybrid=False)})
+    log("mnist", **row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -354,7 +633,7 @@ def main() -> int:
     print(smi, flush=True)
 
     t0 = time.perf_counter()
-    build.build_all(["int8_matmul", "flash_attention"])
+    build.build_all(list(KERNELS))
     log("build", seconds=time.perf_counter() - t0, dir=str(build.BUILD_DIR))
 
     gen = torch.Generator(device=dev)
@@ -362,13 +641,21 @@ def main() -> int:
     timer = Timer(dev)
     int8_rows = phase_int8(dev, gen, timer)
     flash_rows = phase_flash(dev, gen, timer)
-    del timer
     serve = phase_serve(dev, smi)
+    xnor_rows = phase_xnor(dev, gen, timer)
+    hybrid_rows = phase_hybrid(dev, gen, timer)
+    bf16_rows = phase_bf16(dev, gen, timer)
+    del timer
+    mnist = phase_mnist(dev, smi)
 
     def entry(kname, source, replaces, rows):
-        head = rows[0]          # the headline case: decode bin_in / full length
+        # the headline case is the first: decode bin_in, full-length flash,
+        # the MNIST hidden layer at the training batch, at batch 256, fc0
+        head = rows[0]
         return {"name": kname, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": serve["launches"][kname],
+                # each kernel runs on one path at most; the phases checked
+                # that the other path launched it no time
+                "launches": serve["launches"][kname] + mnist["launches"][kname],
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "ms": head["ms"], "plain_ms": head["plain_ms"],
                 "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -376,12 +663,21 @@ def main() -> int:
                 "case": head["case"],
                 "cases": rows}
 
-    print(json.dumps({"kernels": [
+    kernels = {"kernels": [
         entry("int8_matmul", "src/repro_torch/csrc/int8_matmul.cu",
               "src/repro/kernels/int8_matmul.py:55", int8_rows),
         entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:118", flash_rows),
-    ]}), flush=True)
+        entry("binary_matmul", "src/repro_torch/csrc/binary_matmul.cu",
+              "src/repro/kernels/binary_matmul.py:69", xnor_rows),
+        entry("hybrid_dense", "src/repro_torch/csrc/hybrid_dense.cu",
+              "src/repro/kernels/hybrid_dense.py:54", hybrid_rows),
+        entry("bf16_matmul", "src/repro_torch/csrc/bf16_matmul.cu",
+              "src/repro/kernels/bf16_matmul.py:42", bf16_rows),
+    ]}
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / "chip_smoke.json").write_text(json.dumps({**RECORD, **kernels}, indent=1))
+    print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

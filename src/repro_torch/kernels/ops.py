@@ -1,54 +1,103 @@
-"""Dispatch layer over the binary products (port of repro/kernels/ops.py).
+"""Dispatch layer over the binary kernels and the trainable binary dense
+(port of repro/kernels/ops.py).
 
-The logical op is  y = sign(x) @ sign(w)  with the weight packed once, at
-load time, to (N, K/32) words (repro packs on every call; the numbers are
-the same). One lowering per binary mode:
+One logical op,  y = sign(x) @ sign(w),  and one lowering per binary mode
+(BEANNA's PE mode mux, as a per-layer choice):
 
-  mode "int8"   +-1 int8 activations against the packed weight through
-                kernels/int8_matmul.int8_matmul: the CUDA kernel for a CUDA
-                tensor, its plain version for a CPU tensor
+  mode "xnor"   packed activations against packed weights through
+                kernels/binary_matmul.binary_matmul (B1, XNOR-popcount)
+  mode "int8"   +-1 int8 activations against packed weights through
+                kernels/int8_matmul.int8_matmul (B2); needs K % 32 == 0
   mode "bf16"   a plain float matmul of the sign matrices (float ablation,
                 the same integer values)
-  mode "xnor"   the XNOR-popcount kernel (B1): not ported yet
 
-The straight-through-estimator backward (repro's custom_vjp) comes with
-the training slice.
+Each kernel wrapper runs the CUDA kernel for a CUDA tensor and its plain
+version for a CPU tensor.
+
+Two entry points, with repro's names:
+
+  binary_dense(x, w_latent)          trainable: packs the *current* latent
+                                     on every call and runs the STE backward
+                                     (repro's custom_vjp) as an
+                                     autograd.Function
+  binary_dense_packed(x, w_packed, k)  inference: weights packed once
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.binarize import pack_signs_int8, unpack_bits
+from repro_torch.core.binarize import pack_bits, pack_signs_int8, unpack_bits
+from repro_torch.kernels.binary_matmul import binary_matmul
 from repro_torch.kernels.int8_matmul import int8_matmul
 
-BINARY_MODES = ("int8", "bf16")
+BINARY_MODES = ("xnor", "int8", "bf16")
 
 
 def resolve_impl(mode: str) -> str:
-    """mode -> the lowering binary_dense runs. Which device runs it is the
+    """mode -> the lowering the binary ops run. Which device runs it is the
     kernel wrapper's choice, made from where the tensor lies."""
-    if mode == "xnor":
-        raise NotImplementedError(
-            "binary_mode='xnor' needs the XNOR-popcount kernel, ROADMAP B1 "
-            "(ported with queue item A2)")
     if mode not in BINARY_MODES:
         raise ValueError(f"unknown binary mode {mode!r}")
     return mode
 
 
-def binary_dense(x: torch.Tensor, w_packed: torch.Tensor, *,
-                 mode: str = "int8") -> torch.Tensor:
-    """x (..., K), w_packed (N, K/32) int32 sign words -> (..., N) in x's
-    dtype: exact in f32; bf16 rounds |values| > 256, as repro does."""
-    mode = resolve_impl(mode)
-    lead, k = x.shape[:-1], x.shape[-1]
-    x2d = x.reshape(-1, k)
+def _matmul_packed(x2d: torch.Tensor, w_packed: torch.Tensor, k: int,
+                   mode: str) -> torch.Tensor:
+    """sign(x2d) (M, K) against packed weights (N, Kp) -> (M, N), exact
+    integers (int32 from the kernels, f32 from the bf16 lowering)."""
+    if mode == "xnor":
+        return binary_matmul(pack_bits(x2d), w_packed, k)
     if mode == "int8":
-        y = int8_matmul(pack_signs_int8(x2d), w_packed)
-    else:
-        sx = torch.where(x2d >= 0, 1.0, -1.0).to(torch.float32)
-        # f32 is exact here: sums of +-1 stay far below 2**24
-        y = sx @ unpack_bits(w_packed, k, torch.float32).T
-    # int32 -> activation dtype first, as repro/kernels/ops.py:75 does
+        return int8_matmul(pack_signs_int8(x2d), w_packed)
+    sx = torch.where(x2d >= 0, 1.0, -1.0).to(torch.float32)
+    # f32 is exact here: sums of +-1 stay far below 2**24
+    return sx @ unpack_bits(w_packed, k, torch.float32).T
+
+
+class _BinaryDense(torch.autograd.Function):
+    """repro/kernels/ops.py:78-100: the integer forward beside the
+    straight-through-estimator backward (paper eq. 2)."""
+
+    @staticmethod
+    def forward(ctx, x2d, w, mode):
+        ctx.save_for_backward(x2d, w)
+        y = _matmul_packed(x2d, pack_bits(w.T), x2d.shape[1], mode)
+        return y.to(x2d.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gf = g.to(torch.float32)
+        xf = x.to(torch.float32)
+        sw = torch.where(w >= 0, 1.0, -1.0).to(torch.float32)
+        sx = torch.where(xf >= 0, 1.0, -1.0)
+        # grads pass where |.| <= 1 (the hardtanh window); plain f32
+        # products, as XLA computes them outside any Pallas kernel
+        gx = (gf @ sw.T) * (xf.abs() <= 1.0)
+        gw = (sx.T @ gf) * (w.abs() <= 1.0)
+        return gx.to(x.dtype), gw.to(w.dtype), None
+
+
+def binary_dense(x: torch.Tensor, w_latent: torch.Tensor, *,
+                 mode: str = "xnor") -> torch.Tensor:
+    """Trainable binary dense: x (..., K), w_latent (K, N) -> (..., N) in
+    x's dtype = sign(x) @ sign(w), STE backward. The latent is packed anew
+    on every call, so an optimizer step is seen at the next forward."""
+    mode = resolve_impl(mode)
+    lead = x.shape[:-1]
+    y = _BinaryDense.apply(x.reshape(-1, x.shape[-1]), w_latent, mode)
+    return y.reshape(*lead, -1)
+
+
+def binary_dense_packed(x: torch.Tensor, w_packed: torch.Tensor, k: int | None = None,
+                        *, mode: str = "xnor") -> torch.Tensor:
+    """Inference: x (..., K), w_packed (N, Kp) int32 sign words as packed at
+    deploy or load time -> (..., N) in x's dtype, as binary_dense returns
+    it: exact in f32 (where repro's f32 result is the same); in bf16 the one
+    cast rounds |values| > 256, as repro's latent path does."""
+    mode = resolve_impl(mode)
+    k = k if k is not None else x.shape[-1]
+    lead = x.shape[:-1]
+    y = _matmul_packed(x.reshape(-1, k), w_packed, k, mode)
     return y.to(x.dtype).reshape(*lead, -1)

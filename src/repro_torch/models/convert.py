@@ -9,6 +9,11 @@ side: this package imports no jax) and returns the port's params:
   * bf16 arrays (numpy's ml_dtypes bfloat16) are reinterpreted bit for bit;
   * each binary dense gets its packed sign words (``w_packed``) from its
     latent weight, as the port's own init does.
+
+``mlp_params_from_jax(tree)`` takes repro's hybrid-MLP params
+(core/hybrid_mlp.py), latent or packed, with numpy leaves, and keeps their
+structure; repro's uint32 ``w_packed`` words become the port's int32 words
+with the same bits.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ def _tensor(a, device) -> torch.Tensor:
     a = np.array(a)                  # a writable copy the tensor may own
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    elif a.dtype == np.uint32:
+        t = torch.from_numpy(a.view(np.int32))
     else:
         t = torch.from_numpy(a)
     return t.to(device)
@@ -55,3 +62,8 @@ def params_from_jax(tree: dict, cfg: ModelConfig, *, device="cuda") -> dict:
             blocks.append(_packed(_map(seg, lambda a, i=i: _tensor(a[i], device))))
     out["blocks"] = blocks
     return out
+
+
+def mlp_params_from_jax(tree: dict, *, device="cuda") -> dict:
+    device = resolve_device(device)
+    return _map(tree, lambda a: _tensor(a, device))

@@ -18,7 +18,8 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.binary_dense import binary_dense_apply, binary_dense_init
+from repro_torch.core.binary_dense import (binary_dense_apply_packed, binary_dense_init,
+                                           with_packed)
 from repro_torch.nn import attention as attn_lib
 from repro_torch.nn import layers as nn
 from repro_torch.serving import kvcache as kvc
@@ -54,8 +55,9 @@ def ffn_init(cfg: ModelConfig, *, binary: bool, generator, device) -> dict:
     """Binary FFNs are identified structurally (keys 'bin_in' / 'bin_out')."""
     kw = dict(generator=generator, device=device, dtype=pdt(cfg))
     if binary:
-        return {"bin_in": binary_dense_init(cfg.d_model, cfg.d_ff, **kw),
-                "bin_out": binary_dense_init(cfg.d_ff, cfg.d_model, **kw)}
+        # serving reads the sign words packed here, once
+        return {"bin_in": with_packed(binary_dense_init(cfg.d_model, cfg.d_ff, **kw)),
+                "bin_out": with_packed(binary_dense_init(cfg.d_ff, cfg.d_model, **kw))}
     return nn.swiglu_init(cfg.d_model, cfg.d_ff, **kw)
 
 
@@ -63,8 +65,8 @@ def ffn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if "bin_in" in p:
         # the normed residual feeds sign() inside the binary dense
         mode = cfg.policy.binary_mode
-        h = binary_dense_apply(p["bin_in"], x, mode=mode)
-        return binary_dense_apply(p["bin_out"], h, mode=mode).to(x.dtype)
+        h = binary_dense_apply_packed(p["bin_in"], x, mode=mode)
+        return binary_dense_apply_packed(p["bin_out"], h, mode=mode).to(x.dtype)
     return nn.swiglu_apply(p, x, compute_dtype=cdt(cfg))
 
 

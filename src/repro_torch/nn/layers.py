@@ -69,6 +69,35 @@ def rmsnorm_apply(p: dict, x: torch.Tensor, *, eps: float = 1e-6):
     return y.to(x.dtype)
 
 
+def batchnorm_init(dim: int, *, device, dtype=torch.float32) -> dict:
+    """BatchNorm1d as in the paper's MLP (running stats for inference)."""
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device),
+            "bias": torch.zeros((dim,), dtype=dtype, device=device),
+            "mean": torch.zeros((dim,), dtype=dtype, device=device),
+            "var": torch.ones((dim,), dtype=dtype, device=device)}
+
+
+def batchnorm_apply(p: dict, x: torch.Tensor, *, training: bool,
+                    momentum: float = 0.9, eps: float = 1e-5):
+    """x (batch, dim) -> (y, new params), in f32 inside, with repro's
+    conventions, which are not nn.BatchNorm1d's: the batch variance is the
+    population one (no Bessel correction, in the output and the running
+    stat alike), and ``new = momentum * old + (1 - momentum) * batch``.
+    Gradients flow through the batch statistics; the running stats carry
+    none."""
+    xf = x.to(torch.float32)
+    if training:
+        mu = xf.mean(dim=0)
+        var = ((xf - mu) ** 2).mean(dim=0)
+        new = {**p,
+               "mean": momentum * p["mean"] + (1 - momentum) * mu.detach(),
+               "var": momentum * p["var"] + (1 - momentum) * var.detach()}
+    else:
+        mu, var, new = p["mean"], p["var"], p
+    y = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    return y.to(x.dtype), new
+
+
 # ---------------------------------------------------------------------------
 # gated MLP (SwiGLU) for float transformer blocks
 # ---------------------------------------------------------------------------

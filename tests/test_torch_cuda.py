@@ -6,12 +6,16 @@ GPU (the kernels have no CPU mode). The file imports no jax and nothing of
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: the int8 GEMM is exact (integer dots of +-1 vectors). Flash
+Tolerances: the int8 and XNOR GEMMs are exact (integer dots of +-1
+vectors), and so is the fused hybrid dense (both round the product and the
+sum once each, then take the sign); the bf16 GEMM matches its plain version
+within tests/test_kernels.py's 2e-2 (f32 sums in another order). Flash
 attention matches the plain version within tests/test_attention.py's TOLS:
 2e-5 in f32 (the online softmax sums in another order) and 3e-2 in bf16
 (the kernel also rounds p to bf16 before p @ v, as the TPU kernel does).
-The model check runs f32 on both devices; its only differences come before
-sign() and are ~1e-6, so 1e-4 holds unless a value sits that close to 0.
+The model checks run f32 on both devices; their only differences come
+before sign() and are ~1e-6, so 1e-4 holds unless a value sits that close
+to 0.
 """
 
 import numpy as np
@@ -20,10 +24,15 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import smoke_config  # noqa: E402
+from repro_torch.core import hybrid_mlp as H  # noqa: E402
 from repro_torch.core.binarize import pack_bits, pack_signs_int8  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.bf16_matmul import bf16_matmul, bf16_matmul_plain  # noqa: E402
+from repro_torch.kernels.binary_matmul import (binary_matmul,  # noqa: E402
+                                               binary_matmul_plain)
 from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
                                                  flash_attention_plain)
+from repro_torch.kernels.hybrid_dense import hybrid_dense, hybrid_dense_plain  # noqa: E402
 from repro_torch.kernels.int8_matmul import (int8_matmul,  # noqa: E402
                                              int8_matmul_plain)
 from repro_torch.models import get_model  # noqa: E402
@@ -40,6 +49,14 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
 
 
 def _gen(dev, seed):
@@ -71,9 +88,89 @@ def test_binary_dense_kernel_equals_cpu(dev, dtype):
     g = _gen(dev, 7)
     x = torch.randn(3, 5, 256, generator=g, device=dev).to(getattr(torch, dtype))
     w = pack_bits(torch.rand(256, 96, generator=g, device=dev).T * 2 - 1)
-    got = ops.binary_dense(x, w, mode="int8")
-    want = ops.binary_dense(x.cpu(), w.cpu(), mode="int8")
+    got = ops.binary_dense_packed(x, w, mode="int8")
+    want = ops.binary_dense_packed(x.cpu(), w.cpu(), mode="int8")
     assert torch.equal(got.cpu(), want)
+
+
+# (M, K, N): the MNIST hidden layers at batch 1 / 128 / 512, K not a
+# multiple of 32 (40, 100, 250), Kp = 12 (K = 384, which the TPU kernel
+# refuses), ragged M and N, and the spec-draft shape (8, 2560, 6912)
+XNOR_SHAPES = [(1, 1024, 1024), (128, 1024, 1024), (512, 1024, 1024), (8, 40, 24),
+               (32, 100, 48), (16, 250, 64), (64, 384, 64), (77, 160, 130),
+               (8, 2560, 6912)]
+
+
+@pytest.mark.parametrize("m,k,n", XNOR_SHAPES)
+def test_binary_matmul_kernel_exact(dev, m, k, n):
+    g = _gen(dev, m + k + n)
+    pa = pack_bits(torch.randn(m, k, generator=g, device=dev))
+    pw = pack_bits(torch.randn(n, k, generator=g, device=dev))
+    before = binary_matmul.launches
+    got = binary_matmul(pa, pw, k)
+    torch.cuda.synchronize()
+    assert binary_matmul.launches == before + 1
+    assert torch.equal(got, binary_matmul_plain(pa, pw, k))
+
+
+# (M, K, N): the MNIST hidden layer at batch 256, ragged M, ragged K
+@pytest.mark.parametrize("m,k,n", [(256, 1024, 1024), (77, 1024, 1024), (40, 100, 64)])
+def test_hybrid_dense_kernel_exact(dev, m, k, n):
+    g = _gen(dev, m + k + n)
+    pa = pack_bits(torch.randn(m, k, generator=g, device=dev))
+    pw = pack_bits(torch.randn(n, k, generator=g, device=dev))
+    scale = torch.randn(n, generator=g, device=dev) * 0.1 + 0.5
+    shift = torch.randn(n, generator=g, device=dev) * 0.1
+    before = hybrid_dense.launches
+    got = hybrid_dense(pa, pw, scale, shift, k)
+    torch.cuda.synchronize()
+    assert hybrid_dense.launches == before + 1
+    assert got.shape == (m, n // 32)
+    assert torch.equal(got, hybrid_dense_plain(pa, pw, scale, shift, k))
+
+
+def test_hybrid_dense_kernel_refuses_ragged_n(dev):
+    pa = torch.zeros(4, 2, dtype=torch.int32, device=dev)
+    one = torch.ones(40, device=dev)
+    with pytest.raises(ValueError, match="N % 32"):
+        hybrid_dense(pa, torch.zeros(40, 2, dtype=torch.int32, device=dev), one, one, 64)
+
+
+# (M, K, N): the MNIST float layers at batch 256 (fc0's K = 784, which the
+# TPU kernel refuses; fc3's N = 10), tiles that divide, ragged all three
+@pytest.mark.parametrize("hardtanh", [False, True])
+@pytest.mark.parametrize("m,k,n", [(256, 784, 1024), (256, 1024, 10), (256, 512, 1024),
+                                   (1, 784, 1024), (77, 100, 130)])
+def test_bf16_matmul_kernel_matches_plain(dev, m, k, n, hardtanh):
+    g = _gen(dev, m + k + n)
+    a = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn(k, n, generator=g, device=dev) / k ** 0.5).to(torch.bfloat16)
+    before = bf16_matmul.launches
+    got = bf16_matmul(a, w, hardtanh=hardtanh)
+    torch.cuda.synchronize()
+    assert bf16_matmul.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    torch.testing.assert_close(got, bf16_matmul_plain(a, w, hardtanh=hardtanh),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("hybrid", [False, True])
+def test_mlp_on_card_matches_cpu(dev, hybrid):
+    """The MNIST net's training and eval forwards, and packed inference, on
+    the card (B1 in each binary layer) against the same params on the CPU;
+    two B1 launches per forward of the hybrid net, none for the float net."""
+    params = H.mlp_init(0, hybrid=hybrid, device="cpu")
+    params_dev = _to(params, dev)
+    x = torch.from_numpy(np.random.default_rng(1).uniform(-1, 1, (64, 784)).astype(np.float32))
+    for training in (True, False):
+        b0 = binary_matmul.launches
+        got, _ = H.mlp_apply(params_dev, x.to(dev), training=training)
+        assert binary_matmul.launches - b0 == (2 if hybrid else 0)
+        want, _ = H.mlp_apply(params, x, training=training)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    got = H.mlp_apply_packed(H.mlp_pack(params_dev), x.to(dev))
+    want = H.mlp_apply_packed(H.mlp_pack(params), x)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
 
 
 # (causal, G, S, T, kv_len, q_offset): ragged S, per-row kv_len with a row
@@ -126,9 +223,7 @@ def test_smoke_model_on_card_matches_cpu(dev):
                                               param_dtype="float32")
     api = get_model(cfg)
     params = api.init(0, device="cpu")
-    to_dev = (lambda t: {k: to_dev(v) for k, v in t.items()} if isinstance(t, dict)
-              else [to_dev(v) for v in t] if isinstance(t, list) else t.to(dev))
-    params_dev = to_dev(params)
+    params_dev = _to(params, dev)
     toks = np.random.default_rng(0).integers(0, cfg.vocab, (3, 16)).astype(np.int32)
     lens = np.array([16, 9, 2], np.int32)
     n_binary = sum(cfg.policy.block_is_binary(i, cfg.n_layers) for i in range(cfg.n_layers))

@@ -33,8 +33,12 @@ if not torch.cuda.is_available():
     from repro_torch.configs import smoke_config
     from repro_torch.models import get_model
     from repro_torch.launch import serve
+    from repro_torch.core.hybrid_mlp import mlp_init
+    from repro_torch.examples import quickstart
     for what, fn in [("init", lambda: get_model(smoke_config("stablelm-3b")).init(0)),
-                     ("serve", lambda: serve.main(["--smoke", "--requests", "1"]))]:
+                     ("serve", lambda: serve.main(["--smoke", "--requests", "1"])),
+                     ("mlp_init", lambda: mlp_init(0, hybrid=True)),
+                     ("quickstart", lambda: quickstart.main([]))]:
         try:
             fn()
             raised[what] = None
@@ -54,6 +58,11 @@ def test_port_imports_no_jax_and_refuses_missing_card():
     out = json.loads(line[len("RESULT:"):])
     assert "repro_torch.serving.engine" in out["modules"]
     assert "repro_torch.kernels.flash_attention" in out["modules"]
+    for mod in ("core.hybrid_mlp", "core.accelerator_model", "kernels.binary_matmul",
+                "kernels.hybrid_dense", "kernels.bf16_matmul", "optim.bnn",
+                "data.synthetic", "examples.quickstart"):
+        assert "repro_torch." + mod in out["modules"]
     assert out["leaked"] == []
+    assert set(out["raised"]) == {"init", "serve", "mlp_init", "quickstart"}
     for what, msg in out["raised"].items():
         assert msg is not None and "no CUDA device" in msg, what

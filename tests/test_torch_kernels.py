@@ -3,9 +3,10 @@
 * int8: ``int8_matmul_plain`` equals repro's ``int8_matmul_pallas``
   (interpret mode) and ``binary_matmul_packed_ref`` exactly — integer dots
   of +-1 vectors have one right answer, so there is no tolerance.
-* binary dense: ``ops.binary_dense(mode="int8")`` equals repro's
+* binary dense: ``ops.binary_dense(mode="int8")`` on the latent weight,
+  and ``ops.binary_dense_packed`` on its packed words, equal repro's
   ``ops.binary_dense`` exactly in f32 and bitwise in bf16 (both round the
-  same int32 to bf16).
+  same int32 to bf16); so does ``mode="xnor"``.
 * flash: ``flash_attention_plain`` matches repro's ``flash_attention_pallas``
   (interpret mode, 16 x 16 blocks so both grid axes iterate) within
   tests/test_attention.py's TOLS: 2e-5 in f32 (the online softmax sums in
@@ -33,6 +34,7 @@ from repro.kernels.flash_attention import flash_attention_pallas  # noqa: E402
 from repro.kernels.int8_matmul import int8_matmul_pallas  # noqa: E402
 from repro_torch.core.binarize import pack_bits, pack_signs_int8  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.binary_matmul import binary_matmul  # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
                                                  flash_attention_plain)
 from repro_torch.kernels.int8_matmul import (int8_matmul,  # noqa: E402
@@ -104,19 +106,31 @@ def test_binary_dense_int8_matches_repro(dtype, lead):
     jx = jnp.asarray(x, dtype=jnp.dtype(dtype))
     want = np.asarray(j_ops.binary_dense(jx, jnp.asarray(w), mode="int8"))
     tx = torch.from_numpy(np.array(jx.astype(jnp.float32))).to(getattr(torch, dtype))
-    got = ops.binary_dense(tx, pack_bits(torch.from_numpy(w).T), mode="int8")
+    tw = torch.from_numpy(w)
+    got = ops.binary_dense(tx, tw, mode="int8")
     assert got.dtype == tx.dtype and tuple(got.shape) == (*lead, n)
     np.testing.assert_array_equal(got.float().numpy(), want.astype(np.float32))
+    packed = ops.binary_dense_packed(tx, pack_bits(tw.T), mode="int8")
+    assert packed.dtype == tx.dtype
+    np.testing.assert_array_equal(packed.float().numpy(), want.astype(np.float32))
     # the bf16 lowering (float matmul of the signs) gives the same integers
-    np.testing.assert_array_equal(
-        ops.binary_dense(tx, pack_bits(torch.from_numpy(w).T), mode="bf16").float().numpy(),
-        want.astype(np.float32))
+    np.testing.assert_array_equal(ops.binary_dense(tx, tw, mode="bf16").float().numpy(),
+                                  want.astype(np.float32))
 
 
 def test_binary_dense_xnor_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP B1"):
-        ops.binary_dense(torch.ones(2, 32), torch.zeros(4, 1, dtype=torch.int32),
-                         mode="xnor")
+    """mode="xnor" reaches the XNOR-popcount wrapper (its plain version on
+    the CPU, no launch) and gives the int8 lowering's integers; an unknown
+    mode raises."""
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal((6, 40)).astype(np.float32))
+    w = torch.from_numpy(np.random.default_rng(5).uniform(-1, 1, (40, 24)).astype(np.float32))
+    before = binary_matmul.launches
+    got = ops.binary_dense(x, w, mode="xnor")
+    assert binary_matmul.launches == before
+    want = ref.int8_matmul_ref(pack_signs_int8(x), pack_signs_int8(w.T))
+    np.testing.assert_array_equal(got.numpy(), want.float().numpy())
+    with pytest.raises(ValueError, match="unknown binary mode"):
+        ops.binary_dense(x, w, mode="xor")
 
 
 def _qkv(b, s, t, hq, hkv, d, seed):

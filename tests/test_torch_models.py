@@ -119,9 +119,10 @@ def test_unported_configs_raise():
     cfg = smoke_config("stablelm-3b")
     with pytest.raises(NotImplementedError, match="ROADMAP A3"):
         get_model(cfg.replace(kv_cache="int8"))
-    with pytest.raises(NotImplementedError, match="ROADMAP B1"):
-        get_model(cfg.replace(policy=PrecisionPolicy(
-            binary_ffn=True, edge_blocks_float=1, binary_mode="xnor")))
+    # the XNOR-popcount kernel (B1) is ported: an xnor LM builds
+    xnor = cfg.replace(policy=PrecisionPolicy(binary_ffn=True, edge_blocks_float=1,
+                                              binary_mode="xnor"))
+    assert get_model(xnor).cfg.policy.binary_mode == "xnor"
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         get_model(cfg.replace(use_mla=True))
     from repro_torch.configs import get_config
