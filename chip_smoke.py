@@ -6,8 +6,8 @@
 Phases, one output line each (or a few), every failure raising:
 
   1. the device: torch's name for it and nvidia-smi's name and power limit;
-  2. build: all five CUDA kernels compiled from src/repro_torch/csrc (one
-     nvcc each, started together);
+  2. build: the six CUDA sources of src/repro_torch/csrc (nine kernels),
+     compiled with one nvcc each, started together;
   3. int8: the int8-binary GEMM kernel against its plain version at the
      serving path's shapes (decode M = 8, prefill M = 8 x 128 and 8 x 256,
      bin_in (N, K) = (6912, 2560) and bin_out (2560, 6912)) and a ragged
@@ -20,34 +20,49 @@ Phases, one output line each (or a few), every failure raising:
      128, within bf16's tolerance of 3e-2 (tests/test_attention.py TOLS);
      times beside the bound and scaled_dot_product_attention's (with
      enable_gqa for the GQA case, on torch >= 2.5);
-  5. serve: stablelm-3b at full width (32 layers, d_model 2560, bf16,
+  5. kv_quant: the four KV quantize / dequantize kernels (B4a-d) bit for
+     bit against their plain versions at the decode insert (8, 1, 32, 80),
+     the prefill encode (8, 128, 32, 80) in bf16 and f32, ragged row counts
+     and D = 129 and 16, each with an all-zero row; times beside the byte
+     bound (no PyTorch call computes them: no yardstick);
+  6. serve: stablelm-3b at full width (32 layers, d_model 2560, bf16,
      random init from a seeded torch.Generator on the card) through
-     ServeEngine(max_batch=8, max_len=256), 12 requests of 16 new tokens;
-     every request gets 16 tokens in range, the kernels' launch counts are
-     exactly 56 (int8) and 32 (flash, prefill only) per forward, a second
-     run gives the same tokens, logits are finite and layer 0 agrees with
-     the plain attention on a small batch; a third run under torch.profiler
-     gives the device time by kernel and the device's busy share of the
-     second run's wall time;
-  6. xnor: the XNOR-popcount GEMM against its plain version, exactly, at
+     ServeEngine(max_batch=8, max_len=256), 12 requests of 16 new tokens,
+     on five paths, each with the launch counts zeroed just before it and
+     read just after: the bf16 pool, the int8 and the binary pools, and,
+     on prompts that share a 64-token header with the first request served
+     alone before the rest, the int8 pool and a paged int8 pool (block 16)
+     with the radix prefix cache. On each: every request gets 16 tokens in
+     range; launches are exactly 2 x 28 per wave and per step (int8 GEMM),
+     32 per wave without a cached prefix (flash), 2 x 32 per wave and per
+     step of the codec's quantizer, 2 x 32 of its dequantizer per step and
+     kv block of 128 (the fused decode) and per wave on a cached prefix
+     (its context), 0 of the rest; the pool's bytes are exact (671,088,640
+     / 343,932,928 / 58,720,256); a second run gives the same tokens; the
+     paged run hits the prefix cache. Logits are finite;
+     layer 0 agrees with the plain attention on a small batch, and its
+     int8 and binary caches decode as their materialized copies do (2e-2).
+     Profiled runs of the bf16 and int8 paths give the device time by
+     kernel and the device's busy share of the unprofiled wall time;
+  7. xnor: the XNOR-popcount GEMM against its plain version, exactly, at
      the MNIST net's hidden layers (M = 1, 128, 256, 512; N = K = 1024),
      ragged K (40, 100, 384) and the spec-draft shape (8, 6912, 2560); the
      yardstick is the same cuBLAS call as int8's, on unpacked signs;
-  7. hybrid_dense: the fused binary layer bit-exact at (256, 1024, 1024)
+  8. hybrid_dense: the fused binary layer bit-exact at (256, 1024, 1024)
      and at ragged M; no PyTorch call computes it, so no yardstick;
-  8. bf16_matmul: the bf16 GEMM within 2e-2 (tests/test_kernels.py), with
+  9. bf16_matmul: the bf16 GEMM within 2e-2 (tests/test_kernels.py), with
      hardtanh off and on, at (256, 1024, 512) and the MNIST float layers at
      batch 256 (fc0's K = 784, fc3's N = 10); the yardstick is torch.mm;
-  9. mnist: the paper's net, the port's quickstart path: the hybrid net
+ 10. mnist: the paper's net, the port's quickstart path: the hybrid net
      trains 2 epochs on SyntheticMnist, packs and runs packed inference,
      with the launch counts zeroed just before and read just after (B1
      exactly twice per forward); the float net trains too (no B1); both
      beat 0.6 test accuracy; packed logits through B1, through B2 and with
      latents are bitwise equal; packed inferences per second at batch 1
      and 256 (the paper's Table I protocol), warm, without an L2 flush;
- 10. a JSON line of the kernels: launches on their paths (B2 and B3 in the
-     serving run, B1 in the MNIST run, B5 and B6 on none), largest error,
-     times and bounds;
+ 11. a JSON line of the nine kernels: launches summed over the paths (B2,
+     B3 and B4a-d on the serving paths, B1 on the MNIST path, B5 and B6
+     on none), largest error, times and bounds;
 
 and last, ``{"ok": true, "device": {...}}``. Without a GPU it exits non-zero
 and prints no result. Kernel times are CUDA-event medians of the device's
@@ -83,14 +98,21 @@ from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
                                                  flash_attention_plain)
 from repro_torch.kernels.hybrid_dense import hybrid_dense, hybrid_dense_plain  # noqa: E402
 from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_plain  # noqa: E402
+from repro_torch.kernels import kv_quant as kvq  # noqa: E402
 from repro_torch.models import get_model, lm_common as lc  # noqa: E402
-from repro_torch.nn.layers import embedding_lookup  # noqa: E402
+from repro_torch.nn import attention as attn_lib  # noqa: E402
+from repro_torch.nn.layers import embedding_lookup, rmsnorm_apply  # noqa: E402
+from repro_torch.serving import kvcache as kvc  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
 
 KERNELS = {  # name -> wrapper; every launch count is zeroed before each path
     "int8_matmul": int8_matmul, "flash_attention": flash_attention,
     "binary_matmul": binary_matmul, "hybrid_dense": hybrid_dense,
-    "bf16_matmul": bf16_matmul}
+    "bf16_matmul": bf16_matmul, "kv_quant_int8": kvq.kv_quant_int8,
+    "kv_dequant_int8": kvq.kv_dequant_int8, "kv_quant_binary": kvq.kv_quant_binary,
+    "kv_dequant_binary": kvq.kv_dequant_binary}
+SOURCES = ["int8_matmul", "flash_attention", "binary_matmul", "hybrid_dense",
+           "bf16_matmul", "kv_quant"]          # src/repro_torch/csrc/<name>.cu
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s, int8
 # tensor-core ops/s, bf16 tensor-core flop/s
@@ -127,7 +149,10 @@ class Timer:
     takes to enqueue the call, so the start event, the call's kernels and
     the end event are all queued before the device reaches them: the
     interval is the device's time for the call, not the wrapper's Python
-    time, which exceeds a small kernel's own."""
+    time, which exceeds a small kernel's own. A sample is kept only if the
+    device was still held when the host had queued the end event (the start
+    event not yet reached); otherwise the hold doubles and the sample is
+    taken again, and a hold that never covers the call raises."""
 
     def __init__(self, device):
         self.flush = torch.empty(64 << 20, dtype=torch.int8, device=device)
@@ -144,19 +169,25 @@ class Timer:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
-        hold = int(self.cycles_per_ms * (2e3 * (time.perf_counter() - t0) + 0.05))
+        hold_ms = 2e3 * (time.perf_counter() - t0) + 0.05
         torch.cuda.synchronize()
         times = []
-        for _ in range(reps):
+        while len(times) < reps:
             self.flush.zero_()
-            torch.cuda._sleep(hold)
+            torch.cuda._sleep(int(self.cycles_per_ms * hold_ms))
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             fn()
             end.record()
+            covered = not start.query()
             end.synchronize()
-            times.append(start.elapsed_time(end))
+            if covered:
+                times.append(start.elapsed_time(end))
+            elif hold_ms < 1e3:
+                hold_ms *= 2
+            else:
+                raise RuntimeError("the device hold never covered the host's enqueue")
         return statistics.median(times)
 
 
@@ -297,13 +328,32 @@ def phase_flash(dev, gen, timer) -> list[dict]:
 # ---------------------------------------------------------------------------
 
 N_REQUESTS, PROMPT_LENS, MAX_NEW = 12, (16, 48, 100, 128), 16
+HEADER = 64           # tokens of the header the paged run's prompts share
+# exact pool bytes of stablelm-3b at max_batch 8, max_len 256 (32 layers x
+# 32 KV heads of 80: 327,680 / 167,936 / 28,672 bytes per token)
+KV_BYTES = {"bf16": 671_088_640, "int8": 343_932_928, "binary": 58_720_256}
+# the further serving paths: (label, ServeEngine options, header prompts).
+# On the header prompts the first request runs alone, so the rest find its
+# header on the radix tree; the contiguous int8 run on them is the paged
+# run's like-for-like yardstick
+KV_PATHS = [("int8", dict(kv_cache="int8"), False),
+            ("binary", dict(kv_cache="binary"), False),
+            ("int8, header prompts", dict(kv_cache="int8"), True),
+            ("paged int8 + prefix cache", dict(kv_cache="int8", kv_block_size=16,
+                                               prefix_cache=True), True)]
+KV_BLOCK = 128        # the fused decode's kv block (kvcache._fused_quant_decode)
 
 
-def _serve_once(api, params, prompts):
-    eng = ServeEngine(api, params, max_batch=8, max_len=256)
-    rids = [eng.add_request(p, max_new=MAX_NEW) for p in prompts]
+def _serve_once(api, params, prompts, staged=False, **kw):
+    """Serve ``prompts`` through a fresh engine; ``staged``, the first
+    request runs to its end before the others arrive."""
+    eng = ServeEngine(api, params, max_batch=8, max_len=256, **kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    rids = [eng.add_request(p, max_new=MAX_NEW) for p in prompts[:1]]
+    if staged:
+        eng.run()
+    rids += [eng.add_request(p, max_new=MAX_NEW) for p in prompts[1:]]
     res = eng.run()
     torch.cuda.synchronize()
     return [res[r] for r in rids], time.perf_counter() - t0, eng
@@ -314,12 +364,14 @@ def _kernel_family(name: str) -> str:
         return "int8_matmul (ours)"
     if "flash_fwd" in name:
         return "flash_attention (ours)"
+    if "quant_int8" in name or "quant_binary" in name:
+        return "kv_quant (ours)"
     if any(t in name for t in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
         return "float matmuls (cuBLAS)"
     return "other (elementwise, norms, copies, argmax)"
 
 
-def _profile(api, params, prompts, wall_unprofiled: float) -> dict:
+def _profile(api, params, prompts, wall_unprofiled: float, **kw) -> dict:
     """Device time by kernel over one serving run (torch.profiler; kernel
     times come from the device's own clock), and the device's busy share of
     the same work run without the profiler, whose host-side recording
@@ -327,7 +379,7 @@ def _profile(api, params, prompts, wall_unprofiled: float) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        out, wall, _ = _serve_once(api, params, prompts)
+        out, wall, _ = _serve_once(api, params, prompts, **kw)
     per_kernel = {}     # device-side events only: a CPU op's device time repeats its kernels'
     for evt in prof.key_averages():
         if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0:
@@ -344,6 +396,58 @@ def _profile(api, params, prompts, wall_unprofiled: float) -> dict:
                             for n, (ms, c) in top]}
 
 
+def _check_path(label, launches, eng, cfg, n_binary, kv: str, flash_waves: int) -> None:
+    """Every kernel's launches on one serving path: B2 2 x binary blocks and
+    the codec's quantizer 2 x layers per prefill wave and per decode step,
+    its dequantizer 2 x layers per decode step and kv block (the fused
+    decode over 256 positions) and per wave on a cached prefix (the
+    context's gather), B3 one per layer per wave without a cached prefix,
+    all else 0; and the pool's exact bytes."""
+    waves, steps = eng.stats["prefills"], eng.stats["decode_steps"]
+    want = {k: 0 for k in KERNELS}
+    want["int8_matmul"] = 2 * n_binary * (waves + steps)
+    want["flash_attention"] = cfg.n_layers * flash_waves
+    if kv != "bf16":
+        want[f"kv_quant_{kv}"] = 2 * cfg.n_layers * (waves + steps)
+        want[f"kv_dequant_{kv}"] = 2 * cfg.n_layers * (-(-256 // KV_BLOCK) * steps
+                                                       + waves - flash_waves)
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, want {want} for {waves} "
+                             f"prefill waves + {steps} decode steps")
+    per_tok = cfg.n_layers * kvc.get_codec(kv).bytes_per_token(cfg.n_kv_heads,
+                                                               cfg.kv_head_dim())
+    if not eng.stats["kv_bytes"] == KV_BYTES[kv] == per_tok * 8 * 256:
+        raise AssertionError(f"{label}: kv_bytes {eng.stats['kv_bytes']}, want {KV_BYTES[kv]}")
+
+
+def _check_outputs(label, out, vocab) -> None:
+    for o in out:
+        if len(o) != MAX_NEW or not all(0 <= t < vocab for t in o):
+            raise AssertionError(f"{label}: bad output {o}")
+
+
+def _fused_decode_layer0(params, cfg, toks, lens) -> dict:
+    """Layer 0's K/V from a prefill, encoded by each quantized codec: the
+    dequant-fused decode against attention over the materialized cache
+    (tests/test_kvcache.py's 2e-2)."""
+    x = embedding_lookup(params["embed"], toks, compute_dtype=lc.cdt(cfg))
+    h = rmsnorm_apply(params["blocks"][0]["ln1"], x)
+    pos = torch.arange(toks.shape[1], device=toks.device)
+    q, k, v = lc.gqa_qkv(params["blocks"][0]["attn"], h, cfg, pos)
+    errs = {}
+    for kv in ("int8", "binary"):
+        codec = kvc.get_codec(kv)
+        cache = codec.from_prefill(k, v, 64)
+        cache["len"] = lens.clone()
+        got = codec.decode_attention(q[:, -1:], cache)
+        km, vm = codec.materialize(cache, head_dim=cfg.kv_head_dim())
+        want = attn_lib.decode_attention(q[:, -1:], km, vm, kv_len=cache["len"])
+        errs[kv] = float((got.float() - want.float()).abs().max())
+        if not errs[kv] <= 2e-2:
+            raise AssertionError(f"layer 0 fused {kv} decode vs materialized: {errs[kv]}")
+    return errs
+
+
 def phase_serve(dev, card: str) -> dict:
     cfg = get_config("stablelm-3b")
     api = get_model(cfg)
@@ -355,22 +459,16 @@ def phase_serve(dev, card: str) -> dict:
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab, int(rng.choice(PROMPT_LENS)))
                for _ in range(N_REQUESTS)]
+    header = rng.integers(0, cfg.vocab, HEADER)
+    shared = [np.concatenate([header, p]) for p in prompts]
 
     # the main path, with the launch counts zeroed just before it
     zero_counts()
     out, wall, eng = _serve_once(api, params, prompts)
     launches = counts()
     waves, steps = eng.stats["prefills"], eng.stats["decode_steps"]
-    for o in out:
-        if len(o) != MAX_NEW or not all(0 <= t < cfg.vocab for t in o):
-            raise AssertionError(f"bad output {o}")
-    if launches["int8_matmul"] != 2 * n_binary * (waves + steps):
-        raise AssertionError(f"int8 launches {launches} for {waves} prefill waves "
-                             f"+ {steps} decode steps, {n_binary} binary blocks")
-    if launches["flash_attention"] != cfg.n_layers * waves:
-        raise AssertionError(f"flash launches {launches} for {waves} prefill waves")
-    if any(launches[k] for k in ("binary_matmul", "hybrid_dense", "bf16_matmul")):
-        raise AssertionError(f"the int8 LM launched another kernel: {launches}")
+    _check_outputs("bf16", out, cfg.vocab)
+    _check_path("bf16", launches, eng, cfg, n_binary, "bf16", waves)
     out2, wall2, _ = _serve_once(api, params, prompts)
     if out2 != out:
         raise AssertionError("a second run of the same requests gave other tokens")
@@ -378,8 +476,49 @@ def phase_serve(dev, card: str) -> dict:
     if prof.pop("out") != out:
         raise AssertionError("the profiled run gave other tokens")
 
+    # the further paths: each with its counts zeroed just before and read
+    # just after, run twice for the same tokens
+    paths = []
+    for label, kw, on_header in KV_PATHS:
+        batch = shared if on_header else prompts
+        zero_counts()
+        k_out, k_wall, k_eng = _serve_once(api, params, batch, staged=on_header, **kw)
+        k_launches = counts()
+        _check_outputs(label, k_out, cfg.vocab)
+        # with the prefix cache only the first, lone wave prefills without
+        # a cached prefix: every later request matches the header
+        _check_path(label, k_launches, k_eng, cfg, n_binary, kw["kv_cache"],
+                    1 if kw.get("prefix_cache") else k_eng.stats["prefills"])
+        if kw.get("prefix_cache") and not (k_eng.pool.stats["hits"] > 0 and
+                                           k_eng.stats["cached_prompt_tokens"] > 0):
+            raise AssertionError(f"{label}: no prefix hits {k_eng.pool.stats}")
+        k_out2, k_wall2, _ = _serve_once(api, params, batch, staged=on_header, **kw)
+        if k_out2 != k_out:
+            raise AssertionError(f"{label}: a second run gave other tokens")
+        n_tok = sum(len(o) for o in k_out)
+        row = dict(path=label, tokens=n_tok, prefill_waves=k_eng.stats["prefills"],
+                   decode_steps=k_eng.stats["decode_steps"], launches=k_launches,
+                   kv_bytes=k_eng.stats["kv_bytes"],
+                   kv_bytes_vs_bf16=KV_BYTES["bf16"] / k_eng.stats["kv_bytes"],
+                   prefilled_tokens=k_eng.stats["prefilled_tokens"],
+                   cached_prompt_tokens=k_eng.stats["cached_prompt_tokens"],
+                   wall_s_first=k_wall, wall_s=k_wall2, tok_per_s_first=n_tok / k_wall,
+                   tok_per_s=n_tok / k_wall2)
+        if kw.get("prefix_cache"):
+            row["prefix_pool"] = dict(k_eng.pool.stats)
+        elif not on_header:
+            row["tokens_as_bf16"] = sum(a == b for o, w in zip(k_out, out)
+                                        for a, b in zip(o, w)) / n_tok
+        if label == "int8":
+            row["profile"] = _profile(api, params, batch, k_wall2, **kw)
+            if row["profile"].pop("out") != k_out:
+                raise AssertionError("the profiled int8 run gave other tokens")
+        log("serve_kv", **row)
+        paths.append(row)
+
     # logits finite and of the padded vocab; layer 0 (a float block) through
-    # the flash kernel agrees with the plain attention on a small batch
+    # the flash kernel agrees with the plain attention on a small batch, and
+    # its quantized caches decode as their materialized copies do
     toks = torch.as_tensor(np.stack([np.resize(p, 48) for p in prompts[:2]]), device=dev)
     lens = torch.tensor([48, 20], dtype=torch.int32, device=dev)
     logits, _ = api.prefill(params, {"tokens": toks}, max_len=64, seq_lens=lens)
@@ -395,17 +534,84 @@ def phase_serve(dev, card: str) -> dict:
     layer0_err = float((outs[0].float() - outs[1].float()).abs().max())
     if not torch.allclose(outs[0].float(), outs[1].float(), rtol=BF16_TOL, atol=BF16_TOL):
         raise AssertionError(f"layer 0 flash vs plain attention: {layer0_err}")
+    fused_err = _fused_decode_layer0(params, cfg, toks, lens)
     n_tok = sum(len(o) for o in out)
     row = dict(card=card, arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
                binary_blocks=n_binary, requests=N_REQUESTS, tokens=n_tok,
                prefill_waves=waves, decode_steps=steps, launches=launches,
-               init_s=init_s, wall_s_first=wall, wall_s=wall2,
-               tok_per_s_first=n_tok / wall, tok_per_s=n_tok / wall2,
-               layer0_flash_vs_plain=layer0_err,
+               kv_bytes=eng.stats["kv_bytes"], init_s=init_s, wall_s_first=wall,
+               wall_s=wall2, tok_per_s_first=n_tok / wall, tok_per_s=n_tok / wall2,
+               layer0_flash_vs_plain=layer0_err, layer0_fused_vs_materialized=fused_err,
                peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
     log("serve", **row)
     log("profile", card=card, **prof)
-    return row
+    return {**row, "paths": paths}
+
+
+# ---------------------------------------------------------------------------
+# phase: KV quantize / dequantize (B4a-d)
+# ---------------------------------------------------------------------------
+
+KV_CASES = [  # (name, shape (..., D), dtype): the serving path's, then ragged
+    ("decode insert (8, 1, 32, 80), bf16", (8, 1, 32, 80), torch.bfloat16),
+    ("prefill encode (8, 128, 32, 80), bf16", (8, 128, 32, 80), torch.bfloat16),
+    ("prefill encode (8, 128, 32, 80), f32", (8, 128, 32, 80), torch.float32),
+    ("ragged rows (3, 7, 5, 80), bf16", (3, 7, 5, 80), torch.bfloat16),
+    ("ragged rows, D 129, f32", (1, 37, 3, 129), torch.float32),
+    ("D 16, bf16", (5, 9, 2, 16), torch.bfloat16),
+]
+F32_FLOPS = 67e12        # H100 SXM f32 outside the tensor cores (data sheet)
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def phase_kvquant(dev, gen, timer) -> dict[str, list]:
+    """B4a-d bit for bit against their plain versions, each case with one
+    all-zero row; times beside the bound (bytes: each input read once, each
+    output written once, over 3.35 TB/s; the few f32 operations per element
+    over 67 TFLOP/s bind less). No single PyTorch call computes any of the
+    four, so there is no yardstick."""
+    rows: dict[str, list] = {k: [] for k in ("kv_quant_int8", "kv_dequant_int8",
+                                             "kv_quant_binary", "kv_dequant_binary")}
+    for name, shape, dt in KV_CASES:
+        d = shape[-1]
+        x = torch.randn(*shape, generator=gen, device=dev).to(dt)
+        x.view(-1, d)[1] = 0.0
+        n, kp, isz = x.numel() // d, packed_len(d), x.element_size()
+        q, s = kvq.kv_quant_int8(x)
+        p, ps = kvq.kv_quant_binary(x)
+        calls = {  # kernel -> (kernel call, plain call, bytes, f32 operations)
+            "kv_quant_int8": (lambda: kvq.kv_quant_int8(x), lambda: kvq.kv_quant_int8_plain(x),
+                              n * d * (isz + 1) + 2 * n, 4 * n * d),
+            "kv_dequant_int8": (lambda: kvq.kv_dequant_int8(q, s, dtype=torch.float32),
+                                lambda: kvq.kv_dequant_int8_plain(q, s, torch.float32),
+                                n * d * 5 + 2 * n, n * d),
+            "kv_quant_binary": (lambda: kvq.kv_quant_binary(x),
+                                lambda: kvq.kv_quant_binary_plain(x),
+                                n * d * isz + 4 * n * kp + 2 * n, 2 * n * d),
+            "kv_dequant_binary": (lambda: kvq.kv_dequant_binary(p, ps, d, dtype=torch.float32),
+                                  lambda: kvq.kv_dequant_binary_plain(p, ps, d, torch.float32),
+                                  4 * n * kp + 2 * n + 4 * n * d, n * d),
+        }
+        for kname, (fn, plain, nbytes, ops) in calls.items():
+            got, want = fn(), plain()
+            torch.cuda.synchronize()
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            if not all(_same_bits(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"{kname} kernel differs from plain at {name}")
+            ms = timer(fn)
+            plain_ms = timer(plain, reps=10)
+            b_ms, b_by = bound(nbytes, ops, F32_FLOPS)
+            row = dict(case=name, rows=n, D=d, dtype=str(dt).split(".")[-1], max_abs_err=0,
+                       ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=None, library_call="none: no single PyTorch call computes it")
+            log(kname, **row)
+            rows[kname].append(row)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -633,7 +839,7 @@ def main() -> int:
     print(smi, flush=True)
 
     t0 = time.perf_counter()
-    build.build_all(list(KERNELS))
+    build.build_all(SOURCES)
     log("build", seconds=time.perf_counter() - t0, dir=str(build.BUILD_DIR))
 
     gen = torch.Generator(device=dev)
@@ -641,6 +847,7 @@ def main() -> int:
     timer = Timer(dev)
     int8_rows = phase_int8(dev, gen, timer)
     flash_rows = phase_flash(dev, gen, timer)
+    kv_rows = phase_kvquant(dev, gen, timer)
     serve = phase_serve(dev, smi)
     xnor_rows = phase_xnor(dev, gen, timer)
     hybrid_rows = phase_hybrid(dev, gen, timer)
@@ -648,14 +855,18 @@ def main() -> int:
     del timer
     mnist = phase_mnist(dev, smi)
 
+    # launches on every path: the serving paths (bf16, int8, binary, paged
+    # int8 with the prefix cache) and the MNIST net, each counted from 0
+    path_launches = [serve["launches"], mnist["launches"],
+                     *(p["launches"] for p in serve["paths"])]
+
     def entry(kname, source, replaces, rows):
         # the headline case is the first: decode bin_in, full-length flash,
-        # the MNIST hidden layer at the training batch, at batch 256, fc0
+        # the decode insert, the MNIST hidden layer at the training batch,
+        # at batch 256, fc0
         head = rows[0]
         return {"name": kname, "route": "cuda", "source": source, "replaces": replaces,
-                # each kernel runs on one path at most; the phases checked
-                # that the other path launched it no time
-                "launches": serve["launches"][kname] + mnist["launches"][kname],
+                "launches": sum(pl[kname] for pl in path_launches),
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "ms": head["ms"], "plain_ms": head["plain_ms"],
                 "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -674,6 +885,10 @@ def main() -> int:
               "src/repro/kernels/hybrid_dense.py:54", hybrid_rows),
         entry("bf16_matmul", "src/repro_torch/csrc/bf16_matmul.cu",
               "src/repro/kernels/bf16_matmul.py:42", bf16_rows),
+        *(entry(k, "src/repro_torch/csrc/kv_quant.cu", f"src/repro/kernels/kv_quant.py:{line}",
+                kv_rows[k])
+          for k, line in (("kv_quant_int8", 161), ("kv_dequant_int8", 179),
+                          ("kv_quant_binary", 195), ("kv_dequant_binary", 211))),
     ]}
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps({**RECORD, **kernels}, indent=1))

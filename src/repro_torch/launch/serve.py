@@ -6,7 +6,9 @@ of requests through the continuous-batching slot engine.
 
 ``--smoke`` takes the arch's small config; ``--device cpu`` runs on the CPU
 (the CUDA kernels then run their plain versions). Without ``--device`` it
-runs on the card, and fails where there is none.
+runs on the card, and fails where there is none. ``--kv-cache`` picks the
+pool's codec (bf16, int8, binary), ``--kv-block-size`` the paged pool and
+``--prefix-cache`` the radix prefix cache over it.
 """
 
 from __future__ import annotations
@@ -37,6 +39,13 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random init and of the prompts")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--kv-cache", default=None, choices=["auto", "bf16", "int8", "binary"],
+                    help="KV-cache codec override (see serving/kvcache.py)")
+    ap.add_argument("--kv-block-size", type=int, default=0,
+                    help="paged KV pool block size in tokens (0 = slot-contiguous pool)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="radix prefix cache over the paged pool "
+                         "(requires --kv-block-size > 0)")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
 
@@ -45,7 +54,8 @@ def main(argv=None):
     params = api.init(args.seed, device=args.device)
     plens = [int(x) for x in args.prompt_lens.split(",")]
     eng = ServeEngine(api, params, max_batch=args.max_batch,
-                      max_len=max(plens) + args.max_new + 8)
+                      max_len=max(plens) + args.max_new + 8, kv_cache=args.kv_cache,
+                      kv_block_size=args.kv_block_size, prefix_cache=args.prefix_cache)
     rng = np.random.default_rng(args.seed)
     for _ in range(args.requests):
         plen = int(rng.choice(plens))

@@ -6,6 +6,9 @@
     caches = api.init_cache(batch_size, max_len, device=)
     logits, caches = api.decode(params, caches, tokens)
     caches = api.cache_insert(pool, new, slots)
+    caches = api.init_paged_cache(n_blocks, block_size, max_batch, n_pages, device=)
+    logits, caches = api.prefill_ctx(params, {"tokens": t}, ctx, ctx_lens,
+                                     max_len=, seq_lens=)
 
 The port serves ``family="dense"`` with GQA attention. MLA and the other
 families raise NotImplementedError (ROADMAP A8); training (``loss``)
@@ -26,6 +29,12 @@ class ModelApi(NamedTuple):
     decode: Callable
     init_cache: Callable
     cache_insert: Callable
+    # the paged pool's seams (radix prefix cache): init_paged_cache(n_blocks,
+    # block_size, max_batch, n_pages, device=) and prefill_ctx(params, batch,
+    # ctx, ctx_lens, max_len=, seq_lens=), a suffix prefill that attends to
+    # a cached prefix gathered from the pool
+    init_paged_cache: Callable
+    prefill_ctx: Callable
 
 
 def get_model(cfg: ModelConfig) -> ModelApi:
@@ -46,4 +55,8 @@ def get_model(cfg: ModelConfig) -> ModelApi:
         decode=lambda p, c, tok: t.lm_decode(p, cfg, c, tok),
         init_cache=lambda bs, ml, device: t.lm_init_cache(cfg, bs, ml, device=device),
         cache_insert=t.lm_cache_insert,
+        init_paged_cache=lambda nb, bsz, mb, npg, device: t.lm_init_paged_cache(
+            cfg, nb, bsz, mb, npg, device=device),
+        prefill_ctx=lambda p, b, ctx, cl, **kw: t.lm_prefill_ctx(p, cfg, b["tokens"], ctx,
+                                                                 cl, **kw),
     )

@@ -10,6 +10,11 @@ side: this package imports no jax) and returns the port's params:
   * each binary dense gets its packed sign words (``w_packed``) from its
     latent weight, as the port's own init does.
 
+``caches_from_jax(tree, cfg)`` takes a repro KV cache pytree (contiguous or
+paged, any codec; numpy leaves) and returns the port's list of per-layer
+cache dicts: each ``seg{i}`` leaf is split along its layer axis, and packed
+uint32 words become int32 words with the same bits.
+
 ``mlp_params_from_jax(tree)`` takes repro's hybrid-MLP params
 (core/hybrid_mlp.py), latent or packed, with numpy leaves, and keeps their
 structure; repro's uint32 ``w_packed`` words become the port's int32 words
@@ -62,6 +67,16 @@ def params_from_jax(tree: dict, cfg: ModelConfig, *, device="cuda") -> dict:
             blocks.append(_packed(_map(seg, lambda a, i=i: _tensor(a[i], device))))
     out["blocks"] = blocks
     return out
+
+
+def caches_from_jax(tree: dict, cfg: ModelConfig, *, device="cuda") -> list:
+    device = resolve_device(device)
+    caches = []
+    for si, (_, _, count) in enumerate(lc.build_segments(cfg)):
+        seg = tree[f"seg{si}"]
+        caches += [{k: _tensor(np.asarray(a)[i], device) for k, a in seg.items()}
+                   for i in range(count)]
+    return caches
 
 
 def mlp_params_from_jax(tree: dict, *, device="cuda") -> dict:

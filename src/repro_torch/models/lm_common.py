@@ -110,11 +110,19 @@ def gqa_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, positions):
 
 
 def gqa_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict):
-    """One-token decode against the cache; x (B, 1, d)."""
+    """One-token decode against the cache; x (B, 1, d). The ``cfg.kv_cache``
+    codec owns the layout and, for int8 / binary, the dequant-fused attend
+    (serving/kvcache.py). A paged cache (one with a "table" leaf) inserts
+    and attends through its block table."""
     positions = cache["len"][:, None]                     # (B, 1)
     q, k, v = gqa_qkv(p, x, cfg, positions)
-    cache = kvc.insert_timestep(cache, k, v)
-    o = kvc.decode_attention(q, cache, impl=cfg.attn_impl)
+    codec = kvc.get_codec(cfg.kv_cache)
+    if "table" in cache:
+        cache = kvc.paged_insert_timestep(cache, k, v, codec)
+        o = kvc.paged_decode_attention(q, cache, codec)
+    else:
+        cache = codec.insert_timestep(cache, k, v)
+        o = codec.decode_attention(q, cache, impl=cfg.attn_impl)
     o = o.reshape(*x.shape[:2], -1)
     return nn.dense_apply(p["wo"], o, compute_dtype=cdt(cfg)), cache
 
@@ -152,19 +160,32 @@ def block_init(cfg: ModelConfig, sig: BlockSig, *, generator, device) -> dict:
 
 
 def block_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig, sig: BlockSig, *,
-                  positions, max_len: int, seq_lens=None):
+                  positions, max_len: int, seq_lens=None, ctx=None, ctx_len=None):
     """Full-sequence forward that also emits this block's decode cache.
     seq_lens (B,) masks keys past each row's true length in a right-padded
     batch (real rows see the same keys either way: causality hides the
-    trailing pads)."""
+    trailing pads).
+
+    ctx / ctx_len carry a cached prefix for a suffix prefill (the radix
+    prefix cache): ctx is this block's {"k", "v"} (B, P, Hkv, D) gathered
+    from the paged pool, ctx_len (B,) its valid lengths, and ``positions``
+    the suffix tokens' absolute (B, S) positions. That prefill attends with
+    the plain prefix attention, not the flash kernel, as in repro.
+
+    K/V are encoded into the ``cfg.kv_cache`` codec after attention, which
+    uses them unquantized: prefill logits are the same under every codec."""
     _check_sig(sig)
     b, s, _ = x.shape
     h = nn.rmsnorm_apply(p["ln1"], x)
     q, k, v = gqa_qkv(p["attn"], h, cfg, positions)
-    o = attn_lib.prefill_attention(q, k, v, chunk=cfg.attn_chunk, kv_len=seq_lens,
-                                   impl=cfg.attn_impl)
+    if ctx is not None:
+        o = attn_lib.prefix_prefill_attention(q, ctx["k"], ctx["v"], ctx_len, k, v,
+                                              kv_len=seq_lens)
+    else:
+        o = attn_lib.prefill_attention(q, k, v, chunk=cfg.attn_chunk, kv_len=seq_lens,
+                                       impl=cfg.attn_impl)
     a = nn.dense_apply(p["attn"]["wo"], o.reshape(b, s, -1), compute_dtype=cdt(cfg))
-    cache = kvc.from_prefill(k, v, max_len)
+    cache = kvc.get_codec(cfg.kv_cache).from_prefill(k, v, max_len)
     x = x + a
     h = nn.rmsnorm_apply(p["ln2"], x)
     return x + ffn_apply(p["ffn"], h, cfg), cache
@@ -199,12 +220,14 @@ def build_segments(cfg: ModelConfig) -> list[tuple[BlockSig, int, int]]:
 
 
 def segments_prefill(blocks: list, x: torch.Tensor, cfg: ModelConfig, *,
-                     positions, max_len: int, seq_lens=None):
-    """Every block in turn; returns (x, one cache per layer)."""
+                     positions, max_len: int, seq_lens=None, ctx=None, ctx_len=None):
+    """Every block in turn; returns (x, one cache per layer). ctx, for a
+    suffix prefill, is one cached-prefix {"k", "v"} per layer."""
     caches = []
     for i, p in enumerate(blocks):
         x, c = block_prefill(p, x, cfg, block_sig(cfg, i), positions=positions,
-                             max_len=max_len, seq_lens=seq_lens)
+                             max_len=max_len, seq_lens=seq_lens,
+                             ctx=None if ctx is None else ctx[i], ctx_len=ctx_len)
         caches.append(c)
     return x, caches
 
@@ -226,6 +249,20 @@ def cache_insert_slots(pool: list, new: list, slots) -> list:
 
 def init_segment_caches(cfg: ModelConfig, batch: int, max_len: int,
                         dtype=torch.bfloat16, *, device) -> list:
-    """Empty decode caches, one per layer (bf16 codec layout)."""
-    return [kvc.init(batch, max_len, cfg.n_kv_heads, cfg.kv_head_dim(), dtype,
-                     device=device) for _ in range(cfg.n_layers)]
+    """Empty decode caches, one per layer, in the ``cfg.kv_cache`` codec's
+    layout."""
+    codec = kvc.get_codec(cfg.kv_cache)
+    return [codec.init(batch, max_len, cfg.n_kv_heads, cfg.kv_head_dim(), dtype,
+                       device=device) for _ in range(cfg.n_layers)]
+
+
+def init_paged_segment_caches(cfg: ModelConfig, n_blocks: int, block_size: int,
+                              max_batch: int, n_pages: int, dtype=torch.bfloat16, *,
+                              device) -> list:
+    """The paged decode pool, one per layer: a shared (n_blocks, block_size,
+    ...) block pool in the ``cfg.kv_cache`` codec's layout plus the slots'
+    block tables (serving/kvcache.init_paged)."""
+    codec = kvc.get_codec(cfg.kv_cache)
+    return [kvc.init_paged(codec, n_blocks, block_size, cfg.n_kv_heads, cfg.kv_head_dim(),
+                           max_batch, n_pages, dtype, device=device)
+            for _ in range(cfg.n_layers)]

@@ -1,5 +1,6 @@
 """Decoder LM for the dense GQA archs (port of repro/models/transformer.py,
-serving half: init, prefill, decode, caches)."""
+serving half: init, prefill, suffix prefill against a cached prefix,
+decode, contiguous and paged caches)."""
 
 from __future__ import annotations
 
@@ -68,6 +69,31 @@ def lm_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     return _logits(params, cfg, h_last)[:, 0], caches
 
 
+def lm_prefill_ctx(params: dict, cfg: ModelConfig, tokens: torch.Tensor, ctx: list,
+                   ctx_lens, *, max_len: int, seq_lens):
+    """Suffix prefill continuing a cached prefix (the radix prefix cache).
+
+    tokens (B, S) hold only each prompt's suffix (right-padded, seq_lens
+    (B,) true suffix lengths); ctx is one cached-prefix {"k", "v"} per layer
+    gathered from the paged pool (kvcache.gather_prefix_context), ctx_lens
+    (B,) its valid tokens (0 = none). Suffix tokens run at absolute
+    positions ctx_lens[b] + j and attend to the prefix and, causally, to
+    the suffix; the caches returned hold the suffix K/V only (len =
+    seq_lens), which the engine scatters into the slot's own blocks."""
+    s = tokens.shape[1]
+    ctx_lens = torch.as_tensor(ctx_lens, dtype=torch.int32, device=tokens.device)
+    seq_lens = torch.as_tensor(seq_lens, dtype=torch.int32, device=tokens.device)
+    positions = ctx_lens[:, None] + torch.arange(s, device=tokens.device)[None, :]
+    x = _embed(params, cfg, tokens)
+    h, caches = lc.segments_prefill(params["blocks"], x, cfg, positions=positions,
+                                    max_len=max_len, seq_lens=seq_lens, ctx=ctx,
+                                    ctx_len=ctx_lens)
+    rows = torch.arange(h.shape[0], device=tokens.device)
+    h_last = h[rows, seq_lens.to(torch.int64) - 1][:, None, :]
+    caches = lc.set_cache_lengths(caches, seq_lens)
+    return _logits(params, cfg, h_last)[:, 0], caches
+
+
 def lm_decode(params: dict, cfg: ModelConfig, caches: list, tokens: torch.Tensor):
     """tokens (B, 1) -> (logits (B, Vp), caches updated in place)."""
     x = _embed(params, cfg, tokens)
@@ -78,6 +104,13 @@ def lm_decode(params: dict, cfg: ModelConfig, caches: list, tokens: torch.Tensor
 def lm_init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device) -> list:
     return lc.init_segment_caches(cfg, batch, max_len, dtype=lc.cdt(cfg),
                                   device=device)
+
+
+def lm_init_paged_cache(cfg: ModelConfig, n_blocks: int, block_size: int,
+                        max_batch: int, n_pages: int, *, device) -> list:
+    """Paged decode pool (a shared block pool + per-slot block tables)."""
+    return lc.init_paged_segment_caches(cfg, n_blocks, block_size, max_batch, n_pages,
+                                        dtype=lc.cdt(cfg), device=device)
 
 
 def lm_cache_insert(pool: list, new: list, slots) -> list:

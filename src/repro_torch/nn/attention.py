@@ -7,6 +7,9 @@ resolved per call (``resolve_attn_impl``):
   prefill_attention   full-sequence self attention, causal by default,
                       optional kv_len for right-padded batches
   decode_attention    single-query attend over a preallocated cache
+  prefix_prefill_attention
+                      suffix prefill against a cached prefix (the radix
+                      prefix cache's admissions; no kernel, as in repro)
 
 Backends:
 
@@ -38,15 +41,11 @@ KV_CACHE_IMPLS = ("auto", "bf16", "int8", "binary")
 
 
 def resolve_kv_cache(impl: str = "auto") -> str:
-    """``ModelConfig.kv_cache`` -> codec name. The port has the bf16 layout
-    only ("auto" is bf16, as in repro)."""
+    """``ModelConfig.kv_cache`` -> codec name ("auto" is bf16, as in repro);
+    the codecs live in serving/kvcache.py."""
     if impl not in KV_CACHE_IMPLS:
         raise ValueError(f"unknown kv cache codec {impl!r}; known: {KV_CACHE_IMPLS}")
-    if impl in ("int8", "binary"):
-        raise NotImplementedError(
-            f"kv_cache={impl!r}: the quantized KV codecs and their kernels "
-            "(B4a-d) are ROADMAP A3")
-    return "bf16"
+    return "bf16" if impl == "auto" else impl
 
 
 def resolve_attn_impl(impl: str = "auto", *, family: str = "prefill",
@@ -128,6 +127,39 @@ def decode_attention(q, k, v, *, kv_len, scale: float | None = None,
     return flash_attention(q, k, v, causal=False, kv_len=kv_len, scale=scale)
 
 
+def prefix_prefill_attention(q, k_ctx, v_ctx, ctx_len, k, v, *, kv_len=None,
+                             scale: float | None = None):
+    """Suffix prefill continuing a cached prefix: one softmax over [prefix
+    context ++ suffix]. Each query sees every valid context position
+    (columns < ctx_len[b]) and the suffix causally — the keys the same
+    tokens see in a full prefill. q carries absolute positions (RoPE at
+    ctx_len[b] + j); the context comes gathered (and dequantized) from the
+    paged pool.
+
+    q (B, S, Hq, D); k_ctx, v_ctx (B, P, Hkv, D); ctx_len (B,) (0 = no
+    cached prefix); k, v (B, S, Hkv, D); kv_len (B,) true suffix lengths of
+    a right-padded batch. Scores and softmax in f32, each weighted sum in
+    its values' dtype, their sum in f32; returns q's dtype."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    p = k_ctx.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qg = q.reshape(b, s, hkv, hq // hkv, d).to(torch.float32)
+    s_ctx = torch.einsum("bshgd,bthd->bhgst", qg, k_ctx.to(torch.float32)) * scale
+    s_suf = torch.einsum("bshgd,bthd->bhgst", qg, k.to(torch.float32)) * scale
+    s_ctx = torch.where(_kv_mask(ctx_len, b, p, q.device), s_ctx, NEG_INF)
+    pos = torch.arange(s, device=q.device)
+    mask_suf = (pos[:, None] >= pos[None, :])[None, None, None]
+    if kv_len is not None:
+        mask_suf = mask_suf & _kv_mask(kv_len, b, s, q.device)
+    s_suf = torch.where(mask_suf, s_suf, NEG_INF)
+    w = torch.softmax(torch.cat([s_ctx, s_suf], dim=-1), dim=-1)
+    out = (torch.einsum("bhgst,bthd->bshgd", w[..., :p].to(v_ctx.dtype), v_ctx)
+           .to(torch.float32)
+           + torch.einsum("bhgst,bthd->bshgd", w[..., p:].to(v.dtype), v).to(torch.float32))
+    return out.reshape(b, s, hq, v.shape[-1]).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # KV cache (the bf16 layout; serving/kvcache.py wraps it)
 # ---------------------------------------------------------------------------
@@ -137,18 +169,3 @@ def init_kv_cache(batch: int, max_len: int, n_kv: int, head_dim: int,
     return {"k": torch.zeros((batch, max_len, n_kv, head_dim), dtype=dtype, device=device),
             "v": torch.zeros((batch, max_len, n_kv, head_dim), dtype=dtype, device=device),
             "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
-
-
-def cache_update_decode(cache: dict, k_new, v_new) -> dict:
-    """Insert one token per sequence at position cache['len'], in place (the
-    port updates the pool where repro returns a new one; the memory is the
-    point). The write position is clamped to T - 1 as repro's
-    dynamic_update_slice clamps it, so a free slot whose length ran past the
-    pool keeps overwriting its last row."""
-    k_buf, v_buf = cache["k"], cache["v"]
-    rows = torch.arange(k_buf.shape[0], device=k_buf.device)
-    idx = torch.clamp(cache["len"], max=k_buf.shape[1] - 1).to(torch.int64)
-    k_buf[rows, idx] = k_new[:, 0].to(k_buf.dtype)
-    v_buf[rows, idx] = v_new[:, 0].to(v_buf.dtype)
-    cache["len"] = cache["len"] + 1
-    return cache

@@ -1,5 +1,6 @@
-"""Continuous-batching slot engine (port of repro/serving/engine.py: the
-slot-contiguous bf16 pool, greedy decoding, the FIFO scheduler).
+"""Continuous-batching slot engine (port of repro/serving/engine.py: greedy
+decoding, the FIFO scheduler, the KV codecs on the contiguous and the paged
+pool, and the radix prefix cache).
 
 A fixed pool of ``max_batch`` decode slots. Every tick decodes the whole
 pool in one batched step, and requests flow through three states:
@@ -17,18 +18,30 @@ Greedy decoding takes ``torch.argmax``, which returns the first maximum,
 as ``jnp.argmax`` does. The pool lives on the device of ``params`` and is
 updated in place.
 
+``kv_cache`` picks the pool's codec (bf16, int8, binary; serving/kvcache.py).
+Two pool layouts (``kv_block_size``):
+
+  0 (default)   slot-contiguous: each slot owns a (max_len, ...) region.
+  > 0           paged: one shared block pool + per-slot block tables. With
+                ``prefix_cache=True`` a radix tree over token blocks
+                (serving/prefix.py) lets requests that share a prompt prefix
+                share its physical blocks and prefill only their un-cached
+                suffix.
+
 Not ported yet, and refused with the ROADMAP item that ports them: sampled
-decoding (temperature > 0) and speculative decoding (A5), the quantized KV
-codecs (A3), the paged pool and prefix cache (A4), interleaved prefill,
-the SLO scheduler and telemetry (A6), and meshes (A9).
+decoding (temperature > 0) and speculative decoding (A5), interleaved
+prefill, the SLO scheduler and telemetry (A6), and meshes (A9).
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from repro_torch.serving.kvcache import kv_pool_bytes
+from repro_torch.serving import kvcache as kvc
+from repro_torch.serving.prefix import PrefixPool
 from repro_torch.serving.scheduler import (AdmissionError, FifoScheduler, Request,
                                            bucket_len, make_buckets, pad_group,
                                            slo_rank)
@@ -41,7 +54,9 @@ STATS_SCHEMA = {
     "admitted": "requests admitted into a slot",
     "evictions": "requests finished and evicted",
     "generated_tokens": "tokens emitted across all requests",
-    "prefilled_tokens": "prompt tokens run through prefill",
+    "prefilled_tokens": "tokens run through prefill attention",
+    "cached_prompt_tokens": "prompt tokens served from the radix prefix cache "
+                            "instead of prefill",
     "kv_bytes": "resident bytes of the preallocated KV pool",
 }
 
@@ -50,10 +65,20 @@ def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
+@dataclasses.dataclass
+class _PagedSlot:
+    """Host-side block accounting for one occupied slot (paged mode)."""
+    plen: int                    # prompt tokens
+    row: np.ndarray              # (n_pages,) physical ids, holes = n_blocks
+    chain: list                  # radix nodes covering leading full blocks
+    private: list                # physical blocks owned by this request
+
+
 class ServeEngine:
     def __init__(self, api, params, *, max_batch: int = 8, max_len: int = 512,
                  temperature: float = 0.0, attn_impl: str | None = None,
-                 kv_block_size: int = 0, prefix_cache: bool = False,
+                 kv_cache: str | None = None, kv_block_size: int = 0,
+                 prefix_cache: bool = False, n_blocks: int | None = None,
                  spec_k: int = 0, mesh=None,
                  telemetry=None, interleave: bool = False,
                  scheduler: str = "fifo"):
@@ -61,8 +86,6 @@ class ServeEngine:
             _not_ported("sampled decoding (temperature > 0)", "A5")
         if spec_k:
             _not_ported("speculative decoding (spec_k)", "A5")
-        if kv_block_size or prefix_cache:
-            _not_ported("the paged pool and prefix cache", "A4")
         if interleave:
             _not_ported("interleaved prefill", "A6")
         if telemetry is not None:
@@ -73,10 +96,15 @@ class ServeEngine:
             raise ValueError(f"unknown scheduler {scheduler!r}")
         if mesh is not None:
             _not_ported("tensor-parallel serving (mesh)", "A9")
-        if attn_impl is not None:
+        overrides = {k: v for k, v in (("attn_impl", attn_impl), ("kv_cache", kv_cache))
+                     if v is not None}
+        if overrides:
             # model fns close over cfg, so a fresh api is the only seam
             from repro_torch.models import get_model
-            api = get_model(api.cfg.replace(attn_impl=attn_impl))
+            api = get_model(api.cfg.replace(**overrides))
+        if prefix_cache and not kv_block_size:
+            raise ValueError("prefix_cache requires kv_block_size > 0 "
+                             "(the radix cache shares paged blocks)")
         self.api, self.params = api, params
         self.device = params["embed"]["table"].device
         self.max_batch, self.max_len = max_batch, max_len
@@ -87,10 +115,28 @@ class ServeEngine:
         self.sched = FifoScheduler(self.buckets)
         self.slots: list[Request | None] = [None] * max_batch
         self.next_tok = np.zeros((max_batch, 1), np.int32)
-        self.caches = api.init_cache(max_batch, max_len, self.device)
+        self.block_size = int(kv_block_size)
+        self.paged = self.block_size > 0
+        self.prefix_on = bool(prefix_cache)
+        if self.paged:
+            bs = self.block_size
+            self.n_pages = -(-max_len // bs)
+            self.pool_len = self.n_pages * bs
+            # by default the contiguous pool's capacity: sharing then only
+            # frees blocks, so admission succeeds once refcount-0 tree
+            # blocks are evicted
+            self.n_blocks = n_blocks if n_blocks is not None else max_batch * self.n_pages
+            self.caches = api.init_paged_cache(self.n_blocks, bs, max_batch, self.n_pages,
+                                               device=self.device)
+            self.pool = PrefixPool(self.n_blocks, bs)
+            self._pstate: dict[int, _PagedSlot] = {}
+            self._codec = kvc.get_codec(api.cfg.kv_cache)
+            self._hole_row = np.full((self.n_pages,), self.n_blocks, np.int32)
+        else:
+            self.caches = api.init_cache(max_batch, max_len, self.device)
         self.step_count = 0
         self.stats = {k: 0 for k in STATS_SCHEMA}
-        self.stats["kv_bytes"] = kv_pool_bytes(self.caches)
+        self.stats["kv_bytes"] = kvc.kv_pool_bytes(self.caches)
 
     def check_request(self, prompt_len: int, max_new: int,
                       slo: str = "standard") -> None:
@@ -134,11 +180,24 @@ class ServeEngine:
 
     # -- slot lifecycle -----------------------------------------------------
 
+    def _tensor(self, a) -> torch.Tensor:
+        return torch.as_tensor(a, device=self.device)
+
     def _finish(self, slot: int):
         r = self.slots[slot]
         self.results[r.rid] = r.out
         self.slots[slot] = None
         self.stats["evictions"] += 1
+        if self.paged:
+            st = self._pstate.pop(slot)
+            self.pool.release(st.chain)
+            self.pool.free_blocks(st.private)
+            # clear the slot's table row and length now: the next decode must
+            # not write through a stale row into freed (maybe reallocated)
+            # blocks
+            self.caches = kvc.paged_update_slots(
+                self.caches, self._tensor(self._hole_row[None]),
+                self._tensor(np.zeros((1,), np.int32)), self._tensor([slot]))
 
     def _append_token(self, slot: int, tok: int) -> bool:
         """Record one generated token; True if the request ended (max_new or
@@ -183,6 +242,9 @@ class ServeEngine:
 
     def _admit(self):
         """Prefill queued requests into free slots (one group per bucket)."""
+        if self.paged:
+            self._admit_paged()
+            return
         free = [i for i, r in enumerate(self.slots) if r is None]
         while free and self.queue:
             group = self.sched.select(self.queue, len(free))
@@ -197,6 +259,140 @@ class ServeEngine:
                 seq_lens=torch.as_tensor(lens, device=self.device))
             self._install_contig(group, gp, logits, new)
             free = [i for i, r in enumerate(self.slots) if r is None]
+
+    # -- paged admission (radix prefix cache) ---------------------------------
+
+    def _select_paged(self, n_free: int):
+        """Pick one paged admission group and allocate its blocks. Returns
+        [(Request, chain, blocks)], dequeued, with matched chains pinned
+        (maybe empty when the pool is exhausted)."""
+        bs = self.block_size
+        # each queued request's longest cached block prefix, under the tree
+        # as earlier waves left it
+        chains = {r.rid: self.pool.match(r.prompt, clock=self.step_count)
+                  if self.prefix_on else [] for r in self.queue}
+        group = self.sched.select(self.queue, n_free,
+                                  length_of=lambda r: len(r.prompt) - len(chains[r.rid]) * bs)
+        if not group:
+            return []
+        # pin every candidate's chain before any allocation: eviction only
+        # takes refcount-0 nodes, so no chain is reclaimed under the wave
+        for r in group:
+            self.pool.acquire(chains[r.rid])
+        admitted, deferred = [], list(group)
+        while deferred:
+            r = deferred[0]
+            chain = chains[r.rid]
+            need = -(-(len(r.prompt) + r.max_new - 1) // bs) - len(chain)
+            blocks = self.pool.alloc(need, clock=self.step_count)
+            if blocks is None:
+                break                      # pool exhausted this wave
+            deferred.pop(0)
+            admitted.append((r, chain, blocks))
+        for r in deferred:                 # not admitted: unpin
+            self.pool.release(chains[r.rid])
+        for r, _, _ in admitted:
+            self.queue.remove(r)
+        return admitted
+
+    def _admit_paged(self):
+        free = [i for i, r in enumerate(self.slots) if r is None]
+        while free and self.queue:
+            admitted = self._select_paged(len(free))
+            if not admitted:
+                break
+            a = self._paged_arrays(admitted)
+            logits, new = self._paged_prefill_call(a)
+            self._install_paged(admitted, a, logits, new)
+            free = [i for i, r in enumerate(self.slots) if r is None]
+
+    def _paged_arrays(self, admitted) -> dict:
+        """Host-side arrays for one paged group's suffix prefill."""
+        bs = self.block_size
+        blen = bucket_len(max(len(r.prompt) - len(c) * bs for r, c, _ in admitted),
+                          self.buckets)
+        gp = pad_group(len(admitted))
+        toks = np.zeros((gp, blen), np.int32)
+        lens = np.ones((gp,), np.int32)
+        plens = np.zeros((gp,), np.int32)
+        ctx_lens = np.zeros((gp,), np.int32)
+        rows = np.tile(self._hole_row, (gp, 1))          # (gp, n_pages)
+        dest = np.tile(self._hole_row, (gp, 1))
+        max_ctx_pages = max(len(c) for _, c, _ in admitted)
+        for j, (r, chain, blocks) in enumerate(admitted):
+            ctx_pages = len(chain)
+            suffix = r.prompt[ctx_pages * bs:]
+            toks[j, :len(suffix)] = suffix
+            lens[j] = len(suffix)
+            plens[j] = len(r.prompt)
+            ctx_lens[j] = ctx_pages * bs
+            rows[j, :ctx_pages] = [n.block for n in chain]
+            rows[j, ctx_pages:ctx_pages + len(blocks)] = blocks
+            # the suffix cache's page i lands in the slot's page ctx_pages + i
+            dest[j, :self.n_pages - ctx_pages] = rows[j, ctx_pages:]
+        ctx_tab = np.zeros((gp, max_ctx_pages), np.int32)   # short rows repeat block 0
+        for j, (_, chain, _) in enumerate(admitted):
+            ctx_tab[j, :len(chain)] = [n.block for n in chain]
+        return {"toks": toks, "lens": lens, "plens": plens, "ctx_lens": ctx_lens,
+                "rows": rows, "dest": dest, "gp": gp, "max_ctx_pages": max_ctx_pages,
+                "ctx_tab": ctx_tab}
+
+    def _paged_prefill_call(self, a: dict):
+        """One suffix prefill: plain, or against the gathered cached prefix."""
+        batch = {"tokens": self._tensor(a["toks"])}
+        lens = self._tensor(a["lens"])
+        if a["max_ctx_pages"] == 0:
+            return self.api.prefill(self.params, batch, max_len=self.pool_len,
+                                    seq_lens=lens)
+        ctx = kvc.gather_prefix_context(self.caches, self._tensor(a["ctx_tab"]),
+                                        self._codec, self.api.cfg.kv_head_dim())
+        return self.api.prefill_ctx(self.params, batch, ctx, self._tensor(a["ctx_lens"]),
+                                    max_len=self.pool_len, seq_lens=lens)
+
+    def _install_paged(self, admitted, a: dict, logits, new):
+        """Scatter one prefilled paged group into its blocks and free slots,
+        then publish its prompts' full blocks."""
+        bs = self.block_size
+        free = [i for i, r in enumerate(self.slots) if r is None]
+        slots = free[:len(admitted)]
+        nxt = self._sample(logits)
+        self.caches = kvc.paged_insert_prefill(self.caches, new, self._tensor(a["dest"]))
+        # dummy rows aim past the pool and drop
+        slot_idx = np.full((a["gp"],), self.max_batch, np.int64)
+        slot_idx[:len(slots)] = slots
+        self.caches = kvc.paged_update_slots(self.caches, self._tensor(a["rows"]),
+                                             self._tensor(a["plens"]),
+                                             self._tensor(slot_idx))
+        self.stats["prefills"] += 1
+        for j, (r, chain, blocks) in enumerate(admitted):
+            slot = slots[j]
+            self.slots[slot] = r
+            st = _PagedSlot(plen=len(r.prompt), row=a["rows"][j], chain=chain,
+                            private=list(blocks))
+            self._pstate[slot] = st
+            self.stats["admitted"] += 1
+            self.stats["prefilled_tokens"] += int(a["lens"][j])
+            self.stats["cached_prompt_tokens"] += int(a["ctx_lens"][j])
+            self.pool.record_hit(chain)
+            if self.prefix_on:
+                # publish the prompt's full blocks past the matched prefix:
+                # requests of later waves share them (a wave's requests
+                # prefill independently)
+                for pi in range(len(chain), len(r.prompt) // bs):
+                    self._publish_block(st, pi, r)
+            self._append_token(slot, int(nxt[j]))
+
+    def _publish_block(self, st: _PagedSlot, pi: int, r: Request):
+        """Hang slot page pi (now full and immutable) on the radix tree."""
+        bs = self.block_size
+        seq = r.prompt if (pi + 1) * bs <= st.plen \
+            else np.concatenate([r.prompt, np.asarray(r.out, np.int32)])
+        parent = st.chain[-1] if st.chain else None
+        node, owned = self.pool.publish(parent, seq[pi * bs:(pi + 1) * bs], int(st.row[pi]),
+                                        clock=self.step_count)
+        if owned:
+            st.private.remove(int(st.row[pi]))
+        st.chain.append(node)
 
     # -- engine ticks -------------------------------------------------------
 
@@ -214,6 +410,13 @@ class ServeEngine:
         self.stats["decode_steps"] += 1
         self.stats["occupied_slot_steps"] += len(active)
         for i in active:
+            if self.prefix_on:
+                # the decode wrote K/V at position plen + len(out) - 1: publish
+                # the block it completed, if any
+                st, r = self._pstate[i], self.slots[i]
+                cur = st.plen + len(r.out)       # cache length after this tick
+                if cur % self.block_size == 0:
+                    self._publish_block(st, cur // self.block_size - 1, r)
             self._append_token(i, int(nxt[i]))
         return True
 

@@ -1,55 +1,57 @@
-"""KV cache of the serving pool: the bf16 codec (port of the bf16 parts of
-repro/serving/kvcache.py).
+"""KV-cache codecs and the paged pool (port of repro/serving/kvcache.py).
 
 A model's caches are a list with one dict per layer (repro stacks the
-layers of a segment on a leading axis; the port loops over layers):
+layers of a segment on a leading axis; the port loops over layers). Every
+leaf but the index leaves carries time on axis 1, in one of three codecs:
 
-    {"k": (B, T, Hkv, D), "v": (B, T, Hkv, D), "len": (B,) int32}
+  bf16     {"k", "v": (B, T, Hkv, D) compute dtype}; ``"auto"`` resolves
+           here
+  int8     {"k_q", "v_q": (B, T, Hkv, D) int8, "k_s", "v_s": (B, T, Hkv)
+           bf16}: per-(token, head) absmax, D + 2 bytes per head-row
+  binary   {"k_p", "v_p": (B, T, Hkv, ceil(D / 32)) int32 sign words,
+           "k_s", "v_s": bf16 absmean scales}: 4 ceil(D / 32) + 2 bytes
 
-in the compute dtype. Every read masks positions >= len, so rows past a
-sequence's length are invisible. The quantized codecs (int8, binary) and
-the paged pool come in later slices (ROADMAP A3, A4).
+plus ``"len": (B,) int32``; every read masks positions >= len. Quantized
+decode attends through ``_fused_quant_decode``, an online-softmax loop over
+kv blocks that dequantizes one (B, kv_block, Hkv, D) tile at a time (a
+``lax.scan`` in repro, outside any kernel, so plain torch here). Quantizing
+goes through the kernels of ``kernels/kv_quant.py`` (B4a, B4c), and so does
+the fused decode's dequantizing (B4b, B4d; repro uses their XLA twins there):
+a CUDA tensor never meets a plain version.
+
+The paged pool replaces each slot's private (max_len, ...) region with one
+shared pool of (n_blocks, block_size, ...) blocks per layer in any codec's
+layout, plus ``"table": (max_batch, n_pages) int32`` (the physical block of
+each slot's page; entries >= n_blocks are holes) and ``"len"``. A cache dict
+with a ``"table"`` leaf is paged. Its leaves hold one spare block past the
+n_blocks that tables address: writes through a hole land there, where
+repro's ``mode="drop"`` drops them, so a decode insert needs no host sync to
+find the rows it keeps. Nothing reads the spare block, and the pool's bytes
+leave it out.
 
 The port updates the pool in place where repro returns a new pool (repro
-donates the old one to XLA for the same effect).
+donates the old one to XLA for the same effect). The speculative verify
+step's span writes (``insert_span``, ``paged_insert_span``) come with
+ROADMAP A5.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from repro_torch.core.binarize import packed_len
+from repro_torch.kernels import kv_quant as kvq
 from repro_torch.nn import attention as attn_lib
 
-
-def init(batch: int, max_len: int, n_kv: int, head_dim: int,
-         dtype=torch.bfloat16, *, device) -> dict:
-    return attn_lib.init_kv_cache(batch, max_len, n_kv, head_dim, dtype,
-                                  device=device)
+NEG_INF = attn_lib.NEG_INF
+_INDEX_LEAVES = ("len", "table")
 
 
-def _pad_time(a: torch.Tensor, max_len: int) -> torch.Tensor:
-    """Pad (B, S, ...) with zeros to (B, max_len, ...) along axis 1."""
-    out = a.new_zeros((a.shape[0], max_len, *a.shape[2:]))
-    out[:, :a.shape[1]] = a
-    return out
-
-
-def from_prefill(k: torch.Tensor, v: torch.Tensor, max_len: int) -> dict:
-    """A prefilled (B, S, H, D) k/v pair as a max_len cache, len = S."""
-    b, s = k.shape[:2]
-    return {"k": _pad_time(k, max_len), "v": _pad_time(v, max_len),
-            "len": torch.full((b,), s, dtype=torch.int32, device=k.device)}
-
-
-def insert_timestep(cache: dict, k_new, v_new) -> dict:
-    """Insert one token per sequence at position cache['len'] (in place)."""
-    return attn_lib.cache_update_decode(cache, k_new, v_new)
-
-
-def decode_attention(q, cache: dict, *, scale=None, impl: str = "auto"):
-    return attn_lib.decode_attention(q, cache["k"], cache["v"],
-                                     kv_len=cache["len"], scale=scale, impl=impl)
-
+# ---------------------------------------------------------------------------
+# layout-generic ops (every codec shares these; lm_common delegates here)
+# ---------------------------------------------------------------------------
 
 def set_cache_lengths(caches: list, seq_lens: torch.Tensor) -> list:
     """Reset every layer's lengths after a right-padded prefill: the pad
@@ -61,17 +63,23 @@ def set_cache_lengths(caches: list, seq_lens: torch.Tensor) -> list:
     return caches
 
 
+def _kept(idx: torch.Tensor, limit: int) -> torch.Tensor:
+    """Positions of the entries of ``idx`` below ``limit``: the rows a
+    scatter keeps where repro's ``mode="drop"`` drops the rest."""
+    return torch.nonzero(idx < limit).squeeze(-1)
+
+
 def cache_insert_slots(pool: list, new: list, slots: torch.Tensor) -> list:
     """Scatter per-request prefill caches into pool slots, in place.
 
     pool layers are (max_batch, ...) and new layers (G, ...) with the same
     trailing dims (prefill runs at the pool's max_len). slots (G,) gives the
-    destination row per request; entries >= max_batch are dropped, as
-    repro's ``mode="drop"`` scatter drops them, which lets a prefill group
-    be padded without a spare slot to aim at."""
+    destination row per request; entries >= max_batch are dropped, which
+    lets a prefill group be padded without a spare slot to aim at. Every
+    codec's leaves line up, since prefill encodes into the pool's codec."""
     max_batch = pool[0]["len"].shape[0]
     slots = torch.as_tensor(slots, device=pool[0]["len"].device).to(torch.int64)
-    keep = torch.nonzero(slots < max_batch).squeeze(1)
+    keep = _kept(slots, max_batch)
     dst = slots[keep]
     for dst_layer, src_layer in zip(pool, new):
         for name, buf in dst_layer.items():
@@ -79,7 +87,385 @@ def cache_insert_slots(pool: list, new: list, slots: torch.Tensor) -> list:
     return pool
 
 
+def _leaf_bytes(c: dict, name: str, t: torch.Tensor) -> int:
+    """A leaf's bytes, without a paged layer's spare hole block."""
+    if name not in _INDEX_LEAVES and "table" in c:
+        t = t[:-1]
+    return t.numel() * t.element_size()
+
+
 def kv_pool_bytes(caches: list) -> int:
-    """Resident bytes of the pool, without the small ``len`` leaves."""
-    return sum(t.numel() * t.element_size()
-               for c in caches for name, t in c.items() if name != "len")
+    """Resident bytes of the pool without the small ``len`` / ``table``
+    leaves (and a paged pool's spare block), so the number compares directly
+    with bytes_per_token * tokens."""
+    return sum(_leaf_bytes(c, name, t)
+               for c in caches for name, t in c.items() if name not in _INDEX_LEAVES)
+
+
+def kv_pool_byte_breakdown(caches: list) -> dict:
+    """Resident pool bytes by leaf role: ``values`` (k/v, k_q/v_q, k_p/v_p),
+    ``scales`` (the ``*_s`` leaves) and ``index`` (``len``, ``table``)."""
+    out = {"values": 0, "scales": 0, "index": 0}
+    for c in caches:
+        for name, t in c.items():
+            role = ("index" if name in _INDEX_LEAVES
+                    else "scales" if name.endswith("_s") else "values")
+            out[role] += _leaf_bytes(c, name, t)
+    return out
+
+
+def _pad_time(a: torch.Tensor, max_len: int) -> torch.Tensor:
+    """Pad (B, S, ...) with zeros to (B, max_len, ...) along axis 1 (a zero
+    scale dequantizes to 0, so pad rows stay inert even before the lengths
+    mask them)."""
+    out = a.new_zeros((a.shape[0], max_len, *a.shape[2:]))
+    out[:, :a.shape[1]] = a
+    return out
+
+
+def _write_timestep(cache: dict, new_leaves: dict) -> dict:
+    """Insert one token per sequence at position cache['len'] for every
+    named leaf (values, scales), in place. The position is clamped to T - 1,
+    as repro's dynamic_update_slice clamps it."""
+    idx = cache["len"]
+    for name, new in new_leaves.items():
+        buf = cache[name]
+        rows = torch.arange(buf.shape[0], device=buf.device)
+        buf[rows, torch.clamp(idx, max=buf.shape[1] - 1).to(torch.int64)] = \
+            new[:, 0].to(buf.dtype)
+    cache["len"] = idx + 1
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# dequant-fused decode: blockwise online softmax over the encoded cache
+# ---------------------------------------------------------------------------
+
+def _fused_quant_decode(q: torch.Tensor, cache: dict, codec: "CacheCodec", *,
+                        scale: float | None = None, kv_block: int = 128) -> torch.Tensor:
+    """Single-query attention over an encoded cache without materializing
+    it: a loop over kv blocks dequantizes one (B, kb, Hkv, D) tile per step
+    into the (num, den, max) recurrence. A ragged final block starts at
+    T - kb and masks the columns the block before it consumed. Returns
+    (B, S, Hq, D) in q's dtype."""
+    b, s, hq, d = q.shape
+    enc = codec.encoded_leaves(cache)
+    t = next(iter(enc.values())).shape[1]
+    hkv = codec.n_kv(cache)
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    kv_len = torch.clamp(cache["len"].to(torch.int32), max=t)
+    kb = min(kv_block, t)
+    qg = q.reshape(b, s, hkv, g, d).to(torch.float32)
+    num = q.new_zeros((b, hkv, g, s, d), dtype=torch.float32)
+    den = q.new_zeros((b, hkv, g, s), dtype=torch.float32)
+    m_prev = torch.full((b, hkv, g, s), NEG_INF, dtype=torch.float32, device=q.device)
+    for jk in range(-(-t // kb)):
+        start = min(jk * kb, t - kb)
+        blk = {name: leaf[:, start:start + kb] for name, leaf in enc.items()}
+        k_blk, v_blk = codec.dequant_block(blk, d)
+        sij = torch.einsum("bshgd,bkhd->bhgsk", qg, k_blk.to(torch.float32)) * scale
+        cols = start + torch.arange(kb, device=q.device)
+        valid = (cols >= jk * kb)[None, :] & (cols[None, :] < kv_len[:, None])
+        sij = torch.where(valid[:, None, None, None, :], sij, NEG_INF)
+        m_cur = torch.maximum(m_prev, sij.amax(dim=-1))
+        p = torch.exp(sij - m_cur[..., None])
+        alpha = torch.exp(m_prev - m_cur)
+        den = den * alpha + p.sum(dim=-1)
+        num = num * alpha[..., None] + torch.einsum("bhgsk,bkhd->bhgsd", p,
+                                                    v_blk.to(torch.float32))
+        m_prev = m_cur
+    den = torch.where(den == 0.0, 1.0, den)
+    out = num / den[..., None]                            # (B, Hkv, G, S, D)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, hq, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# codecs
+# ---------------------------------------------------------------------------
+
+class CacheCodec:
+    """One KV-cache storage format: a dict of leaves with time on axis 1
+    and a ``len`` leaf, so the slot scatter and the length reset never see
+    the codec."""
+
+    name: str = ""
+
+    def init(self, batch: int, max_len: int, n_kv: int, head_dim: int,
+             dtype=torch.bfloat16, *, device) -> dict:
+        raise NotImplementedError
+
+    def encode(self, k: torch.Tensor, v: torch.Tensor) -> dict:
+        """(B, S, H, D) k, v -> dict of encoded leaves (no len)."""
+        raise NotImplementedError
+
+    def from_prefill(self, k: torch.Tensor, v: torch.Tensor, max_len: int) -> dict:
+        """Encode a prefilled (B, S, H, D) k/v pair into a max_len cache."""
+        b, s = k.shape[:2]
+        enc = {name: _pad_time(leaf, max_len) for name, leaf in self.encode(k, v).items()}
+        enc["len"] = torch.full((b,), s, dtype=torch.int32, device=k.device)
+        return enc
+
+    def insert_timestep(self, cache: dict, k_new, v_new) -> dict:
+        """Insert one token per sequence at position cache['len'], in place."""
+        return _write_timestep(cache, self.encode(k_new, v_new))
+
+    def materialize(self, cache: dict, dtype=torch.bfloat16, *, head_dim=None):
+        """The full dequantized (k, v), both (B, T, H, D): tests and checks
+        only; decode never materializes a quantized cache. ``head_dim`` is
+        needed where the layout rounds D up (binary)."""
+        raise NotImplementedError
+
+    def decode_attention(self, q, cache: dict, *, scale=None, impl: str = "auto"):
+        raise NotImplementedError
+
+    def bytes_per_token(self, n_kv: int, head_dim: int) -> int:
+        """Resident cache bytes per token per layer (k and v together)."""
+        raise NotImplementedError
+
+    # hooks of the fused decode paths (quantized and paged pools)
+
+    def encoded_leaves(self, cache: dict) -> dict:
+        return {k: v for k, v in cache.items() if k not in _INDEX_LEAVES}
+
+    def n_kv(self, cache: dict) -> int:
+        raise NotImplementedError
+
+    def dequant_block(self, blk: dict, d: int):
+        """dict of (B, kb, ...) encoded leaves -> (k, v) (B, kb, H, D)."""
+        raise NotImplementedError
+
+
+class Bf16Codec(CacheCodec):
+    """The reference layout, bit for bit the cache the port had before the
+    codecs."""
+
+    name = "bf16"
+
+    def init(self, batch, max_len, n_kv, head_dim, dtype=torch.bfloat16, *, device):
+        return attn_lib.init_kv_cache(batch, max_len, n_kv, head_dim, dtype, device=device)
+
+    def encode(self, k, v):
+        return {"k": k, "v": v}
+
+    def materialize(self, cache, dtype=torch.bfloat16, *, head_dim=None):
+        return cache["k"].to(dtype), cache["v"].to(dtype)
+
+    def decode_attention(self, q, cache, *, scale=None, impl="auto"):
+        return attn_lib.decode_attention(q, cache["k"], cache["v"], kv_len=cache["len"],
+                                         scale=scale, impl=impl)
+
+    def n_kv(self, cache):
+        return cache["k"].shape[2]
+
+    def dequant_block(self, blk, d):
+        # the stored dtype passes through: the paged decode and the context
+        # gather read exactly the values the insert wrote
+        return blk["k"], blk["v"]
+
+    def bytes_per_token(self, n_kv, head_dim):
+        return 2 * n_kv * head_dim * 2
+
+
+class Int8Codec(CacheCodec):
+    """values int8 + per-(token, head) absmax scale bf16."""
+
+    name = "int8"
+
+    def init(self, batch, max_len, n_kv, head_dim, dtype=torch.bfloat16, *, device):
+        kw = dict(device=device)
+        return {"k_q": torch.zeros((batch, max_len, n_kv, head_dim), dtype=torch.int8, **kw),
+                "k_s": torch.zeros((batch, max_len, n_kv), dtype=torch.bfloat16, **kw),
+                "v_q": torch.zeros((batch, max_len, n_kv, head_dim), dtype=torch.int8, **kw),
+                "v_s": torch.zeros((batch, max_len, n_kv), dtype=torch.bfloat16, **kw),
+                "len": torch.zeros((batch,), dtype=torch.int32, **kw)}
+
+    def encode(self, k, v):
+        k_q, k_s = kvq.kv_quant_int8(k)
+        v_q, v_s = kvq.kv_quant_int8(v)
+        return {"k_q": k_q, "k_s": k_s, "v_q": v_q, "v_s": v_s}
+
+    def materialize(self, cache, dtype=torch.bfloat16, *, head_dim=None):
+        return (kvq.kv_dequant_int8(cache["k_q"], cache["k_s"], dtype=dtype),
+                kvq.kv_dequant_int8(cache["v_q"], cache["v_s"], dtype=dtype))
+
+    def decode_attention(self, q, cache, *, scale=None, impl="auto"):
+        return _fused_quant_decode(q, cache, self, scale=scale)
+
+    def n_kv(self, cache):
+        return cache["k_q"].shape[2]
+
+    def dequant_block(self, blk, d):
+        return (kvq.kv_dequant_int8(blk["k_q"], blk["k_s"], dtype=torch.float32),
+                kvq.kv_dequant_int8(blk["v_q"], blk["v_s"], dtype=torch.float32))
+
+    def bytes_per_token(self, n_kv, head_dim):
+        return 2 * n_kv * (head_dim + 2)
+
+
+class BinaryCodec(CacheCodec):
+    """Sign bits packed 32 to a word + per-(token, head) absmean scale bf16:
+    the paper's binary-layer memory trade applied to K/V. Lossy (tolerance
+    in tests/test_kvcache.py); greedy decode stays coherent but is not
+    token-identical to bf16."""
+
+    name = "binary"
+
+    def init(self, batch, max_len, n_kv, head_dim, dtype=torch.bfloat16, *, device):
+        kp, kw = packed_len(head_dim), dict(device=device)
+        return {"k_p": torch.zeros((batch, max_len, n_kv, kp), dtype=torch.int32, **kw),
+                "k_s": torch.zeros((batch, max_len, n_kv), dtype=torch.bfloat16, **kw),
+                "v_p": torch.zeros((batch, max_len, n_kv, kp), dtype=torch.int32, **kw),
+                "v_s": torch.zeros((batch, max_len, n_kv), dtype=torch.bfloat16, **kw),
+                "len": torch.zeros((batch,), dtype=torch.int32, **kw)}
+
+    def encode(self, k, v):
+        k_p, k_s = kvq.kv_quant_binary(k)
+        v_p, v_s = kvq.kv_quant_binary(v)
+        return {"k_p": k_p, "k_s": k_s, "v_p": v_p, "v_s": v_s}
+
+    def materialize(self, cache, dtype=torch.bfloat16, *, head_dim=None):
+        if head_dim is None:
+            raise ValueError("BinaryCodec.materialize needs head_dim "
+                             "(bit packing rounds D up to whole words)")
+        return (kvq.kv_dequant_binary(cache["k_p"], cache["k_s"], head_dim, dtype=dtype),
+                kvq.kv_dequant_binary(cache["v_p"], cache["v_s"], head_dim, dtype=dtype))
+
+    def decode_attention(self, q, cache, *, scale=None, impl="auto"):
+        return _fused_quant_decode(q, cache, self, scale=scale)
+
+    def n_kv(self, cache):
+        return cache["k_p"].shape[2]
+
+    def dequant_block(self, blk, d):
+        return (kvq.kv_dequant_binary(blk["k_p"], blk["k_s"], d, dtype=torch.float32),
+                kvq.kv_dequant_binary(blk["v_p"], blk["v_s"], d, dtype=torch.float32))
+
+    def bytes_per_token(self, n_kv, head_dim):
+        return 2 * n_kv * (4 * packed_len(head_dim) + 2)
+
+
+_CODECS = {"bf16": Bf16Codec(), "int8": Int8Codec(), "binary": BinaryCodec()}
+
+
+def get_codec(name: str = "auto") -> CacheCodec:
+    """Resolve a ``ModelConfig.kv_cache`` value ("auto" -> bf16)."""
+    return _CODECS[attn_lib.resolve_kv_cache(name)]
+
+
+# ---------------------------------------------------------------------------
+# paged pool: one shared block pool + per-slot block tables
+# ---------------------------------------------------------------------------
+
+def init_paged(codec: CacheCodec, n_blocks: int, block_size: int, n_kv: int,
+               head_dim: int, max_batch: int, n_pages: int, dtype=torch.bfloat16, *,
+               device) -> dict:
+    """One layer's paged pool: the codec's leaves over (n_blocks + 1,
+    block_size) — to the codec a stack of blocks is a batch of short
+    sequences; the last block takes the writes through holes — plus an
+    all-hole table and zero lengths."""
+    one = codec.init(n_blocks + 1, block_size, n_kv, head_dim, dtype, device=device)
+    one.pop("len")
+    one["table"] = torch.full((max_batch, n_pages), n_blocks, dtype=torch.int32,
+                              device=device)
+    one["len"] = torch.zeros((max_batch,), dtype=torch.int32, device=device)
+    return one
+
+
+def _n_blocks(cache: dict) -> int:
+    """Physical blocks a paged layer's table addresses (every encoded leaf's
+    axis 0 less the spare block, which is also the id a hole writes to)."""
+    return next(v for k, v in cache.items() if k not in _INDEX_LEAVES).shape[0] - 1
+
+
+def paged_block_size(cache: dict) -> int:
+    """Block size of a paged layer: the time axis of its deepest leaf (the
+    values; scales are one rank lower)."""
+    leaf = max((v for k, v in cache.items() if k not in _INDEX_LEAVES),
+               key=lambda a: a.dim())
+    return leaf.shape[1]
+
+
+def paged_update_slots(pool: list, rows: torch.Tensor, lens: torch.Tensor,
+                       slots: torch.Tensor) -> list:
+    """Rebind slots' block tables and lengths (admission, eviction), in
+    place. rows (G, n_pages) physical ids (holes >= n_blocks), lens (G,),
+    slots (G,); slots >= max_batch drop, as in cache_insert_slots."""
+    keep = _kept(slots, pool[0]["len"].shape[0])
+    dst, rows, lens = slots[keep].to(torch.int64), rows[keep], lens[keep]
+    for c in pool:
+        c["table"][dst] = rows.to(torch.int32)
+        c["len"][dst] = lens.to(torch.int32)
+    return pool
+
+
+def paged_insert_prefill(pool: list, new: list, dest_pages: torch.Tensor) -> list:
+    """Scatter a prefill's codec-encoded caches into physical blocks.
+
+    ``new`` is the contiguous prefill cache (per layer, leaves (G, T, ...)
+    with T = n_pages * block_size); row g's page i goes to block
+    dest_pages[g, i]. Holes (>= n_blocks) go to the spare block, unread:
+    that is how the engine skips the pages a cached prefix covers and pads
+    prefill groups. ``new``'s lengths are dropped: slot lengths belong to
+    paged_update_slots."""
+    blocks = torch.clamp(dest_pages, max=_n_blocks(pool[0])).to(torch.int64).reshape(-1)
+    for dst_layer, src_layer in zip(pool, new):
+        for name, src in src_layer.items():
+            if name == "len":
+                continue
+            dst = dst_layer[name]
+            bs = dst.shape[1]
+            dst[blocks] = src.reshape(-1, bs, *src.shape[2:]).to(dst.dtype)
+    return pool
+
+
+def paged_insert_timestep(cache: dict, k_new, v_new, codec: CacheCodec) -> dict:
+    """Per-layer decode insert, in place: encode one token per slot and
+    write it at (table[b, len // bs], len % bs). Free slots meet table holes
+    and write to the spare block."""
+    idx = cache["len"].to(torch.int64)
+    bs = paged_block_size(cache)
+    table = cache["table"]
+    page = idx // bs
+    phys = table.gather(1, torch.clamp(page, max=table.shape[1] - 1)[:, None])[:, 0]
+    at = (torch.clamp(phys, max=_n_blocks(cache)).to(torch.int64), idx - page * bs)
+    for name, new in codec.encode(k_new, v_new).items():
+        buf = cache[name]
+        buf[at] = new[:, 0].to(buf.dtype)
+    cache["len"] = cache["len"] + 1
+    return cache
+
+
+def _gather_pages(leaf: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:
+    """(n_blocks, bs, ...) leaf, (G, P) block ids -> (G, P * bs, ...)."""
+    got = leaf[pages.to(torch.int64)]                     # (G, P, bs, ...)
+    return got.reshape(got.shape[0], -1, *got.shape[3:])
+
+
+def paged_decode_attention(q: torch.Tensor, cache: dict, codec: CacheCodec, *,
+                           scale: float | None = None) -> torch.Tensor:
+    """Single-query attention through the block table. repro walks the pages
+    one (B, block_size) tile per scan step; the port gathers every page of
+    every slot in one indexed read (holes clamp to a real block whose
+    columns lie past the slot's length, so they mask out) and runs the
+    fused decode over that contiguous view."""
+    pages = torch.clamp(cache["table"], max=_n_blocks(cache) - 1)
+    view = {name: _gather_pages(leaf, pages)
+            for name, leaf in codec.encoded_leaves(cache).items()}
+    view["len"] = cache["len"]
+    return _fused_quant_decode(q, view, codec, scale=scale)
+
+
+def gather_prefix_context(pool: list, ctx_pages: torch.Tensor, codec: CacheCodec,
+                          head_dim: int) -> list:
+    """Cached-prefix K/V for a suffix prefill: per layer {"k", "v"}
+    (G, P * block_size, Hkv, D), decoded through the codec. ctx_pages
+    (G, P) are block ids in range (rows with fewer matched pages repeat
+    block 0, masked later by ctx_len)."""
+    out = []
+    for c in pool:
+        view = {name: _gather_pages(leaf, ctx_pages)
+                for name, leaf in codec.encoded_leaves(c).items()}
+        k, v = codec.dequant_block(view, head_dim)
+        out.append({"k": k, "v": v})
+    return out

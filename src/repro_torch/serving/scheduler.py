@@ -115,11 +115,17 @@ class FifoScheduler:
     def __init__(self, buckets: tuple[int, ...]):
         self.buckets = buckets
 
-    def select(self, queue: list[Request], n_free: int) -> list[Request]:
-        """Pick up to n_free requests sharing the queue head's bucket."""
+    def select(self, queue: list[Request], n_free: int,
+               length_of=None) -> list[Request]:
+        """Pick up to n_free requests sharing the queue head's bucket.
+
+        length_of maps a request to the length its prefill pads: the prompt
+        length by default; the prefix-cached engine passes the un-cached
+        suffix length, so prompts that share a cached header batch together."""
         if not queue or n_free <= 0:
             return []
-        head_bucket = bucket_len(len(queue[0].prompt), self.buckets)
+        length_of = length_of or (lambda r: len(r.prompt))
+        head_bucket = bucket_len(length_of(queue[0]), self.buckets)
         group = [r for r in queue
-                 if bucket_len(len(r.prompt), self.buckets) == head_bucket]
+                 if bucket_len(length_of(r), self.buckets) == head_bucket]
         return group[:n_free]

@@ -6,7 +6,9 @@ GPU (the kernels have no CPU mode). The file imports no jax and nothing of
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: the int8 and XNOR GEMMs are exact (integer dots of +-1
+Tolerances: the KV quantize / dequantize kernels are bit-exact (the same
+IEEE operations in the same order as their plain versions, the mean's sum
+included); the int8 and XNOR GEMMs are exact (integer dots of +-1
 vectors), and so is the fused hybrid dense (both round the product and the
 sum once each, then take the sign); the bf16 GEMM matches its plain version
 within tests/test_kernels.py's 2e-2 (f32 sums in another order). Flash
@@ -35,7 +37,9 @@ from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
 from repro_torch.kernels.hybrid_dense import hybrid_dense, hybrid_dense_plain  # noqa: E402
 from repro_torch.kernels.int8_matmul import (int8_matmul,  # noqa: E402
                                              int8_matmul_plain)
+from repro_torch.kernels import kv_quant as kvq  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
+from repro_torch.serving.engine import ServeEngine  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -235,3 +239,82 @@ def test_smoke_model_on_card_matches_cpu(dev):
     want, _ = api.prefill(params, {"tokens": torch.from_numpy(toks)}, max_len=24,
                           seq_lens=torch.from_numpy(lens))
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+# (rows, D): one row, a ragged row count, the decode insert (8 x 32 rows of
+# 80) and a prefill-sized block; D = 16 (one word), 80 (16 pad bits), 129
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,d", [(1, 80), (7, 16), (7, 129), (256, 80), (4103, 80),
+                                 (33, 129)])
+def test_kv_quant_kernels_exact(dev, n, d, dtype):
+    g = _gen(dev, n + d)
+    x = (torch.randn(n, d, generator=g, device=dev) * 3).to(getattr(torch, dtype))
+    x[n // 2] = 0.0                                  # a zero scale divides by 1
+    counts = [f.launches for f in (kvq.kv_quant_int8, kvq.kv_dequant_int8,
+                                   kvq.kv_quant_binary, kvq.kv_dequant_binary)]
+    q, s = kvq.kv_quant_int8(x)
+    p, ps = kvq.kv_quant_binary(x)
+    deq = {dt: (kvq.kv_dequant_int8(q, s, dtype=dt), kvq.kv_dequant_binary(p, ps, d, dtype=dt))
+           for dt in (torch.float32, torch.bfloat16)}
+    torch.cuda.synchronize()
+    assert [f.launches for f in (kvq.kv_quant_int8, kvq.kv_dequant_int8, kvq.kv_quant_binary,
+                                 kvq.kv_dequant_binary)] == [c + k for c, k in
+                                                            zip(counts, (1, 2, 1, 2))]
+    pq, pqs = kvq.kv_quant_int8_plain(x)
+    pp, pps = kvq.kv_quant_binary_plain(x)
+    assert torch.equal(q, pq) and torch.equal(_bits(s), _bits(pqs))
+    assert torch.equal(p, pp) and torch.equal(_bits(ps), _bits(pps))
+    for dt, (d8, db) in deq.items():
+        assert torch.equal(_bits(d8), _bits(kvq.kv_dequant_int8_plain(q, s, dt)))
+        assert torch.equal(_bits(db), _bits(kvq.kv_dequant_binary_plain(p, ps, d, dt)))
+
+
+def test_kv_quant_kernels_take_leading_dims_and_refuse_f16(dev):
+    x = torch.randn(2, 3, 4, 80, device=dev, dtype=torch.bfloat16)
+    q, s = kvq.kv_quant_int8(x)
+    assert q.shape == x.shape and s.shape == (2, 3, 4)
+    p, ps = kvq.kv_quant_binary(x[:, 1:])             # a strided view
+    assert p.shape == (2, 2, 4, 3) and torch.equal(p, kvq.kv_quant_binary_plain(x[:, 1:])[0])
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        kvq.kv_quant_int8(x.half())
+
+
+@pytest.mark.parametrize("kv", ["int8", "binary"])
+def test_short_quantized_and_paged_serve_on_card(dev, kv):
+    """The smoke LM (f32) served on the card: the contiguous and the paged
+    pool (block 8) of one codec give the same tokens (the paged decode
+    gathers the same values into the same fused recurrence), with the
+    codec's quantizer launched 2 x layers per wave and per step and its
+    dequantizer 2 x layers per step (the fused decode's one kv block of 48);
+    the prefix cache then hits on a shared header. (Tokens across batch shapes are not
+    compared: the random-init model's top-2 gaps sit at float noise.)"""
+    cfg = smoke_config("stablelm-3b").replace(compute_dtype="float32",
+                                              param_dtype="float32")
+    api = get_model(cfg)
+    params = _to(api.init(0, device="cpu"), dev)
+    rng = np.random.default_rng(0)
+    header = rng.integers(0, cfg.vocab, 16)
+    prompts = [np.concatenate([header, rng.integers(0, cfg.vocab, 3 + i)]) for i in range(4)]
+    quant, dequant = getattr(kvq, f"kv_quant_{kv}"), getattr(kvq, f"kv_dequant_{kv}")
+    outs = []
+    for kw in ({}, {"kv_block_size": 8}):
+        eng = ServeEngine(api, params, max_batch=2, max_len=48, kv_cache=kv, **kw)
+        before, d_before = quant.launches, dequant.launches
+        rids = [eng.add_request(p, max_new=5) for p in prompts]
+        res = eng.run()
+        outs.append([res[r] for r in rids])
+        assert quant.launches - before == 2 * cfg.n_layers * (eng.stats["prefills"]
+                                                              + eng.stats["decode_steps"])
+        assert dequant.launches - d_before == 2 * cfg.n_layers * eng.stats["decode_steps"]
+    assert outs[0] == outs[1]
+    eng = ServeEngine(api, params, max_batch=2, max_len=48, kv_cache=kv, kv_block_size=8,
+                      prefix_cache=True)
+    rids = [eng.add_request(prompts[0], max_new=5)]
+    eng.run()
+    rids += [eng.add_request(p, max_new=5) for p in prompts[1:]]
+    res = eng.run()
+    assert eng.stats["cached_prompt_tokens"] == 3 * 16 and all(len(res[r]) == 5 for r in rids)

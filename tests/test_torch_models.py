@@ -117,8 +117,9 @@ def test_bf16_params_carry_over_bit_for_bit():
 
 def test_unported_configs_raise():
     cfg = smoke_config("stablelm-3b")
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        get_model(cfg.replace(kv_cache="int8"))
+    # the quantized KV codecs are ported: int8 and binary LMs build
+    for kv in ("int8", "binary"):
+        assert get_model(cfg.replace(kv_cache=kv)).cfg.kv_cache == kv
     # the XNOR-popcount kernel (B1) is ported: an xnor LM builds
     xnor = cfg.replace(policy=PrecisionPolicy(binary_ffn=True, edge_blocks_float=1,
                                               binary_mode="xnor"))

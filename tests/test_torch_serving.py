@@ -137,7 +137,7 @@ def test_unported_engine_options_raise(engines):
     make, _ = engines
     _, teng = make(max_batch=2, max_len=32)
     for kw, item in [({"temperature": 0.5}, "A5"), ({"spec_k": 2}, "A5"),
-                     ({"kv_block_size": 16}, "A4"), ({"interleave": True}, "A6"),
+                     ({"interleave": True}, "A6"),
                      ({"scheduler": "slo"}, "A6"), ({"mesh": object()}, "A9")]:
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             ServeEngine(teng.api, teng.params, max_batch=2, max_len=32, **kw)
