@@ -7,19 +7,27 @@ Phases, one output line each (or a few), every failure raising:
 
   1. the device: torch's name for it and nvidia-smi's name and power limit;
   2. build: the six CUDA sources of src/repro_torch/csrc (nine kernels),
-     compiled with one nvcc each, started together;
+     compiled with one nvcc each, started together; then, per kernel
+     function, the registers, stack and spills that ptxas reported
+     (-Xptxas=-v, in the build logs) and the count of tensor-core
+     instructions (IMMA / IGMMA / HMMA / HGMMA) in cuobjdump -sass;
   3. int8: the int8-binary GEMM kernel against its plain version at the
-     serving path's shapes (decode M = 8, prefill M = 8 x 128 and 8 x 256,
-     bin_in (N, K) = (6912, 2560) and bin_out (2560, 6912)) and a ragged
-     case, required to be exactly equal; times of the kernel, the plain
-     version and one cuBLAS call on unpacked operands (torch._int_mm where
-     it takes the shape, else an exact f32 torch.mm) beside the bound;
+     serving path's shapes (decode M = 1, 8 and 16, prefill M = 8 x 128
+     and 8 x 256, bin_in (N, K) = (6912, 2560) and bin_out (2560, 6912)),
+     a ragged case and, with activations over all of [-128, 127], a
+     decode and a prefill case, required to be exactly equal; times of the
+     kernel, the plain version and one cuBLAS call on unpacked operands
+     (torch._int_mm where it takes the shape, else an exact f32 torch.mm)
+     beside the bound; then, for the serving path's shapes, the kernel at
+     every K split it takes (1, 2, 4, 8 chunks), each exact, timed beside
+     the split its host plan picks (the plan's model, measured);
   4. flash: the flash-attention kernel against its plain version in bf16 at
-     B = 8, S = T = 128, 32 heads of 80, causal, full and ragged kv_len (a
-     row of length 1), S = 152, a q_offset block, GQA and head dims 64 and
-     128, within bf16's tolerance of 3e-2 (tests/test_attention.py TOLS);
-     times beside the bound and scaled_dot_product_attention's (with
-     enable_gqa for the GQA case, on torch >= 2.5);
+     B = 8, S = T = 128 and 256, 32 heads of 80, causal, full and ragged
+     kv_len (a row of length 1), S = 152, a q_offset block, GQA and head
+     dims 64 and 128, within bf16's tolerance of 3e-2
+     (tests/test_attention.py TOLS); times beside the bound and
+     scaled_dot_product_attention's (with enable_gqa for the GQA case, on
+     torch >= 2.5);
   5. kv_quant: the four KV quantize / dequantize kernels (B4a-d) bit for
      bit against their plain versions at the decode insert (8, 1, 32, 80),
      the prefill encode (8, 128, 32, 80) in bf16 and f32, ragged row counts
@@ -43,7 +51,9 @@ Phases, one output line each (or a few), every failure raising:
      layer 0 agrees with the plain attention on a small batch, and its
      int8 and binary caches decode as their materialized copies do (2e-2).
      Profiled runs of the bf16 and int8 paths give the device time by
-     kernel and the device's busy share of the unprofiled wall time;
+     kernel and the device's busy share of the unprofiled wall time, with
+     every kernel symbol of csrc mapped to its family (B2 and B3 must show
+     device time there);
   7. xnor: the XNOR-popcount GEMM against its plain version, exactly, at
      the MNIST net's hidden layers (M = 1, 128, 256, 512; N = K = 1024),
      ragged K (40, 100, 384) and the spec-draft shape (8, 6912, 2560); the
@@ -227,13 +237,25 @@ INT8_CASES = [  # (name, M, N, K)
     ("prefill bin_out", 1024, 2560, 6912),
     ("prefill bin_out max bucket", 2048, 2560, 6912),
     ("ragged", 5, 40, 96),
+    ("decode M 1 bin_in", 1, 6912, 2560),
+    ("decode M 1 bin_out", 1, 2560, 6912),
+    ("decode M 16 bin_in", 16, 6912, 2560),
+    ("decode M 16 bin_out", 16, 2560, 6912),
 ]
+# activations drawn from all of [-128, 127]: the kernel is exact for any
+# int8, and so are the plain f32 version and the yardsticks (|sum| < 2**24)
+INT8_RANGE_CASES = [("decode bin_out, int8 range", 8, 2560, 6912),
+                    ("prefill bin_in, int8 range", 1024, 6912, 2560)]
 
 
 def phase_int8(dev, gen, timer) -> list[dict]:
     rows = []
-    for name, m, n, k in INT8_CASES:
-        a = pack_signs_int8(torch.randn(m, k, generator=gen, device=dev))
+    cases = [(c, False) for c in INT8_CASES] + [(c, True) for c in INT8_RANGE_CASES]
+    for (name, m, n, k), full_range in cases:
+        if full_range:
+            a = torch.randint(-128, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+        else:
+            a = pack_signs_int8(torch.randn(m, k, generator=gen, device=dev))
         pw = pack_bits(torch.randn(n, k, generator=gen, device=dev))
         got, want = int8_matmul(a, pw), int8_matmul_plain(a, pw)
         torch.cuda.synchronize()
@@ -252,6 +274,41 @@ def phase_int8(dev, gen, timer) -> list[dict]:
     return rows
 
 
+# the serving path's prefill and decode shapes, and the small prefill waves
+SPLIT_CASES = INT8_CASES[:5] + [("prefill bin_in M 128", 128, 6912, 2560),
+                                ("prefill bin_out M 256", 256, 2560, 6912)]
+
+
+def phase_int8_splits(dev, gen, timer) -> list[dict]:
+    """B2 at each K split its kernel takes, beside the one plan() picks."""
+    from repro_torch.kernels import int8_matmul as im
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = []
+    for name, m, n, k in SPLIT_CASES:
+        a = pack_signs_int8(torch.randn(m, k, generator=gen, device=dev))
+        pw = pack_bits(torch.randn(n, k, generator=gen, device=dev))
+        want = int8_matmul_plain(a, pw)
+        design, planned = im.plan(m, n, k, n_sms)
+        kp = k // 32
+        units = -(-kp // im.STAGE_WORDS)
+        times = {}
+        for s in im.CLUSTERS:
+            kchunk = im.STAGE_WORDS * -(-units // s)
+            if -(-kp // kchunk) != s:
+                continue
+            if not torch.equal(im._launch(a, pw, design, kchunk), want):
+                raise AssertionError(f"int8 kernel at {s} K chunks differs from plain at {name}")
+            times[s] = timer(lambda kchunk=kchunk: im._launch(a, pw, design, kchunk))
+        picked = -(-kp // planned)
+        best = min(times, key=times.get)
+        row = dict(case=name, M=m, N=n, K=k, design="decode" if design == im.DECODE else "prefill",
+                   ms_by_splits=times, planned_splits=picked, best_splits=best,
+                   planned_over_best=times[picked] / times[best])
+        log("int8_split", **row)
+        rows.append(row)
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 4: flash attention
 # ---------------------------------------------------------------------------
@@ -263,6 +320,7 @@ FLASH_CASES = [  # (name, B, S, T, Hq, Hkv, D, q_offset, kv_len or None)
     ("q_offset 128", 8, 64, 192, 32, 32, 80, 128, [192, 150, 129, 192, 170, 180, 140, 160]),
     ("GQA 8/2, D 64", 2, 96, 96, 8, 2, 64, 0, [96, 50]),
     ("D 128", 2, 96, 96, 8, 8, 128, 0, [96, 1]),
+    ("S = T = 256, largest bucket", 8, 256, 256, 32, 32, 80, 0, None),
 ]
 
 
@@ -359,13 +417,23 @@ def _serve_once(api, params, prompts, staged=False, **kw):
     return [res[r] for r in rids], time.perf_counter() - t0, eng
 
 
+OUR_KERNELS = {  # every __global__ function of src/repro_torch/csrc -> family
+    "int8_matmul_mma_kernel": "int8_matmul (ours)",
+    "int8_matmul_wgmma_kernel": "int8_matmul (ours)",
+    "flash_fwd_mma_kernel": "flash_attention (ours)",
+    "flash_fwd_simt_kernel": "flash_attention (ours)",
+    "quant_int8_kernel": "kv_quant (ours)", "dequant_int8_kernel": "kv_quant (ours)",
+    "quant_binary_kernel": "kv_quant (ours)", "dequant_binary_kernel": "kv_quant (ours)",
+    "binary_matmul_kernel": "binary_matmul (ours)",
+    "hybrid_dense_kernel": "hybrid_dense (ours)",
+    "bf16_matmul_kernel": "bf16_matmul (ours)",
+}
+
+
 def _kernel_family(name: str) -> str:
-    if "int8_matmul" in name:
-        return "int8_matmul (ours)"
-    if "flash_fwd" in name:
-        return "flash_attention (ours)"
-    if "quant_int8" in name or "quant_binary" in name:
-        return "kv_quant (ours)"
+    for sym, fam in OUR_KERNELS.items():
+        if sym in name:
+            return fam
     if any(t in name for t in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
         return "float matmuls (cuBLAS)"
     return "other (elementwise, norms, copies, argmax)"
@@ -475,6 +543,10 @@ def phase_serve(dev, card: str) -> dict:
     prof = _profile(api, params, prompts, wall2)
     if prof.pop("out") != out:
         raise AssertionError("the profiled run gave other tokens")
+    for fam in ("int8_matmul (ours)", "flash_attention (ours)"):
+        if not prof["device_ms_by_family"].get(fam, 0.0) > 0.0:
+            raise AssertionError(f"the profile shows no device time for {fam}: "
+                                 f"{prof['device_ms_by_family']}")
 
     # the further paths: each with its counts zeroed just before and read
     # just after, run twice for the same tokens
@@ -825,6 +897,71 @@ def phase_mnist(dev, card: str) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 2b: what ptxas and the SASS say about each kernel function
+# ---------------------------------------------------------------------------
+
+def _demangle(names: list[str]) -> list[str]:
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        return names
+    return out if len(out) == len(names) else names
+
+
+def phase_build_report() -> list[dict]:
+    """Per kernel function of each library: registers, stack and spill
+    bytes from ptxas (-Xptxas=-v output kept in build/kernels/<name>.log),
+    and its tensor-core instructions (SASS opcodes ending in MMA: IMMA,
+    HMMA, and IGMMA / HGMMA for wgmma) counted by opcode in cuobjdump -sass
+    (None where the toolkit has no cuobjdump)."""
+    import re
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    rows = []
+    for src in SOURCES:
+        log_text = (build.BUILD_DIR / f"{src}.log").read_text()
+        funcs: dict[str, dict] = {}
+        cur = None
+        for line in log_text.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                cur = funcs.setdefault(m.group(1), {})
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if m and cur is not None:
+                cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur is not None:
+                cur["registers"] = int(m.group(1))
+        sass: dict[str, dict] | None = None
+        if cuobjdump.exists():
+            text = subprocess.run([str(cuobjdump), "-sass", str(build.library_path(src))],
+                                  capture_output=True, text=True, check=True).stdout
+            sass, fn = {}, None
+            for line in text.splitlines():
+                m = re.search(r"Function : (\w+)", line)
+                if m:
+                    fn = sass.setdefault(m.group(1), {})
+                    continue
+                # an instruction line: /*addr*/ [@predicate] OPCODE.modifiers ...
+                m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", line)
+                if m and m.group(1).endswith("MMA") and fn is not None:
+                    fn[m.group(1)] = fn.get(m.group(1), 0) + 1
+        for mangled, name in zip(funcs, _demangle(list(funcs))):
+            if name.endswith(")"):          # drop the parameter list
+                name = name[:name.rfind("(")]
+            name = name.replace("(anonymous namespace)::", "")
+            row = dict(source=f"src/repro_torch/csrc/{src}.cu", function=name,
+                       **funcs[mangled],
+                       tensor_core_ops=None if sass is None else sass.get(mangled, {}))
+            log("kernel_build", **row)
+            rows.append(row)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -841,11 +978,21 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all(SOURCES)
     log("build", seconds=time.perf_counter() - t0, dir=str(build.BUILD_DIR))
+    # B2's two designs and B3's bf16 instantiations run on the tensor cores
+    build_rows = phase_build_report()
+    for sym, kind in (("int8_matmul_mma_kernel", "IMMA"), ("int8_matmul_wgmma_kernel", "IGMMA"),
+                      ("flash_fwd_mma_kernel", "HMMA")):
+        counted = [r["tensor_core_ops"] for r in build_rows if sym in r["function"]]
+        if not counted:
+            raise AssertionError(f"no {sym} in the build logs")
+        if any(c is not None and not any(op.startswith(kind[0]) for op in c) for c in counted):
+            raise AssertionError(f"{sym}: no {kind[0]}*MMA instruction in its SASS: {counted}")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     timer = Timer(dev)
     int8_rows = phase_int8(dev, gen, timer)
+    phase_int8_splits(dev, gen, timer)
     flash_rows = phase_flash(dev, gen, timer)
     kv_rows = phase_kvquant(dev, gen, timer)
     serve = phase_serve(dev, smi)

@@ -53,6 +53,11 @@ def _paths(name: str) -> tuple[Path, Path]:
     return src, BUILD_DIR / f"lib{name}-{key[:16]}.so"
 
 
+def library_path(name: str) -> Path:
+    """Where the library built from ``csrc/<name>.cu`` lies (or will)."""
+    return _paths(name)[1]
+
+
 def _start(name: str):
     """Start one nvcc for ``name`` (None when the library is current).
     Returns (process, tmp path, final path, log path)."""

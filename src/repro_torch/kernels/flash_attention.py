@@ -3,7 +3,11 @@
 Replaces the TPU kernel ``repro/kernels/flash_attention.py::_flash_call``
 (B3, reached through ``flash_attention_pallas``) with the CUDA kernel in
 ``csrc/flash_attention.cu``; what bounds it on an H100 and how it is laid
-out is noted at the top of that file (bytes, at the serving shapes).
+out is noted at the top of that file. At the serving shapes it is bound by
+bytes. bf16 inputs, which every serving path sends, run on the tensor
+cores (FA2-style ``mma.sync`` m16n8k16, each warp 16 query rows with S and
+O in registers, K / V tiles double-buffered by ``cp.async``); f32 inputs
+run the CUDA-core design, which holds f32's tolerance.
 
 Shapes follow the JAX package: q (B, S, Hq, D), k and v (B, T, Hkv, D),
 GQA groups G = Hq // Hkv (query head h reads kv head h // G), causal
@@ -137,6 +141,9 @@ def flash_attention(q, k, v, *, causal: bool, kv_len=None,
         raise ValueError("flash_attention takes contiguous q, k, v")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must be on one device")
+    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("flash_attention stages 16-byte chunks: q, k and v must be "
+                         "16-byte aligned")
     if q_offset < 0:
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)

@@ -1,14 +1,25 @@
-"""+-1 int8 activations times bit-packed weights -> exact int32.
+"""int8 activations times bit-packed +-1 weights -> exact int32.
 
 Replaces the TPU kernel ``repro/kernels/int8_matmul.py::int8_matmul_pallas``
-(B2) with the CUDA kernel in ``csrc/int8_matmul.cu``. What bounds it on an
-H100, and how the kernel is laid out, is noted at the top of that file: at
-decode it is bound by the bytes of the packed weight, at prefill by the
-2*M*N*K int8 operations.
+(B2) with the CUDA kernel in ``csrc/int8_matmul.cu``: int8 tensor cores
+fed by a ``cp.async`` ring of activation and packed weight tiles, the
+weight expanded from bits on chip, so it crosses device memory at 1 bit
+per value. What bounds it on an H100 is noted at the top of that file: at
+decode the bytes of the packed weight, at prefill the 2*M*N*K int8
+operations.
+
+One call is one launch of one of two designs, chosen by ``plan`` on the
+host: the prefill design (M > 16: ``wgmma`` on 128 x 128 output tiles)
+or the decode design (M <= 16: ``mma.sync`` on 16 x 64 tiles). Either may
+split the K range over a thread block cluster of 2, 4 or 8 blocks whose
+partial sums meet in distributed shared memory: at decode so that a call
+spreads its weight read over at least two blocks per SM, at prefill where
+the output tiles alone would leave SMs idle.
 
 Unlike the TPU kernel, which asserts that its blocks divide M, N and K
 (and so cannot take ``bin_out``'s K = 6912 at its default bk = 512), the
-CUDA kernel takes any M, any N and any K that is a multiple of 32.
+CUDA kernel takes any M, any N and any K that is a multiple of 32, and is
+exact for every int8 activation, not only +-1.
 
 ``int8_matmul`` runs the kernel for a CUDA tensor and its plain version,
 ``int8_matmul_plain``, for a CPU tensor; for a CUDA tensor it launches the
@@ -18,6 +29,7 @@ kernel or raises. ``int8_matmul.launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -40,10 +52,53 @@ def _check(a: torch.Tensor, pw: torch.Tensor) -> None:
 
 def int8_matmul_plain(a: torch.Tensor, pw: torch.Tensor) -> torch.Tensor:
     """Plain torch version: unpack to +-1 and multiply in f32, which is exact
-    here (every partial sum is an integer of magnitude <= K < 2**24)."""
+    here (every partial sum is an integer of magnitude <= 128 K < 2**24)."""
     _check(a, pw)
     w = unpack_bits(pw, a.shape[1], torch.float32)           # (N, K)
     return (a.to(torch.float32) @ w.T).round().to(torch.int32)
+
+
+PREFILL, DECODE = 0, 1  # the kernel's two designs
+DECODE_MAX_M = 16       # the decode design pads M to one m16 tile
+TILES = {PREFILL: (128, 128), DECODE: (16, 64)}   # (rows, columns) per block
+CLUSTERS = (1, 2, 4, 8)  # K splits: cluster sizes that schedule well
+STAGE_WORDS = 4          # packed words per kernel stage (128 values of K)
+SPLIT_COST = 4           # a split's reduction, in stages, per doubling
+PREFILL_SLOTS = 2        # prefill blocks an SM holds (its launch bounds)
+
+
+def plan(m: int, n: int, k: int, n_sms: int = 132) -> tuple[int, int]:
+    """The launch: (design, kchunk). The decode design for M <= 16, else
+    the prefill design; the K range is cut into chunks of ``kchunk``
+    packed words, one block of a thread block cluster each, cut only at
+    stage boundaries (multiples of 4 words), so that 16-byte loads stay
+    aligned and every chunk but the last is whole. Only splits into 1, 2,
+    4 or 8 chunks are taken: clusters of 3, 5 or 7 blocks ran slower than
+    their share of the work on the H100 (PERF.md, PR 15).
+
+    Decode takes the fewest chunks that give three blocks per SM over the
+    N tiles: the call is bound by one pass over the packed weight, which
+    wants every SM reading. Prefill takes the split with the least
+    (rounds of blocks over the card's block slots, two an SM) x (stages
+    a block runs + the reduction, SPLIT_COST stages per doubling): a split
+    pays where the output tiles alone would leave slots idle or the last
+    round thin. The model and its cost were fitted to split sweeps on the
+    H100 (PERF.md, PR 15)."""
+    kp = k // LANE_BITS
+    units = max(1, -(-kp // STAGE_WORDS))
+    design = DECODE if m <= DECODE_MAX_M else PREFILL
+    bm, bn = TILES[design]
+    tiles = -(-m // bm) * -(-n // bn)
+    splits = [s for s in CLUSTERS if s <= units and -(-units // -(-units // s)) == s]
+    if design == DECODE:
+        s = next((s for s in splits if tiles * s >= 3 * n_sms), splits[-1])
+    else:
+        def cost(s: int) -> int:
+            per = -(-units // s)
+            rounds = -(-tiles * s // (PREFILL_SLOTS * n_sms))
+            return rounds * (per + SPLIT_COST * (s.bit_length() - 1))
+        s = min(splits, key=cost)
+    return design, STAGE_WORDS * -(-units // s)
 
 
 def _lib():
@@ -51,32 +106,46 @@ def _lib():
     lib = build.load("int8_matmul")
     fn = lib.int8_matmul_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def int8_matmul(a: torch.Tensor, pw: torch.Tensor) -> torch.Tensor:
-    """a (M, K) int8 in {-1, +1}, pw (N, K/32) int32 packed signs ->
-    (M, N) int32 = a @ unpack(pw).T."""
+    """a (M, K) int8 (+-1 on the serving path), pw (N, K/32) int32 packed
+    signs -> (M, N) int32 = a @ unpack(pw).T."""
     _check(a, pw)
     if a.device.type == "cpu":
         return int8_matmul_plain(a, pw)
     if a.device.type != "cuda":
         raise ValueError(f"int8_matmul runs on cuda or cpu, not {a.device}")
+    m, k = a.shape
+    out = _launch(a, pw, *plan(m, pw.shape[0], k, _sm_count(a.device)))
+    int8_matmul.launches += 1
+    return out
+
+
+def _launch(a: torch.Tensor, pw: torch.Tensor, design: int, kchunk: int) -> torch.Tensor:
+    """One launch of the kernel with a given plan (``int8_matmul`` passes
+    ``plan``'s; chip_smoke.py times the other splits beside it)."""
     if not (a.is_contiguous() and pw.is_contiguous()):
         raise ValueError("int8_matmul takes contiguous tensors")
-    if a.data_ptr() % 4:
-        raise ValueError("int8_matmul reads activations as 32-bit words: "
-                         "a must be 4-byte aligned")
+    if a.data_ptr() % 16 or pw.data_ptr() % 16:
+        raise ValueError("int8_matmul stages 16-byte chunks: a and pw must be "
+                         "16-byte aligned")
     m, k = a.shape
     n = pw.shape[0]
     out = torch.empty((m, n), dtype=torch.int32, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     from repro_torch.kernels.build import check
-    check(_lib()(a.data_ptr(), pw.data_ptr(), out.data_ptr(), m, n, k, stream),
-          "int8_matmul")
-    int8_matmul.launches += 1
+    check(_lib()(a.data_ptr(), pw.data_ptr(), out.data_ptr(), m, n, k, design, kchunk,
+                 stream), "int8_matmul")
     return out
 
 

@@ -70,9 +70,18 @@ def _gen(dev, seed):
 
 
 # (M, K, N): tiles that divide, ragged M / N / K tails, and the serving
-# path's decode and prefill shapes (bin_out's K = 6912 is 13.5 x 512)
+# path's decode and prefill shapes (bin_out's K = 6912 is 13.5 x 512);
+# then the edges of the two designs: M = 15, 16 (decode, one m16 tile) and
+# 17, 129 (prefill, either side of its 128-row tile), N not a multiple of
+# the 64- or 128-column tile, K = 32 and 96 (one stage, ragged), K = 6784
+# (53 stages, which the 8-way K split leaves ragged) and K = 6944 (packed
+# rows not 16-byte aligned: 4-byte loads, split), and the largest prefill
+# bucket, M = 2048 at bin_out's (N, K) = (2560, 6912)
 INT8_SHAPES = [(128, 256, 128), (256, 1024, 512), (5, 96, 40), (1, 32, 1),
-               (77, 160, 130), (8, 2560, 6912), (8, 6912, 2560), (300, 6912, 2560)]
+               (77, 160, 130), (8, 2560, 6912), (8, 6912, 2560), (300, 6912, 2560),
+               (15, 2560, 6912), (16, 6912, 2560), (17, 2560, 6912), (129, 2560, 200),
+               (16, 32, 72), (3, 96, 2560), (8, 6784, 100), (8, 6944, 130),
+               (40, 6944, 72), (2048, 6912, 2560)]
 
 
 @pytest.mark.parametrize("m,k,n", INT8_SHAPES)
@@ -85,6 +94,26 @@ def test_int8_kernel_exact(dev, m, k, n):
     torch.cuda.synchronize()
     assert int8_matmul.launches == before + 1
     assert torch.equal(got, int8_matmul_plain(a, pw))
+
+
+# (M, K, N): int8 activations over the whole range [-128, 127], not only
+# +-1: the plain f32 version stays exact (|sum| <= 128 K < 2**24)
+@pytest.mark.parametrize("m,k,n", [(8, 6912, 2560), (16, 2560, 6912), (300, 2560, 6912),
+                                   (77, 160, 130)])
+def test_int8_kernel_exact_full_int8_range(dev, m, k, n):
+    g = _gen(dev, m + k + n + 1)
+    a = torch.randint(-128, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+    pw = pack_bits(torch.randn(n, k, generator=g, device=dev))
+    got = int8_matmul(a, pw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, int8_matmul_plain(a, pw))
+
+
+def test_int8_kernel_refuses_unaligned_base(dev):
+    a = torch.ones(8 * 64 + 4, dtype=torch.int8, device=dev)[4:].view(8, 64)
+    pw = torch.zeros(16, 2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        int8_matmul(a, pw)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -208,6 +237,33 @@ def test_flash_kernel_matches_plain(dev, dtype, d, causal, g, s, t, kv_len, q_of
                                atol=TOLS[dtype])
 
 
+# (B, S, T, Hq, D, q_offset, kv_len): the serving path's largest bucket
+# (B 8, S = T = 256, 32 heads of 80), its smallest (S = T = 8), and a query
+# block from further down whose S is not a multiple of the 64-row tile.
+# No row has kv_len 0: there the plain version averages over every key
+# and the kernel over the tiles it visits, as the TPU kernel does.
+FLASH_SERVING_CASES = [
+    (8, 256, 256, 32, 80, 0, None),
+    (8, 8, 8, 32, 80, 0, None),
+    (4, 100, 228, 32, 80, 128, [228, 200, 129, 150]),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,t,hq,d,q_offset,kv_len", FLASH_SERVING_CASES)
+def test_flash_kernel_serving_shapes(dev, dtype, b, s, t, hq, d, q_offset, kv_len):
+    gen = _gen(dev, b + s + t)
+    q, k, v = (torch.randn(b, n, hq, d, generator=gen, device=dev).to(getattr(torch, dtype))
+               for n in (s, t, t))
+    kvl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    got = flash_attention(q, k, v, causal=True, kv_len=kvl, q_offset=q_offset)
+    want = flash_attention_plain(q, k, v, causal=True, kv_len=kvl, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert got.dtype == v.dtype and got.shape == (b, s, hq, d)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOLS[dtype],
+                               atol=TOLS[dtype])
+
+
 def test_flash_kernel_rejects_what_it_does_not_take(dev):
     q = torch.zeros(1, 4, 2, 48, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dims"):
@@ -217,6 +273,9 @@ def test_flash_kernel_rejects_what_it_does_not_take(dev):
         flash_attention(q, q, q[..., :32].contiguous(), causal=True)
     with pytest.raises(TypeError):
         flash_attention(q.half(), q.half(), q.half(), causal=True)
+    off = torch.zeros(4 * 2 * 64 + 4, device=dev, dtype=torch.bfloat16)[4:].view(1, 4, 2, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(off, q, q, causal=True)
 
 
 def test_smoke_model_on_card_matches_cpu(dev):

@@ -39,6 +39,7 @@ from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
                                                  flash_attention_plain)
 from repro_torch.kernels.int8_matmul import (int8_matmul,  # noqa: E402
                                              int8_matmul_plain)
+from repro_torch.kernels.int8_matmul import plan as int8_plan  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -94,6 +95,46 @@ def test_int8_wrapper_on_cpu_is_plain_for_ragged_shapes(m, k, n):
 def test_int8_wrapper_rejects_bad_k():
     with pytest.raises(ValueError):
         int8_matmul(torch.ones(2, 40, dtype=torch.int8), torch.zeros(3, 1, dtype=torch.int32))
+
+
+# (M, N, K, SMs): the serving path's decode shapes (bin_in, bin_out, at
+# M = 1, 8, 16) and a prefill one, the switch at M = 16 / 17, K of one
+# stage (32, 96), K that the split leaves ragged (6784: 53 stages), packed
+# rows that are not whole stages (6944: 217 words), and other SM counts
+SERVING_NK = [(6912, 2560), (2560, 6912)]
+PLAN_CASES = [(8, 6912, 2560, 132), (8, 2560, 6912, 132), (1, 2560, 6912, 132),
+              (16, 6912, 2560, 132), (17, 6912, 2560, 132), (1024, 2560, 6912, 132),
+              (1024, 6912, 2560, 132), (2048, 2560, 6912, 132), (128, 6912, 2560, 132),
+              (16, 72, 32, 132), (3, 2560, 96, 132), (8, 100, 6784, 132),
+              (8, 130, 6944, 132), (8, 2560, 6912, 114), (8, 6912, 2560, 8)]
+
+
+def _split_ranges(k: int, kchunk: int) -> list[tuple[int, int]]:
+    """The packed-word range [begin, end) of each block of a cluster, as
+    csrc/int8_matmul.cu derives it: block x takes [x kchunk, min((x + 1)
+    kchunk, K/32)), for x < ceil((K/32) / kchunk)."""
+    kp = k // 32
+    return [(x * kchunk, min((x + 1) * kchunk, kp)) for x in range(-(-kp // kchunk))]
+
+
+@pytest.mark.parametrize("m,n,k,sms", PLAN_CASES)
+def test_int8_plan_splits_cover_k_once(m, n, k, sms):
+    """The host's plan for the B2 kernel: the decode design up to M = 16,
+    the prefill design above; a K split whose chunks (as the kernel derives
+    them from the chunk length) cover every packed word exactly once, in
+    1, 2, 4 or 8 chunks (one thread block cluster), cut at 4-word stage
+    boundaries; at the serving decode shapes, at least two blocks per SM."""
+    design, kchunk = int8_plan(m, n, k, sms)
+    assert design == (1 if m <= 16 else 0)
+    kp = k // 32
+    assert kchunk > 0
+    ranges = _split_ranges(k, kchunk)
+    assert [w for b, e in ranges for w in range(b, e)] == list(range(kp))
+    assert all(e > b for b, e in ranges)
+    assert len(ranges) in (1, 2, 4, 8)
+    assert len(ranges) == 1 or kchunk % 4 == 0
+    if (n, k) in SERVING_NK and sms == 132 and m <= 16:
+        assert len(ranges) * -(-n // 64) >= 2 * sms
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
