@@ -10,7 +10,8 @@ Phases, one output line each (or a few), every failure raising:
      compiled with one nvcc each, started together; then, per kernel
      function, the registers, stack and spills that ptxas reported
      (-Xptxas=-v, in the build logs) and the count of tensor-core
-     instructions (IMMA / IGMMA / HMMA / HGMMA) in cuobjdump -sass;
+     instructions (IMMA / IGMMA / HMMA / HGMMA / BMMA) in cuobjdump -sass,
+     required in B2's, B3's bf16, B1's and B6's kernel functions;
   3. int8: the int8-binary GEMM kernel against its plain version at the
      serving path's shapes (decode M = 1, 8 and 16, prefill M = 8 x 128
      and 8 x 256, bin_in (N, K) = (6912, 2560) and bin_out (2560, 6912)),
@@ -57,12 +58,17 @@ Phases, one output line each (or a few), every failure raising:
   7. xnor: the XNOR-popcount GEMM against its plain version, exactly, at
      the MNIST net's hidden layers (M = 1, 128, 256, 512; N = K = 1024),
      ragged K (40, 100, 384) and the spec-draft shape (8, 6912, 2560); the
-     yardstick is the same cuBLAS call as int8's, on unpacked signs;
+     yardstick is the same cuBLAS call as int8's, on unpacked signs; then
+     the kernel at every K split it takes, each exact and repeatable,
+     timed beside the split its host plan picks;
   8. hybrid_dense: the fused binary layer bit-exact at (256, 1024, 1024)
      and at ragged M; no PyTorch call computes it, so no yardstick;
   9. bf16_matmul: the bf16 GEMM within 2e-2 (tests/test_kernels.py), with
      hardtanh off and on, at (256, 1024, 512) and the MNIST float layers at
-     batch 256 (fc0's K = 784, fc3's N = 10); the yardstick is torch.mm;
+     batch 256 (fc0's K = 784, fc3's N = 10, fc1 / fc2's 1024 -> 1024);
+     the yardstick is torch.mm; then each tile design (LARGE on wgmma,
+     SMALL on mma.sync) at every K split, each within 2e-2 and the same bits
+     on a second call, timed beside the plan's pick;
  10. mnist: the paper's net, the port's quickstart path: the hybrid net
      trains 2 epochs on SyntheticMnist, packs and runs packed inference,
      with the launch counts zeroed just before and read just after (B1
@@ -108,6 +114,7 @@ from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
                                                  flash_attention_plain)
 from repro_torch.kernels.hybrid_dense import hybrid_dense, hybrid_dense_plain  # noqa: E402
 from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_plain  # noqa: E402
+from repro_torch.kernels.ksplit import splits_for  # noqa: E402
 from repro_torch.kernels import kv_quant as kvq  # noqa: E402
 from repro_torch.models import get_model, lm_common as lc  # noqa: E402
 from repro_torch.nn import attention as attn_lib  # noqa: E402
@@ -279,8 +286,29 @@ SPLIT_CASES = INT8_CASES[:5] + [("prefill bin_in M 128", 128, 6912, 2560),
                                 ("prefill bin_out M 256", 256, 2560, 6912)]
 
 
+def _sweep(tag, name, dims, options, planned, same, timer, **extra) -> dict:
+    """One kernel (B1, B2 or B6) at every launch its launcher takes:
+    ``options`` maps a label (design / K chunks) to a call, each held by
+    ``same`` to the plain result and required to give the same bits twice,
+    and timed beside ``planned``, the label of the launch its host plan
+    picks (the plan's model, measured)."""
+    times = {}
+    for label, call in options.items():
+        got = call()
+        same(got, f"{name}, {label}")
+        if not torch.equal(got, call()):
+            raise AssertionError(f"{tag}: a second call differs at {name}, {label}")
+        times[label] = timer(call)
+    best = min(times, key=times.get)
+    row = dict(case=name, M=dims[0], N=dims[1], K=dims[2], **extra, ms_by_launch=times,
+               planned=planned, best=best, planned_over_best=times[planned] / times[best])
+    log(tag, **row)
+    return row
+
+
 def phase_int8_splits(dev, gen, timer) -> list[dict]:
-    """B2 at each K split its kernel takes, beside the one plan() picks."""
+    """B2 at each K split its kernel takes, each exact, beside the one
+    plan() picks."""
     from repro_torch.kernels import int8_matmul as im
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
@@ -291,21 +319,16 @@ def phase_int8_splits(dev, gen, timer) -> list[dict]:
         design, planned = im.plan(m, n, k, n_sms)
         kp = k // 32
         units = -(-kp // im.STAGE_WORDS)
-        times = {}
-        for s in im.CLUSTERS:
-            kchunk = im.STAGE_WORDS * -(-units // s)
-            if -(-kp // kchunk) != s:
-                continue
-            if not torch.equal(im._launch(a, pw, design, kchunk), want):
-                raise AssertionError(f"int8 kernel at {s} K chunks differs from plain at {name}")
-            times[s] = timer(lambda kchunk=kchunk: im._launch(a, pw, design, kchunk))
-        picked = -(-kp // planned)
-        best = min(times, key=times.get)
-        row = dict(case=name, M=m, N=n, K=k, design="decode" if design == im.DECODE else "prefill",
-                   ms_by_splits=times, planned_splits=picked, best_splits=best,
-                   planned_over_best=times[picked] / times[best])
-        log("int8_split", **row)
-        rows.append(row)
+        options = {f"{s} chunks": (lambda kc=im.STAGE_WORDS * -(-units // s):
+                                   im._launch(a, pw, design, kc))
+                   for s in splits_for(units)}
+
+        def same(got, label):
+            if not torch.equal(got, want):
+                raise AssertionError(f"int8 kernel differs from plain at {label}")
+        rows.append(_sweep("int8_split", name, (m, n, k), options, f"{-(-kp // planned)} chunks",
+                           same, timer,
+                           design="decode" if design == im.DECODE else "prefill"))
     return rows
 
 
@@ -424,9 +447,10 @@ OUR_KERNELS = {  # every __global__ function of src/repro_torch/csrc -> family
     "flash_fwd_simt_kernel": "flash_attention (ours)",
     "quant_int8_kernel": "kv_quant (ours)", "dequant_int8_kernel": "kv_quant (ours)",
     "quant_binary_kernel": "kv_quant (ours)", "dequant_binary_kernel": "kv_quant (ours)",
-    "binary_matmul_kernel": "binary_matmul (ours)",
+    "binary_matmul_mma_kernel": "binary_matmul (ours)",
     "hybrid_dense_kernel": "hybrid_dense (ours)",
-    "bf16_matmul_kernel": "bf16_matmul (ours)",
+    "bf16_matmul_mma_kernel": "bf16_matmul (ours)",
+    "bf16_matmul_wgmma_kernel": "bf16_matmul (ours)",
 }
 
 
@@ -725,6 +749,30 @@ def phase_xnor(dev, gen, timer) -> list[dict]:
     return rows
 
 
+def phase_xnor_splits(dev, gen, timer) -> list[dict]:
+    """B1 at each K split it takes (1, 2, 4, 8 chunks of whole stages),
+    each exact."""
+    from repro_torch.kernels import binary_matmul as bm
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = []
+    for name, m, n, k in XNOR_CASES:
+        pa = pack_bits(torch.randn(m, k, generator=gen, device=dev))
+        pw = pack_bits(torch.randn(n, k, generator=gen, device=dev))
+        want = binary_matmul_plain(pa, pw, k)
+        units = -(-packed_len(k) // bm.STAGE_WORDS)
+        chunks = {s: bm.STAGE_WORDS * -(-units // s) for s in splits_for(units)}
+        options = {f"{s} chunks": (lambda kc=kc: bm._launch(pa, pw, k, kc))
+                   for s, kc in chunks.items()}
+        planned = bm.plan(m, n, k, n_sms)
+
+        def same(got, label):
+            if not torch.equal(got, want):
+                raise AssertionError(f"xnor kernel differs from plain at {label}")
+        rows.append(_sweep("xnor_split", name, (m, n, k), options,
+                           f"{-(-packed_len(k) // planned)} chunks", same, timer))
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 7: fused hybrid dense
 # ---------------------------------------------------------------------------
@@ -772,6 +820,7 @@ BF16_CASES = [  # (name, M, N, K, hardtanh)
     ("mnist fc3, batch 256, hardtanh", 256, 10, 1024, True),
     ("256 x 1024 x 512", 256, 512, 1024, False),
     ("256 x 1024 x 512, hardtanh", 256, 512, 1024, True),
+    ("mnist fc1 / fc2, batch 256", 256, 1024, 1024, False),
 ]
 
 
@@ -810,6 +859,32 @@ def phase_bf16(dev, gen, timer) -> list[dict]:
                    library_call=lib_call + (" (no clamp)" if ht else ""))
         log("bf16", **row)
         rows.append(row)
+    return rows
+
+
+def phase_bf16_splits(dev, gen, timer) -> list[dict]:
+    """B6 at each tile design (LARGE, SMALL) and K split it takes, each
+    within GEMM_TOL of the plain version."""
+    from repro_torch.kernels import bf16_matmul as bfm
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    names = {bfm.LARGE: "large", bfm.SMALL: "small"}
+    rows = []
+    for name, m, n, k, ht in BF16_CASES:
+        a = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+        w = (torch.randn(k, n, generator=gen, device=dev) / k ** 0.5).to(torch.bfloat16)
+        want = bf16_matmul_plain(a, w, hardtanh=ht)
+        units = -(-k // bfm.STAGE_K)
+        options = {f"{names[d]}/{s}": (lambda d=d, kc=bfm.STAGE_K * -(-units // s):
+                                       bfm._launch(a, w, ht, d, kc))
+                   for d in bfm.TILES for s in splits_for(units)}
+        design, kchunk = bfm.plan(m, n, k, n_sms)
+
+        def same(got, label):
+            if not torch.allclose(got, want, rtol=GEMM_TOL, atol=GEMM_TOL):
+                raise AssertionError(f"bf16 kernel vs plain at {label}: "
+                                     f"{float((got - want).abs().max())}")
+        rows.append(_sweep("bf16_split", name, (m, n, k), options,
+                           f"{names[design]}/{-(-k // kchunk)}", same, timer))
     return rows
 
 
@@ -978,15 +1053,18 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all(SOURCES)
     log("build", seconds=time.perf_counter() - t0, dir=str(build.BUILD_DIR))
-    # B2's two designs and B3's bf16 instantiations run on the tensor cores
+    # B2's two designs, B3's bf16 instantiations, B1 (b1 BMMA) and B6's two
+    # designs (HGMMA, HMMA) run on the tensor cores: each function's SASS
+    # must hold its opcode
     build_rows = phase_build_report()
     for sym, kind in (("int8_matmul_mma_kernel", "IMMA"), ("int8_matmul_wgmma_kernel", "IGMMA"),
-                      ("flash_fwd_mma_kernel", "HMMA")):
+                      ("flash_fwd_mma_kernel", "HMMA"), ("binary_matmul_mma_kernel", "BMMA"),
+                      ("bf16_matmul_wgmma_kernel", "HGMMA"), ("bf16_matmul_mma_kernel", "HMMA")):
         counted = [r["tensor_core_ops"] for r in build_rows if sym in r["function"]]
         if not counted:
             raise AssertionError(f"no {sym} in the build logs")
-        if any(c is not None and not any(op.startswith(kind[0]) for op in c) for c in counted):
-            raise AssertionError(f"{sym}: no {kind[0]}*MMA instruction in its SASS: {counted}")
+        if any(c is not None and kind not in c for c in counted):
+            raise AssertionError(f"{sym}: no {kind} instruction in its SASS: {counted}")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -997,8 +1075,10 @@ def main() -> int:
     kv_rows = phase_kvquant(dev, gen, timer)
     serve = phase_serve(dev, smi)
     xnor_rows = phase_xnor(dev, gen, timer)
+    phase_xnor_splits(dev, gen, timer)
     hybrid_rows = phase_hybrid(dev, gen, timer)
     bf16_rows = phase_bf16(dev, gen, timer)
+    phase_bf16_splits(dev, gen, timer)
     del timer
     mnist = phase_mnist(dev, smi)
 

@@ -29,11 +29,11 @@ kernel or raises. ``int8_matmul.launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from repro_torch.core.binarize import LANE_BITS, unpack_bits
+from repro_torch.kernels.ksplit import cheapest_split, splits_for, sm_count
 
 
 def _check(a: torch.Tensor, pw: torch.Tensor) -> None:
@@ -61,7 +61,6 @@ def int8_matmul_plain(a: torch.Tensor, pw: torch.Tensor) -> torch.Tensor:
 PREFILL, DECODE = 0, 1  # the kernel's two designs
 DECODE_MAX_M = 16       # the decode design pads M to one m16 tile
 TILES = {PREFILL: (128, 128), DECODE: (16, 64)}   # (rows, columns) per block
-CLUSTERS = (1, 2, 4, 8)  # K splits: cluster sizes that schedule well
 STAGE_WORDS = 4          # packed words per kernel stage (128 values of K)
 SPLIT_COST = 4           # a split's reduction, in stages, per doubling
 PREFILL_SLOTS = 2        # prefill blocks an SM holds (its launch bounds)
@@ -73,14 +72,14 @@ def plan(m: int, n: int, k: int, n_sms: int = 132) -> tuple[int, int]:
     packed words, one block of a thread block cluster each, cut only at
     stage boundaries (multiples of 4 words), so that 16-byte loads stay
     aligned and every chunk but the last is whole. Only splits into 1, 2,
-    4 or 8 chunks are taken: clusters of 3, 5 or 7 blocks ran slower than
-    their share of the work on the H100 (PERF.md, PR 15).
+    4 or 8 chunks are taken (``ksplit.splits_for``).
 
     Decode takes the fewest chunks that give three blocks per SM over the
     N tiles: the call is bound by one pass over the packed weight, which
     wants every SM reading. Prefill takes the split with the least
     (rounds of blocks over the card's block slots, two an SM) x (stages
-    a block runs + the reduction, SPLIT_COST stages per doubling): a split
+    a block runs + the reduction, SPLIT_COST stages per doubling;
+    ``ksplit.cheapest_split``): a split
     pays where the output tiles alone would leave slots idle or the last
     round thin. The model and its cost were fitted to split sweeps on the
     H100 (PERF.md, PR 15)."""
@@ -89,15 +88,11 @@ def plan(m: int, n: int, k: int, n_sms: int = 132) -> tuple[int, int]:
     design = DECODE if m <= DECODE_MAX_M else PREFILL
     bm, bn = TILES[design]
     tiles = -(-m // bm) * -(-n // bn)
-    splits = [s for s in CLUSTERS if s <= units and -(-units // -(-units // s)) == s]
     if design == DECODE:
+        splits = splits_for(units)
         s = next((s for s in splits if tiles * s >= 3 * n_sms), splits[-1])
     else:
-        def cost(s: int) -> int:
-            per = -(-units // s)
-            rounds = -(-tiles * s // (PREFILL_SLOTS * n_sms))
-            return rounds * (per + SPLIT_COST * (s.bit_length() - 1))
-        s = min(splits, key=cost)
+        s = cheapest_split(tiles, units, n_sms, PREFILL_SLOTS, SPLIT_COST)
     return design, STAGE_WORDS * -(-units // s)
 
 
@@ -112,11 +107,6 @@ def _lib():
     return fn
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def int8_matmul(a: torch.Tensor, pw: torch.Tensor) -> torch.Tensor:
     """a (M, K) int8 (+-1 on the serving path), pw (N, K/32) int32 packed
     signs -> (M, N) int32 = a @ unpack(pw).T."""
@@ -126,7 +116,7 @@ def int8_matmul(a: torch.Tensor, pw: torch.Tensor) -> torch.Tensor:
     if a.device.type != "cuda":
         raise ValueError(f"int8_matmul runs on cuda or cpu, not {a.device}")
     m, k = a.shape
-    out = _launch(a, pw, *plan(m, pw.shape[0], k, _sm_count(a.device)))
+    out = _launch(a, pw, *plan(m, pw.shape[0], k, sm_count(a.device)))
     int8_matmul.launches += 1
     return out
 

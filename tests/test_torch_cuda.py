@@ -37,6 +37,7 @@ from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
 from repro_torch.kernels.hybrid_dense import hybrid_dense, hybrid_dense_plain  # noqa: E402
 from repro_torch.kernels.int8_matmul import (int8_matmul,  # noqa: E402
                                              int8_matmul_plain)
+from repro_torch.kernels.ksplit import splits_for  # noqa: E402
 from repro_torch.kernels import kv_quant as kvq  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
@@ -128,10 +129,14 @@ def test_binary_dense_kernel_equals_cpu(dev, dtype):
 
 # (M, K, N): the MNIST hidden layers at batch 1 / 128 / 512, K not a
 # multiple of 32 (40, 100, 250), Kp = 12 (K = 384, which the TPU kernel
-# refuses), ragged M and N, and the spec-draft shape (8, 2560, 6912)
+# refuses), ragged M and N, and the spec-draft shape (8, 2560, 6912); then
+# M = 15 / 16 / 17 around the m16 tile (and the SMALL / MID switch), N = 8
+# (one n8 tile) and N not a multiple of 8, Kp = 8 (K = 256, one k256 step)
+# and Kp = 9 (4-byte copies, a second step of one word)
 XNOR_SHAPES = [(1, 1024, 1024), (128, 1024, 1024), (512, 1024, 1024), (8, 40, 24),
                (32, 100, 48), (16, 250, 64), (64, 384, 64), (77, 160, 130),
-               (8, 2560, 6912)]
+               (8, 2560, 6912), (15, 1024, 1024), (16, 256, 8), (17, 288, 13),
+               (130, 256, 77), (3, 270, 8)]
 
 
 @pytest.mark.parametrize("m,k,n", XNOR_SHAPES)
@@ -144,6 +149,34 @@ def test_binary_matmul_kernel_exact(dev, m, k, n):
     torch.cuda.synchronize()
     assert binary_matmul.launches == before + 1
     assert torch.equal(got, binary_matmul_plain(pa, pw, k))
+
+
+# (M, K, N): a K range of 8 stages, so every split (1, 2, 4, 8 chunks)
+# is whole; 63 words (4-byte copies, a short last chunk); M and N ragged
+# for the 32 x 32 tile
+XNOR_SPLIT_SHAPES = [(40, 2048, 72), (77, 2016, 130), (1, 2048, 8)]
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("m,k,n", XNOR_SPLIT_SHAPES)
+def test_binary_matmul_every_split_exact(dev, m, k, n, splits):
+    """Each K split the plan can pick, forced through the launcher, equals
+    the plain version."""
+    from repro_torch.kernels import binary_matmul as bm
+    g = _gen(dev, m + k + n + splits)
+    pa = pack_bits(torch.randn(m, k, generator=g, device=dev))
+    pw = pack_bits(torch.randn(n, k, generator=g, device=dev))
+    units = -(-pa.shape[1] // bm.STAGE_WORDS)
+    assert splits in splits_for(units)
+    got = bm._launch(pa, pw, k, bm.STAGE_WORDS * -(-units // splits))
+    torch.cuda.synchronize()
+    assert torch.equal(got, binary_matmul_plain(pa, pw, k))
+
+
+def test_binary_matmul_kernel_refuses_unaligned_base(dev):
+    pa = torch.zeros(4 * 32 + 1, dtype=torch.int32, device=dev)[1:].view(4, 32)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        binary_matmul(pa, torch.zeros(8, 32, dtype=torch.int32, device=dev), 1024)
 
 
 # (M, K, N): the MNIST hidden layer at batch 256, ragged M, ragged K
@@ -170,10 +203,13 @@ def test_hybrid_dense_kernel_refuses_ragged_n(dev):
 
 
 # (M, K, N): the MNIST float layers at batch 256 (fc0's K = 784, which the
-# TPU kernel refuses; fc3's N = 10), tiles that divide, ragged all three
+# TPU kernel refuses; fc3's N = 10), tiles that divide, ragged all three;
+# then N = 8 / 16 (one and two n8 tiles), K = 16 (a quarter stage), odd K
+# and N (2-byte loads), M = 1 beside N = 10
 @pytest.mark.parametrize("hardtanh", [False, True])
 @pytest.mark.parametrize("m,k,n", [(256, 784, 1024), (256, 1024, 10), (256, 512, 1024),
-                                   (1, 784, 1024), (77, 100, 130)])
+                                   (1, 784, 1024), (77, 100, 130), (64, 16, 8),
+                                   (33, 784, 16), (1, 100, 10), (5, 99, 7)])
 def test_bf16_matmul_kernel_matches_plain(dev, m, k, n, hardtanh):
     g = _gen(dev, m + k + n)
     a = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
@@ -185,6 +221,42 @@ def test_bf16_matmul_kernel_matches_plain(dev, m, k, n, hardtanh):
     assert got.dtype == torch.float32 and got.shape == (m, n)
     torch.testing.assert_close(got, bf16_matmul_plain(a, w, hardtanh=hardtanh),
                                rtol=2e-2, atol=2e-2)
+    assert torch.equal(got, bf16_matmul(a, w, hardtanh=hardtanh))   # the same bits
+
+
+# (M, K, N): a K range of 16 stages, so every split is whole (16-byte
+# copies); even K and N that are not multiples of 8 (4-byte copies, a short
+# last chunk); odd K and N (2-byte loads)
+BF16_DESIGN_SHAPES = [(70, 1024, 72), (40, 998, 70), (17, 999, 9)]
+
+
+@pytest.mark.parametrize("hardtanh", [False, True])
+@pytest.mark.parametrize("design", [0, 1])
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("m,k,n", BF16_DESIGN_SHAPES)
+def test_bf16_matmul_every_design_and_split(dev, m, k, n, design, splits, hardtanh):
+    """Each tile design (LARGE, SMALL) and K split, forced through the
+    launcher: within 2e-2 of the plain version, and the same bits on a
+    second call (the split's partials are added in rank order)."""
+    from repro_torch.kernels import bf16_matmul as bfm
+    g = _gen(dev, m + k + n + design)
+    a = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn(k, n, generator=g, device=dev) / k ** 0.5).to(torch.bfloat16)
+    units = -(-k // bfm.STAGE_K)
+    assert splits in splits_for(units)
+    kchunk = bfm.STAGE_K * -(-units // splits)
+    got = bfm._launch(a, w, hardtanh, design, kchunk)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, bf16_matmul_plain(a, w, hardtanh=hardtanh),
+                               rtol=2e-2, atol=2e-2)
+    assert torch.equal(got, bfm._launch(a, w, hardtanh, design, kchunk))
+
+
+def test_bf16_matmul_kernel_refuses_unaligned_base(dev):
+    a = torch.ones(4 * 64 + 1, dtype=torch.bfloat16, device=dev)[1:].view(4, 64)
+    w = torch.ones(64, 8, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        bf16_matmul(a, w)
 
 
 @pytest.mark.parametrize("hybrid", [False, True])

@@ -159,7 +159,7 @@ def test_binary_dense_int8_matches_repro(dtype, lead):
                                   want.astype(np.float32))
 
 
-def test_binary_dense_xnor_not_ported():
+def test_binary_dense_xnor_reaches_b1():
     """mode="xnor" reaches the XNOR-popcount wrapper (its plain version on
     the CPU, no launch) and gives the int8 lowering's integers; an unknown
     mode raises."""
