@@ -6,8 +6,9 @@
 Phases, one output line each (or a few), every failure raising:
 
   1. the device: torch's name for it and nvidia-smi's name and power limit;
-  2. build: the six CUDA sources of src/repro_torch/csrc (nine kernels),
-     compiled with one nvcc each, started together; then, per kernel
+  2. build: the seven CUDA sources of src/repro_torch/csrc (the nine
+     kernels and the dequant-fused decode), compiled with one nvcc each,
+     started together; then, per kernel
      function, the registers, stack and spills that ptxas reported
      (-Xptxas=-v, in the build logs) and the count of tensor-core
      instructions (IMMA / IGMMA / HMMA / HGMMA / BMMA) in cuobjdump -sass,
@@ -34,6 +35,16 @@ Phases, one output line each (or a few), every failure raising:
      the prefill encode (8, 128, 32, 80) in bf16 and f32, ragged row counts
      and D = 129 and 16, each with an all-zero row; times beside the byte
      bound (no PyTorch call computes them: no yardstick);
+ 5b. kv_decode: the dequant-fused decode attention (B4b's / B4d's math in
+     registers) for int8 and binary on the contiguous pool and a paged pool
+     (block 16, shuffled blocks, holes past each length) at B 8, T 256,
+     lengths {144, 100, 17, 1, 0, 256, 48, 128}, 32 heads of 80 with bf16
+     and f32 q, G 4 (Hq 32, Hkv 8), D 64 and 128: rows with len >= 1
+     within 1e-4 (f32 q) / 2e-2 (bf16 q) of the plain version, len-0 rows
+     zeros, the same bits on a second call and on both pools; times beside
+     the plain recurrence, the earlier loop of per-block B4b / B4d
+     launches, the byte bound and, as context only, SDPA over a bf16 cache
+     of the same lengths;
   6. serve: stablelm-3b at full width (32 layers, d_model 2560, bf16,
      random init from a seeded torch.Generator on the card) through
      ServeEngine(max_batch=8, max_len=256), 12 requests of 16 new tokens,
@@ -44,9 +55,9 @@ Phases, one output line each (or a few), every failure raising:
      with the radix prefix cache. On each: every request gets 16 tokens in
      range; launches are exactly 2 x 28 per wave and per step (int8 GEMM),
      32 per wave without a cached prefix (flash), 2 x 32 per wave and per
-     step of the codec's quantizer, 2 x 32 of its dequantizer per step and
-     kv block of 128 (the fused decode) and per wave on a cached prefix
-     (its context), 0 of the rest; the pool's bytes are exact (671,088,640
+     step of the codec's quantizer, 32 per step of its kv_decode, 2 x 32 of
+     its dequantizer per wave on a cached prefix (its context), 0 of the
+     rest; the pool's bytes are exact (671,088,640
      / 343,932,928 / 58,720,256); a second run gives the same tokens; the
      paged run hits the prefix cache. Logits are finite;
      layer 0 agrees with the plain attention on a small batch, and its
@@ -54,7 +65,7 @@ Phases, one output line each (or a few), every failure raising:
      Profiled runs of the bf16 and int8 paths give the device time by
      kernel and the device's busy share of the unprofiled wall time, with
      every kernel symbol of csrc mapped to its family (B2 and B3 must show
-     device time there);
+     device time there, and kv_decode in the int8 run);
   7. xnor: the XNOR-popcount GEMM against its plain version, exactly, at
      the MNIST net's hidden layers (M = 1, 128, 256, 512; N = K = 1024),
      ragged K (40, 100, 384) and the spec-draft shape (8, 6912, 2560); the
@@ -76,9 +87,10 @@ Phases, one output line each (or a few), every failure raising:
      beat 0.6 test accuracy; packed logits through B1, through B2 and with
      latents are bitwise equal; packed inferences per second at batch 1
      and 256 (the paper's Table I protocol), warm, without an L2 flush;
- 11. a JSON line of the nine kernels: launches summed over the paths (B2,
-     B3 and B4a-d on the serving paths, B1 on the MNIST path, B5 and B6
-     on none), largest error, times and bounds;
+ 11. a JSON line of the nine kernels and the two kv_decode wrappers:
+     launches summed over the paths (B2, B3, B4a-d and kv_decode on the
+     serving paths, B1 on the MNIST path, B5 and B6 on none), largest
+     error, times and bounds;
 
 and last, ``{"ok": true, "device": {...}}``. Without a GPU it exits non-zero
 and prints no result. Kernel times are CUDA-event medians of the device's
@@ -115,6 +127,7 @@ from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
 from repro_torch.kernels.hybrid_dense import hybrid_dense, hybrid_dense_plain  # noqa: E402
 from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_plain  # noqa: E402
 from repro_torch.kernels.ksplit import splits_for  # noqa: E402
+from repro_torch.kernels import kv_decode as kvd  # noqa: E402
 from repro_torch.kernels import kv_quant as kvq  # noqa: E402
 from repro_torch.models import get_model, lm_common as lc  # noqa: E402
 from repro_torch.nn import attention as attn_lib  # noqa: E402
@@ -127,9 +140,10 @@ KERNELS = {  # name -> wrapper; every launch count is zeroed before each path
     "binary_matmul": binary_matmul, "hybrid_dense": hybrid_dense,
     "bf16_matmul": bf16_matmul, "kv_quant_int8": kvq.kv_quant_int8,
     "kv_dequant_int8": kvq.kv_dequant_int8, "kv_quant_binary": kvq.kv_quant_binary,
-    "kv_dequant_binary": kvq.kv_dequant_binary}
+    "kv_dequant_binary": kvq.kv_dequant_binary, "kv_decode_int8": kvd.kv_decode_int8,
+    "kv_decode_binary": kvd.kv_decode_binary}
 SOURCES = ["int8_matmul", "flash_attention", "binary_matmul", "hybrid_dense",
-           "bf16_matmul", "kv_quant"]          # src/repro_torch/csrc/<name>.cu
+           "bf16_matmul", "kv_quant", "kv_decode"]   # src/repro_torch/csrc/<name>.cu
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s, int8
 # tensor-core ops/s, bf16 tensor-core flop/s
@@ -422,7 +436,6 @@ KV_PATHS = [("int8", dict(kv_cache="int8"), False),
             ("int8, header prompts", dict(kv_cache="int8"), True),
             ("paged int8 + prefix cache", dict(kv_cache="int8", kv_block_size=16,
                                                prefix_cache=True), True)]
-KV_BLOCK = 128        # the fused decode's kv block (kvcache._fused_quant_decode)
 
 
 def _serve_once(api, params, prompts, staged=False, **kw):
@@ -447,6 +460,7 @@ OUR_KERNELS = {  # every __global__ function of src/repro_torch/csrc -> family
     "flash_fwd_simt_kernel": "flash_attention (ours)",
     "quant_int8_kernel": "kv_quant (ours)", "dequant_int8_kernel": "kv_quant (ours)",
     "quant_binary_kernel": "kv_quant (ours)", "dequant_binary_kernel": "kv_quant (ours)",
+    "kv_decode_kernel": "kv_decode (ours)",
     "binary_matmul_mma_kernel": "binary_matmul (ours)",
     "hybrid_dense_kernel": "hybrid_dense (ours)",
     "bf16_matmul_mma_kernel": "bf16_matmul (ours)",
@@ -491,18 +505,18 @@ def _profile(api, params, prompts, wall_unprofiled: float, **kw) -> dict:
 def _check_path(label, launches, eng, cfg, n_binary, kv: str, flash_waves: int) -> None:
     """Every kernel's launches on one serving path: B2 2 x binary blocks and
     the codec's quantizer 2 x layers per prefill wave and per decode step,
-    its dequantizer 2 x layers per decode step and kv block (the fused
-    decode over 256 positions) and per wave on a cached prefix (the
-    context's gather), B3 one per layer per wave without a cached prefix,
-    all else 0; and the pool's exact bytes."""
+    the dequant-fused decode one per layer per decode step, the codec's
+    dequantizer 2 x layers per wave on a cached prefix (the context's
+    gather), B3 one per layer per wave without a cached prefix, all else 0;
+    and the pool's exact bytes."""
     waves, steps = eng.stats["prefills"], eng.stats["decode_steps"]
     want = {k: 0 for k in KERNELS}
     want["int8_matmul"] = 2 * n_binary * (waves + steps)
     want["flash_attention"] = cfg.n_layers * flash_waves
     if kv != "bf16":
         want[f"kv_quant_{kv}"] = 2 * cfg.n_layers * (waves + steps)
-        want[f"kv_dequant_{kv}"] = 2 * cfg.n_layers * (-(-256 // KV_BLOCK) * steps
-                                                       + waves - flash_waves)
+        want[f"kv_decode_{kv}"] = cfg.n_layers * steps
+        want[f"kv_dequant_{kv}"] = 2 * cfg.n_layers * (waves - flash_waves)
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, want {want} for {waves} "
                              f"prefill waves + {steps} decode steps")
@@ -520,8 +534,8 @@ def _check_outputs(label, out, vocab) -> None:
 
 def _fused_decode_layer0(params, cfg, toks, lens) -> dict:
     """Layer 0's K/V from a prefill, encoded by each quantized codec: the
-    dequant-fused decode against attention over the materialized cache
-    (tests/test_kvcache.py's 2e-2)."""
+    dequant-fused decode (the kv_decode kernel) against attention over the
+    materialized cache (tests/test_kvcache.py's 2e-2)."""
     x = embedding_lookup(params["embed"], toks, compute_dtype=lc.cdt(cfg))
     h = rmsnorm_apply(params["blocks"][0]["ln1"], x)
     pos = torch.arange(toks.shape[1], device=toks.device)
@@ -531,9 +545,10 @@ def _fused_decode_layer0(params, cfg, toks, lens) -> dict:
         codec = kvc.get_codec(kv)
         cache = codec.from_prefill(k, v, 64)
         cache["len"] = lens.clone()
-        got = codec.decode_attention(q[:, -1:], cache)
+        q1 = q[:, -1:].contiguous()
+        got = codec.decode_attention(q1, cache)
         km, vm = codec.materialize(cache, head_dim=cfg.kv_head_dim())
-        want = attn_lib.decode_attention(q[:, -1:], km, vm, kv_len=cache["len"])
+        want = attn_lib.decode_attention(q1, km, vm, kv_len=cache["len"])
         errs[kv] = float((got.float() - want.float()).abs().max())
         if not errs[kv] <= 2e-2:
             raise AssertionError(f"layer 0 fused {kv} decode vs materialized: {errs[kv]}")
@@ -609,6 +624,9 @@ def phase_serve(dev, card: str) -> dict:
             row["profile"] = _profile(api, params, batch, k_wall2, **kw)
             if row["profile"].pop("out") != k_out:
                 raise AssertionError("the profiled int8 run gave other tokens")
+            if not row["profile"]["device_ms_by_family"].get("kv_decode (ours)", 0.0) > 0.0:
+                raise AssertionError("the int8 profile shows no device time for kv_decode: "
+                                     f"{row['profile']['device_ms_by_family']}")
         log("serve_kv", **row)
         paths.append(row)
 
@@ -707,6 +725,139 @@ def phase_kvquant(dev, gen, timer) -> dict[str, list]:
                        library_ms=None, library_call="none: no single PyTorch call computes it")
             log(kname, **row)
             rows[kname].append(row)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase: dequant-fused decode attention (B4b's and B4d's decode use)
+# ---------------------------------------------------------------------------
+
+DECODE_B, DECODE_T, PAGE = 8, 256, 16
+DECODE_LENS = [144, 100, 17, 1, 0, 256, 48, 128]   # one free slot (0) and a full one
+DECODE_CASES = [  # (name, Hq, Hkv, D, q dtype) at B 8, T 256, S 1
+    ("serving (8, 1, 32, 80), bf16 q", 32, 32, 80, torch.bfloat16),
+    ("serving, f32 q", 32, 32, 80, torch.float32),
+    ("G 4 (Hq 32, Hkv 8), bf16 q", 32, 8, 80, torch.bfloat16),
+    ("D 64, bf16 q", 32, 32, 64, torch.bfloat16),
+    ("D 128, f32 q", 32, 32, 128, torch.float32),
+]
+# f32 q: the kernel and the plain version sum in other orders; bf16 q: the
+# output's rounding, tests/test_kvcache.py's fused-decode tolerance
+DECODE_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _decode_pools(kv, hkv, d, lens, dev, gen):
+    """One layer's K/V encoded by the codec's quantizer on the contiguous
+    pool (B, T, Hkv, .) and on a paged pool (block 16) holding the same
+    values in shuffled blocks, with holes (past the pool) at and after each
+    slot's ceil(len / 16)-th page. -> (contiguous leaves, paged leaves,
+    table), leaves in the wrapper's order (k codes, k_s, v codes, v_s)."""
+    quant = kvq.kv_quant_int8 if kv == "int8" else kvq.kv_quant_binary
+    k = torch.randn(DECODE_B, DECODE_T, hkv, d, generator=gen, device=dev)
+    v = torch.randn(DECODE_B, DECODE_T, hkv, d, generator=gen, device=dev)
+    (kc, ks), (vc, vs) = quant(k.to(torch.bfloat16)), quant(v.to(torch.bfloat16))
+    cont = [kc, ks, vc, vs]
+    used = [-(-n // PAGE) for n in lens]
+    n_blocks = sum(used) + 4
+    perm = torch.randperm(n_blocks, generator=gen, device=dev).tolist()
+    table = torch.full((DECODE_B, DECODE_T // PAGE), n_blocks + 3, dtype=torch.int32)
+    paged = [x.new_zeros((n_blocks + 1, PAGE, *x.shape[2:])) for x in cont]
+    for i, u in enumerate(used):
+        for p in range(u):
+            blk = perm.pop()
+            table[i, p] = blk
+            for dst, src in zip(paged, cont):
+                dst[blk] = src[i, p * PAGE:(p + 1) * PAGE]
+    return cont, paged, table.to(dev)
+
+
+def _block_loop_decode(kv, q, leaves, lens, d, table):
+    """The decode as it ran before the kv_decode kernel: the plain
+    recurrence over kv blocks of 128 (all pages gathered first on the paged
+    pool), each block dequantized by a B4b or B4d launch."""
+    names = ("k_q", "k_s", "v_q", "v_s") if kv == "int8" else ("k_p", "k_s", "v_p", "v_s")
+
+    def block(blk):
+        if kv == "int8":
+            return (kvq.kv_dequant_int8(blk["k_q"], blk["k_s"], dtype=torch.float32),
+                    kvq.kv_dequant_int8(blk["v_q"], blk["v_s"], dtype=torch.float32))
+        return (kvq.kv_dequant_binary(blk["k_p"], blk["k_s"], d, dtype=torch.float32),
+                kvq.kv_dequant_binary(blk["v_p"], blk["v_s"], d, dtype=torch.float32))
+    return kvd.fused_decode_plain(q, dict(zip(names, leaves)), lens, block, table=table)
+
+
+def _decode_sdpa(hq, hkv, d, lens, dev, gen, timer) -> float | None:
+    """Context, not a yardstick: one SDPA call over a bf16 cache of the same
+    lengths (it reads 2x the int8 pool's bytes and dequantizes nothing)."""
+    gqa = {} if hq == hkv else {"enable_gqa": True}
+    if gqa and not SDPA_GQA:
+        return None
+    q = torch.randn(DECODE_B, hq, 1, d, generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn(DECODE_B, hkv, DECODE_T, d, generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn(DECODE_B, hkv, DECODE_T, d, generator=gen, device=dev).to(torch.bfloat16)
+    cols = torch.arange(DECODE_T, device=dev)
+    mask = (cols[None, :] < torch.tensor(lens, device=dev)[:, None])[:, None, None, :]
+    return timer(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, **gqa))
+
+
+def phase_kv_decode(dev, gen, timer) -> dict[str, list]:
+    """The kv_decode kernel (int8 and binary, contiguous and paged) against
+    its plain version at the serving shape and at G 4, D 64 and 128, bf16
+    and f32 q: rows with len >= 1 within DECODE_TOL, len-0 rows zeros, the
+    same bits on a second call and on both pools; times beside the plain
+    recurrence, the earlier loop of per-block B4b / B4d launches
+    (before_ms) and the bound (the bytes below len, plus q and out, over
+    3.35 TB/s; 4 D f32 flops a (query, key) pair bind less)."""
+    lens_t = torch.tensor(DECODE_LENS, dtype=torch.int32, device=dev)
+    live = lens_t > 0
+    rows: dict[str, list] = {"kv_decode_int8": [], "kv_decode_binary": []}
+    for name, hq, hkv, d, qdt in DECODE_CASES:
+        q = torch.randn(DECODE_B, 1, hq, d, generator=gen, device=dev).to(qdt)
+        ctx_ms = _decode_sdpa(hq, hkv, d, DECODE_LENS, dev, gen, timer)
+        for kv in ("int8", "binary"):
+            wrapper = getattr(kvd, f"kv_decode_{kv}")
+            plain = getattr(kvd, f"kv_decode_{kv}_plain")
+            extra = () if kv == "int8" else (d,)
+            cont, paged, table = _decode_pools(kv, hkv, d, DECODE_LENS, dev, gen)
+            outs = {}
+            for pool, leaves, tab in (("contiguous", cont, None), ("paged", paged, table)):
+                call = lambda: wrapper(q, *leaves, lens_t, *extra, table=tab)   # noqa: E731
+                got, again = call(), call()
+                want = plain(q, *leaves, lens_t, *extra, table=tab)
+                torch.cuda.synchronize()
+                label = f"{kv}, {pool}, {name}"
+                if not _same_bits(got, again):
+                    raise AssertionError(f"kv_decode: a second call differs at {label}")
+                err = float((got[live].float() - want[live].float()).abs().max())
+                if not err <= DECODE_TOL[qdt]:
+                    raise AssertionError(f"kv_decode vs plain at {label}: {err}")
+                if bool(got[~live].any()):
+                    raise AssertionError(f"kv_decode: a len-0 slot is not zeros at {label}")
+                outs[pool] = got
+                ms = timer(call)
+                plain_ms = timer(lambda: plain(q, *leaves, lens_t, *extra, table=tab), reps=10)
+                before_ms = timer(lambda: _block_loop_decode(kv, q, leaves, lens_t, d, tab),
+                                  reps=10)
+                row_b = d + 2 if kv == "int8" else 4 * packed_len(d) + 2
+                visible = sum(min(n, DECODE_T) for n in DECODE_LENS)
+                nbytes = (2 * visible * hkv * row_b + 2 * q.numel() * q.element_size()
+                          + 4 * DECODE_B + (4 * sum(-(-n // PAGE) for n in DECODE_LENS)
+                                            if tab is not None else 0))
+                b_ms, b_by = bound(nbytes, 4.0 * hq * d * visible, F32_FLOPS)
+                row = dict(case=f"{pool}, {name}", codec=kv, pool=pool, B=DECODE_B, T=DECODE_T,
+                           Hq=hq, Hkv=hkv, D=d, q_dtype=str(qdt).split(".")[-1],
+                           lens=DECODE_LENS, page=PAGE if tab is not None else None,
+                           max_abs_err=err, tol=DECODE_TOL[qdt], ms=ms, plain_ms=plain_ms,
+                           before_ms=before_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                           library_call="none: no single PyTorch call dequantizes and attends",
+                           context_sdpa_bf16_ms=ctx_ms,
+                           context_call="scaled_dot_product_attention(attn_mask=bool) over a "
+                                        "bf16 cache of the same lengths: 2x the int8 bytes, "
+                                        "not the same function")
+                log("kv_decode", **row)
+                rows[f"kv_decode_{kv}"].append(row)
+            if not _same_bits(outs["contiguous"], outs["paged"]):
+                raise AssertionError(f"kv_decode: paged differs from contiguous at {kv}, {name}")
     return rows
 
 
@@ -1073,6 +1224,7 @@ def main() -> int:
     phase_int8_splits(dev, gen, timer)
     flash_rows = phase_flash(dev, gen, timer)
     kv_rows = phase_kvquant(dev, gen, timer)
+    decode_rows = phase_kv_decode(dev, gen, timer)
     serve = phase_serve(dev, smi)
     xnor_rows = phase_xnor(dev, gen, timer)
     phase_xnor_splits(dev, gen, timer)
@@ -1116,6 +1268,10 @@ def main() -> int:
                 kv_rows[k])
           for k, line in (("kv_quant_int8", 161), ("kv_dequant_int8", 179),
                           ("kv_quant_binary", 195), ("kv_dequant_binary", 211))),
+        *(entry(k, "src/repro_torch/csrc/kv_decode.cu",
+                f"src/repro/kernels/kv_quant.py:{line} (decode use, "
+                "src/repro/serving/kvcache.py:282, :696)", decode_rows[k])
+          for k, line in (("kv_decode_int8", 179), ("kv_decode_binary", 211))),
     ]}
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps({**RECORD, **kernels}, indent=1))

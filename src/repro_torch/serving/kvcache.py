@@ -12,12 +12,13 @@ leaf but the index leaves carries time on axis 1, in one of three codecs:
            "k_s", "v_s": bf16 absmean scales}: 4 ceil(D / 32) + 2 bytes
 
 plus ``"len": (B,) int32``; every read masks positions >= len. Quantized
-decode attends through ``_fused_quant_decode``, an online-softmax loop over
-kv blocks that dequantizes one (B, kv_block, Hkv, D) tile at a time (a
-``lax.scan`` in repro, outside any kernel, so plain torch here). Quantizing
-goes through the kernels of ``kernels/kv_quant.py`` (B4a, B4c), and so does
-the fused decode's dequantizing (B4b, B4d; repro uses their XLA twins there):
-a CUDA tensor never meets a plain version.
+decode attends through ``kernels/kv_decode.py``: for a CUDA tensor one
+kernel per layer and step dequantizes the codes in registers (B4b's and
+B4d's math) inside the online softmax, reading only the positions below
+len (repro scans kv blocks with the XLA twins fused into the block load);
+for a CPU tensor the reference's recurrence runs. Quantizing goes through
+the kernels of ``kernels/kv_quant.py`` (B4a, B4c), and so does the context
+of a cached prefix (B4b, B4d): a CUDA tensor never meets a plain version.
 
 The paged pool replaces each slot's private (max_len, ...) region with one
 shared pool of (n_blocks, block_size, ...) blocks per layer in any codec's
@@ -26,8 +27,8 @@ each slot's page; entries >= n_blocks are holes) and ``"len"``. A cache dict
 with a ``"table"`` leaf is paged. Its leaves hold one spare block past the
 n_blocks that tables address: writes through a hole land there, where
 repro's ``mode="drop"`` drops them, so a decode insert needs no host sync to
-find the rows it keeps. Nothing reads the spare block, and the pool's bytes
-leave it out.
+find the rows it keeps. No decode attends to the spare block (a hole clamps
+to it only past a slot's length), and the pool's bytes leave it out.
 
 The port updates the pool in place where repro returns a new pool (repro
 donates the old one to XLA for the same effect). The speculative verify
@@ -37,15 +38,13 @@ ROADMAP A5.
 
 from __future__ import annotations
 
-import math
-
 import torch
 
 from repro_torch.core.binarize import packed_len
+from repro_torch.kernels import kv_decode as kvd
 from repro_torch.kernels import kv_quant as kvq
 from repro_torch.nn import attention as attn_lib
 
-NEG_INF = attn_lib.NEG_INF
 _INDEX_LEAVES = ("len", "table")
 
 
@@ -138,49 +137,6 @@ def _write_timestep(cache: dict, new_leaves: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# dequant-fused decode: blockwise online softmax over the encoded cache
-# ---------------------------------------------------------------------------
-
-def _fused_quant_decode(q: torch.Tensor, cache: dict, codec: "CacheCodec", *,
-                        scale: float | None = None, kv_block: int = 128) -> torch.Tensor:
-    """Single-query attention over an encoded cache without materializing
-    it: a loop over kv blocks dequantizes one (B, kb, Hkv, D) tile per step
-    into the (num, den, max) recurrence. A ragged final block starts at
-    T - kb and masks the columns the block before it consumed. Returns
-    (B, S, Hq, D) in q's dtype."""
-    b, s, hq, d = q.shape
-    enc = codec.encoded_leaves(cache)
-    t = next(iter(enc.values())).shape[1]
-    hkv = codec.n_kv(cache)
-    g = hq // hkv
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    kv_len = torch.clamp(cache["len"].to(torch.int32), max=t)
-    kb = min(kv_block, t)
-    qg = q.reshape(b, s, hkv, g, d).to(torch.float32)
-    num = q.new_zeros((b, hkv, g, s, d), dtype=torch.float32)
-    den = q.new_zeros((b, hkv, g, s), dtype=torch.float32)
-    m_prev = torch.full((b, hkv, g, s), NEG_INF, dtype=torch.float32, device=q.device)
-    for jk in range(-(-t // kb)):
-        start = min(jk * kb, t - kb)
-        blk = {name: leaf[:, start:start + kb] for name, leaf in enc.items()}
-        k_blk, v_blk = codec.dequant_block(blk, d)
-        sij = torch.einsum("bshgd,bkhd->bhgsk", qg, k_blk.to(torch.float32)) * scale
-        cols = start + torch.arange(kb, device=q.device)
-        valid = (cols >= jk * kb)[None, :] & (cols[None, :] < kv_len[:, None])
-        sij = torch.where(valid[:, None, None, None, :], sij, NEG_INF)
-        m_cur = torch.maximum(m_prev, sij.amax(dim=-1))
-        p = torch.exp(sij - m_cur[..., None])
-        alpha = torch.exp(m_prev - m_cur)
-        den = den * alpha + p.sum(dim=-1)
-        num = num * alpha[..., None] + torch.einsum("bhgsk,bkhd->bhgsd", p,
-                                                    v_blk.to(torch.float32))
-        m_prev = m_cur
-    den = torch.where(den == 0.0, 1.0, den)
-    out = num / den[..., None]                            # (B, Hkv, G, S, D)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, s, hq, d).to(q.dtype)
-
-
-# ---------------------------------------------------------------------------
 # codecs
 # ---------------------------------------------------------------------------
 
@@ -223,13 +179,10 @@ class CacheCodec:
         """Resident cache bytes per token per layer (k and v together)."""
         raise NotImplementedError
 
-    # hooks of the fused decode paths (quantized and paged pools)
+    # hooks of the bf16 paged decode and the cached prefix's context
 
     def encoded_leaves(self, cache: dict) -> dict:
         return {k: v for k, v in cache.items() if k not in _INDEX_LEAVES}
-
-    def n_kv(self, cache: dict) -> int:
-        raise NotImplementedError
 
     def dequant_block(self, blk: dict, d: int):
         """dict of (B, kb, ...) encoded leaves -> (k, v) (B, kb, H, D)."""
@@ -254,9 +207,6 @@ class Bf16Codec(CacheCodec):
     def decode_attention(self, q, cache, *, scale=None, impl="auto"):
         return attn_lib.decode_attention(q, cache["k"], cache["v"], kv_len=cache["len"],
                                          scale=scale, impl=impl)
-
-    def n_kv(self, cache):
-        return cache["k"].shape[2]
 
     def dequant_block(self, blk, d):
         # the stored dtype passes through: the paged decode and the context
@@ -290,10 +240,8 @@ class Int8Codec(CacheCodec):
                 kvq.kv_dequant_int8(cache["v_q"], cache["v_s"], dtype=dtype))
 
     def decode_attention(self, q, cache, *, scale=None, impl="auto"):
-        return _fused_quant_decode(q, cache, self, scale=scale)
-
-    def n_kv(self, cache):
-        return cache["k_q"].shape[2]
+        return kvd.kv_decode_int8(q, cache["k_q"], cache["k_s"], cache["v_q"], cache["v_s"],
+                                  cache["len"], table=cache.get("table"), scale=scale)
 
     def dequant_block(self, blk, d):
         return (kvq.kv_dequant_int8(blk["k_q"], blk["k_s"], dtype=torch.float32),
@@ -332,10 +280,9 @@ class BinaryCodec(CacheCodec):
                 kvq.kv_dequant_binary(cache["v_p"], cache["v_s"], head_dim, dtype=dtype))
 
     def decode_attention(self, q, cache, *, scale=None, impl="auto"):
-        return _fused_quant_decode(q, cache, self, scale=scale)
-
-    def n_kv(self, cache):
-        return cache["k_p"].shape[2]
+        return kvd.kv_decode_binary(q, cache["k_p"], cache["k_s"], cache["v_p"], cache["v_s"],
+                                    cache["len"], q.shape[-1], table=cache.get("table"),
+                                    scale=scale)
 
     def dequant_block(self, blk, d):
         return (kvq.kv_dequant_binary(blk["k_p"], blk["k_s"], d, dtype=torch.float32),
@@ -436,24 +383,19 @@ def paged_insert_timestep(cache: dict, k_new, v_new, codec: CacheCodec) -> dict:
     return cache
 
 
-def _gather_pages(leaf: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:
-    """(n_blocks, bs, ...) leaf, (G, P) block ids -> (G, P * bs, ...)."""
-    got = leaf[pages.to(torch.int64)]                     # (G, P, bs, ...)
-    return got.reshape(got.shape[0], -1, *got.shape[3:])
-
-
 def paged_decode_attention(q: torch.Tensor, cache: dict, codec: CacheCodec, *,
                            scale: float | None = None) -> torch.Tensor:
-    """Single-query attention through the block table. repro walks the pages
-    one (B, block_size) tile per scan step; the port gathers every page of
-    every slot in one indexed read (holes clamp to a real block whose
-    columns lie past the slot's length, so they mask out) and runs the
-    fused decode over that contiguous view."""
-    pages = torch.clamp(cache["table"], max=_n_blocks(cache) - 1)
-    view = {name: _gather_pages(leaf, pages)
-            for name, leaf in codec.encoded_leaves(cache).items()}
-    view["len"] = cache["len"]
-    return _fused_quant_decode(q, view, codec, scale=scale)
+    """Single-query attention through the block table. int8 and binary: the
+    codec's decode, whose kernel walks the table as repro's scan does, one
+    page at a time, and reads only the pages below each slot's length. bf16:
+    every page of every slot is gathered in one indexed read (holes clamp to
+    the spare block, whose columns lie past the slot's length, so they mask
+    out) and the plain recurrence runs over that contiguous view."""
+    if codec.name != "bf16":
+        return codec.decode_attention(q, cache, scale=scale)
+    return kvd.fused_decode_plain(q, codec.encoded_leaves(cache), cache["len"],
+                                  lambda blk: codec.dequant_block(blk, q.shape[-1]),
+                                  table=cache["table"], scale=scale)
 
 
 def gather_prefix_context(pool: list, ctx_pages: torch.Tensor, codec: CacheCodec,
@@ -464,7 +406,7 @@ def gather_prefix_context(pool: list, ctx_pages: torch.Tensor, codec: CacheCodec
     block 0, masked later by ctx_len)."""
     out = []
     for c in pool:
-        view = {name: _gather_pages(leaf, ctx_pages)
+        view = {name: kvd.gather_pages(leaf, ctx_pages)
                 for name, leaf in codec.encoded_leaves(c).items()}
         k, v = codec.dequant_block(view, head_dim)
         out.append({"k": k, "v": v})

@@ -38,6 +38,7 @@ from repro_torch.kernels.hybrid_dense import hybrid_dense, hybrid_dense_plain  #
 from repro_torch.kernels.int8_matmul import (int8_matmul,  # noqa: E402
                                              int8_matmul_plain)
 from repro_torch.kernels.ksplit import splits_for  # noqa: E402
+from repro_torch.kernels import kv_decode as kvd  # noqa: E402
 from repro_torch.kernels import kv_quant as kvq  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
@@ -414,15 +415,111 @@ def test_kv_quant_kernels_take_leading_dims_and_refuse_f16(dev):
         kvq.kv_quant_int8(x.half())
 
 
+# (B, Hq, Hkv, D, T, lens, q dtype): the kv_decode phase of chip_smoke.py at
+# small sizes (G 1 and 4, D 64 / 80 / 128, bf16 and f32 q), plus T 320 (ten
+# chunks of 32 for 8 warps: a warp takes two) and G 8 (8 query rows)
+DECODE_CASES = [
+    (4, 4, 4, 80, 64, [40, 1, 0, 64], "bfloat16"),
+    (4, 4, 4, 80, 64, [40, 1, 0, 64], "float32"),
+    (3, 8, 2, 80, 48, [17, 48, 5], "bfloat16"),
+    (2, 4, 4, 64, 32, [32, 9], "bfloat16"),
+    (2, 2, 2, 128, 48, [3, 47], "float32"),
+    (3, 2, 2, 80, 320, [320, 257, 33], "float32"),
+    (2, 16, 2, 80, 32, [31, 0], "float32"),
+]
+DECODE_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+PAGE = 16
+
+
+def _decode_pools(kv, b, t, hkv, d, lens, dev, g):
+    """The codec's leaves on the contiguous pool and on a paged one (block
+    16, the same values in shuffled blocks, holes at and past each slot's
+    ceil(len / 16)-th page) -> (contiguous, paged, table)."""
+    quant = kvq.kv_quant_int8 if kv == "int8" else kvq.kv_quant_binary
+    (kc, ks), (vc, vs) = (quant(torch.randn(b, t, hkv, d, generator=g, device=dev))
+                          for _ in range(2))
+    cont = [kc, ks, vc, vs]
+    used = [-(-n // PAGE) for n in lens]
+    n_blocks = sum(used) + 2
+    perm = torch.randperm(n_blocks, generator=g, device=dev).tolist()
+    table = torch.full((b, t // PAGE), n_blocks + 9, dtype=torch.int32)
+    paged = [x.new_zeros((n_blocks + 1, PAGE, *x.shape[2:])) for x in cont]
+    for i, u in enumerate(used):
+        for p in range(u):
+            blk = perm.pop()
+            table[i, p] = blk
+            for dst, src in zip(paged, cont):
+                dst[blk] = src[i, p * PAGE:(p + 1) * PAGE]
+    return cont, paged, table.to(dev)
+
+
+@pytest.mark.parametrize("kv", ["int8", "binary"])
+@pytest.mark.parametrize("b,hq,hkv,d,t,lens,dtype", DECODE_CASES)
+def test_kv_decode_kernel_matches_plain(dev, kv, b, hq, hkv, d, t, lens, dtype):
+    g = _gen(dev, b * t + d)
+    q = torch.randn(b, 1, hq, d, generator=g, device=dev).to(getattr(torch, dtype))
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    live = lens_t > 0
+    wrapper = getattr(kvd, f"kv_decode_{kv}")
+    plain = getattr(kvd, f"kv_decode_{kv}_plain")
+    extra = () if kv == "int8" else (d,)
+    cont, paged, table = _decode_pools(kv, b, t, hkv, d, lens, dev, g)
+    outs = []
+    for leaves, tab in ((cont, None), (paged, table)):
+        before = wrapper.launches
+        got = wrapper(q, *leaves, lens_t, *extra, table=tab)
+        again = wrapper(q, *leaves, lens_t, *extra, table=tab)
+        want = plain(q, *leaves, lens_t, *extra, table=tab)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 2
+        assert got.shape == q.shape and got.dtype == q.dtype
+        assert torch.equal(_bits(got), _bits(again))
+        torch.testing.assert_close(got[live].float(), want[live].float(),
+                                   atol=DECODE_TOL[dtype], rtol=0)
+        assert not bool(got[~live].any())
+        outs.append(got)
+    assert torch.equal(_bits(outs[0]), _bits(outs[1]))
+
+
+def test_kv_decode_kernel_refuses_what_it_does_not_take(dev):
+    g = _gen(dev, 5)
+    q = torch.randn(2, 1, 4, 80, generator=g, device=dev)
+    (kc, ks), (vc, vs) = (kvq.kv_quant_int8(torch.randn(2, 16, 2, 80, device=dev))
+                          for _ in range(2))
+    lens = torch.tensor([3, 16], dtype=torch.int32, device=dev)
+    kvd.kv_decode_int8(q, kc, ks, vc, vs, lens)
+    with pytest.raises(TypeError, match="bf16 or f32 q"):
+        kvd.kv_decode_int8(q.half(), kc, ks, vc, vs, lens)
+    with pytest.raises(TypeError, match="k_s"):
+        kvd.kv_decode_int8(q, kc, ks.float(), vc, vs, lens)
+    with pytest.raises(TypeError, match="lens"):
+        kvd.kv_decode_int8(q, kc, ks, vc, vs, lens.long())
+    with pytest.raises(TypeError, match="k codes"):
+        kvd.kv_decode_binary(q, kc, ks, vc, vs, lens, 80)
+    with pytest.raises(ValueError, match="not a multiple of kv heads"):
+        kvd.kv_decode_int8(q[:, :, :3].contiguous(), kc, ks, vc, vs, lens)
+    wide = torch.randn(2, 1, 4, 144, device=dev)
+    (wk, wks), (wv, wvs) = (kvq.kv_quant_int8(torch.randn(2, 16, 2, 144, device=dev))
+                            for _ in range(2))
+    with pytest.raises(ValueError, match="head dims"):
+        kvd.kv_decode_int8(wide, wk, wks, wv, wvs, lens)
+    with pytest.raises(ValueError, match="16-byte"):
+        kvd.kv_decode_int8(q[..., :72].contiguous(), kc[..., :72].contiguous(), ks,
+                           vc[..., :72].contiguous(), vs, lens)
+    with pytest.raises(ValueError, match="query rows"):
+        kvd.kv_decode_int8(torch.randn(2, 1, 18, 80, device=dev), kc, ks, vc, vs, lens)
+
+
 @pytest.mark.parametrize("kv", ["int8", "binary"])
 def test_short_quantized_and_paged_serve_on_card(dev, kv):
     """The smoke LM (f32) served on the card: the contiguous and the paged
-    pool (block 8) of one codec give the same tokens (the paged decode
-    gathers the same values into the same fused recurrence), with the
-    codec's quantizer launched 2 x layers per wave and per step and its
-    dequantizer 2 x layers per step (the fused decode's one kv block of 48);
-    the prefix cache then hits on a shared header. (Tokens across batch shapes are not
-    compared: the random-init model's top-2 gaps sit at float noise.)"""
+    pool (block 8) of one codec give the same tokens (the kv_decode kernel
+    sums in an order that depends on positions only), with the codec's
+    quantizer launched 2 x layers per wave and per step, kv_decode once per
+    layer per step, and the codec's dequantizer only for a cached prefix's
+    context (2 x layers per wave that has one); the prefix cache then hits
+    on a shared header. (Tokens across batch shapes are not compared: the
+    random-init model's top-2 gaps sit at float noise.)"""
     cfg = smoke_config("stablelm-3b").replace(compute_dtype="float32",
                                               param_dtype="float32")
     api = get_model(cfg)
@@ -431,21 +528,25 @@ def test_short_quantized_and_paged_serve_on_card(dev, kv):
     header = rng.integers(0, cfg.vocab, 16)
     prompts = [np.concatenate([header, rng.integers(0, cfg.vocab, 3 + i)]) for i in range(4)]
     quant, dequant = getattr(kvq, f"kv_quant_{kv}"), getattr(kvq, f"kv_dequant_{kv}")
+    decode = getattr(kvd, f"kv_decode_{kv}")
     outs = []
     for kw in ({}, {"kv_block_size": 8}):
         eng = ServeEngine(api, params, max_batch=2, max_len=48, kv_cache=kv, **kw)
-        before, d_before = quant.launches, dequant.launches
+        before = (quant.launches, dequant.launches, decode.launches)
         rids = [eng.add_request(p, max_new=5) for p in prompts]
         res = eng.run()
         outs.append([res[r] for r in rids])
-        assert quant.launches - before == 2 * cfg.n_layers * (eng.stats["prefills"]
-                                                              + eng.stats["decode_steps"])
-        assert dequant.launches - d_before == 2 * cfg.n_layers * eng.stats["decode_steps"]
+        waves, steps = eng.stats["prefills"], eng.stats["decode_steps"]
+        assert (quant.launches - before[0], dequant.launches - before[1],
+                decode.launches - before[2]) == (2 * cfg.n_layers * (waves + steps), 0,
+                                                 cfg.n_layers * steps)
     assert outs[0] == outs[1]
     eng = ServeEngine(api, params, max_batch=2, max_len=48, kv_cache=kv, kv_block_size=8,
                       prefix_cache=True)
     rids = [eng.add_request(prompts[0], max_new=5)]
     eng.run()
+    d_before = dequant.launches
     rids += [eng.add_request(p, max_new=5) for p in prompts[1:]]
     res = eng.run()
     assert eng.stats["cached_prompt_tokens"] == 3 * 16 and all(len(res[r]) == 5 for r in rids)
+    assert dequant.launches - d_before == 2 * cfg.n_layers * (eng.stats["prefills"] - 1)

@@ -32,6 +32,7 @@ from repro.models import get_model as j_get_model  # noqa: E402
 from repro.serving import ServeEngine as JaxEngine  # noqa: E402
 from repro_torch.configs import get_config, smoke_config  # noqa: E402
 from repro_torch.configs.base import PrecisionPolicy  # noqa: E402
+from repro_torch.kernels.kv_decode import gather_pages  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models.convert import caches_from_jax, params_from_jax  # noqa: E402
 from repro_torch.nn import attention as attn_lib  # noqa: E402
@@ -99,7 +100,7 @@ def test_insert_timestep_writes_at_len(name, pool):
         table = cache["table"].to(torch.int64)
 
         def contiguous(c):
-            leaves = {n: kvc._gather_pages(t, table[:2]) for n, t in c.items()}
+            leaves = {n: gather_pages(t, table[:2]) for n, t in c.items()}
             return codec.materialize(leaves, head_dim=D)
         before = contiguous(enc)[0]
         out = kvc.paged_insert_timestep(cache, kn, vn, codec)
