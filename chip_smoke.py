@@ -30,11 +30,22 @@ Phases, one output line each (or a few), every failure raising:
      (tests/test_attention.py TOLS); times beside the bound and
      scaled_dot_product_attention's (with enable_gqa for the GQA case, on
      torch >= 2.5);
-  5. kv_quant: the four KV quantize / dequantize kernels (B4a-d) bit for
-     bit against their plain versions at the decode insert (8, 1, 32, 80),
-     the prefill encode (8, 128, 32, 80) in bf16 and f32, ragged row counts
-     and D = 129 and 16, each with an all-zero row; times beside the byte
-     bound (no PyTorch call computes them: no yardstick);
+  5. kv_quant: the insert kernel (B4a / B4c: K and V encoded and written
+     into the pool in one launch) bit for bit against its plain version
+     (the encode pair, then the pool's torch scatter) at the serving shape:
+     the decode insert (B 8, 32 kv heads of 80, T 256, bf16, lengths
+     {144, 100, 17, 1, 0, 256, 48, 128}) on the contiguous pool and on a
+     paged pool (block 16, shuffled blocks, holes, slot 4 free, len 256
+     past the table's pages), every byte outside the written rows
+     unchanged, the same bits on a second call, the paged rows equal to
+     the contiguous ones; the prefill encode (B 8, S 128 into max_len 256,
+     bf16 and f32); each timed beside the plain version, the path it
+     replaced (two row-mode launches, then the torch scatter or
+     zero-padding: before_ms) and the byte bound. Then the rows mode and
+     the two dequantizers (B4b, B4d) at the decode insert (8, 1, 32, 80),
+     the prefill encode (8, 128, 32, 80) in bf16 and f32, ragged row
+     counts and D = 129 and 16, each with an all-zero row; times beside the
+     byte bound (no PyTorch call computes any of them: no yardstick);
  5b. kv_decode: the dequant-fused decode attention (B4b's / B4d's math in
      registers) for int8 and binary on the contiguous pool and a paged pool
      (block 16, shuffled blocks, holes past each length) at B 8, T 256,
@@ -54,8 +65,8 @@ Phases, one output line each (or a few), every failure raising:
      alone before the rest, the int8 pool and a paged int8 pool (block 16)
      with the radix prefix cache. On each: every request gets 16 tokens in
      range; launches are exactly 2 x 28 per wave and per step (int8 GEMM),
-     32 per wave without a cached prefix (flash), 2 x 32 per wave and per
-     step of the codec's quantizer, 32 per step of its kv_decode, 2 x 32 of
+     32 per wave without a cached prefix (flash), 32 per wave and per step
+     of the codec's insert kernel, 32 per step of its kv_decode, 2 x 32 of
      its dequantizer per wave on a cached prefix (its context), 0 of the
      rest; the pool's bytes are exact (671,088,640
      / 343,932,928 / 58,720,256); a second run gives the same tokens; the
@@ -65,7 +76,8 @@ Phases, one output line each (or a few), every failure raising:
      Profiled runs of the bf16 and int8 paths give the device time by
      kernel and the device's busy share of the unprofiled wall time, with
      every kernel symbol of csrc mapped to its family (B2 and B3 must show
-     device time there, and kv_decode in the int8 run);
+     device time there, and kv_decode and the insert kernel in the int8
+     run);
   7. xnor: the XNOR-popcount GEMM against its plain version, exactly, at
      the MNIST net's hidden layers (M = 1, 128, 256, 512; N = K = 1024),
      ragged K (40, 100, 384) and the spec-draft shape (8, 6912, 2560); the
@@ -458,8 +470,8 @@ OUR_KERNELS = {  # every __global__ function of src/repro_torch/csrc -> family
     "int8_matmul_wgmma_kernel": "int8_matmul (ours)",
     "flash_fwd_mma_kernel": "flash_attention (ours)",
     "flash_fwd_simt_kernel": "flash_attention (ours)",
-    "quant_int8_kernel": "kv_quant (ours)", "dequant_int8_kernel": "kv_quant (ours)",
-    "quant_binary_kernel": "kv_quant (ours)", "dequant_binary_kernel": "kv_quant (ours)",
+    "kv_encode_kernel": "kv_quant (ours)", "dequant_int8_kernel": "kv_quant (ours)",
+    "dequant_binary_kernel": "kv_quant (ours)",
     "kv_decode_kernel": "kv_decode (ours)",
     "binary_matmul_mma_kernel": "binary_matmul (ours)",
     "hybrid_dense_kernel": "hybrid_dense (ours)",
@@ -504,17 +516,18 @@ def _profile(api, params, prompts, wall_unprofiled: float, **kw) -> dict:
 
 def _check_path(label, launches, eng, cfg, n_binary, kv: str, flash_waves: int) -> None:
     """Every kernel's launches on one serving path: B2 2 x binary blocks and
-    the codec's quantizer 2 x layers per prefill wave and per decode step,
-    the dequant-fused decode one per layer per decode step, the codec's
-    dequantizer 2 x layers per wave on a cached prefix (the context's
-    gather), B3 one per layer per wave without a cached prefix, all else 0;
+    the codec's insert kernel (K and V in one launch) once per layer per
+    prefill wave and per decode step, the dequant-fused decode one per layer
+    per decode step, the codec's dequantizer 2 x layers per wave on a cached
+    prefix (the context's gather), B3 one per layer per wave without a
+    cached prefix, all else 0;
     and the pool's exact bytes."""
     waves, steps = eng.stats["prefills"], eng.stats["decode_steps"]
     want = {k: 0 for k in KERNELS}
     want["int8_matmul"] = 2 * n_binary * (waves + steps)
     want["flash_attention"] = cfg.n_layers * flash_waves
     if kv != "bf16":
-        want[f"kv_quant_{kv}"] = 2 * cfg.n_layers * (waves + steps)
+        want[f"kv_quant_{kv}"] = cfg.n_layers * (waves + steps)
         want[f"kv_decode_{kv}"] = cfg.n_layers * steps
         want[f"kv_dequant_{kv}"] = 2 * cfg.n_layers * (waves - flash_waves)
     if launches != want:
@@ -624,9 +637,10 @@ def phase_serve(dev, card: str) -> dict:
             row["profile"] = _profile(api, params, batch, k_wall2, **kw)
             if row["profile"].pop("out") != k_out:
                 raise AssertionError("the profiled int8 run gave other tokens")
-            if not row["profile"]["device_ms_by_family"].get("kv_decode (ours)", 0.0) > 0.0:
-                raise AssertionError("the int8 profile shows no device time for kv_decode: "
-                                     f"{row['profile']['device_ms_by_family']}")
+            for fam in ("kv_decode (ours)", "kv_quant (ours)"):
+                if not row["profile"]["device_ms_by_family"].get(fam, 0.0) > 0.0:
+                    raise AssertionError(f"the int8 profile shows no device time for {fam}: "
+                                         f"{row['profile']['device_ms_by_family']}")
         log("serve_kv", **row)
         paths.append(row)
 
@@ -683,14 +697,184 @@ def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.shape == b.shape and torch.equal(a, b)
 
 
+INSERT_H, INSERT_D = 32, 80        # stablelm-3b's kv heads and head dim
+PREFILL_S = 128                    # the serving path's prefill bucket, into max_len 256
+FREE_SLOT = 4                      # DECODE_LENS' slot with len 0: all holes when paged
+NO_YARDSTICK = "none: no single PyTorch call computes it"
+
+
+def _random_leaves(kv, nb, t, dev, gen) -> dict:
+    """A pool layer's leaves (nb, t, 32 heads, .) of random codes and
+    scales, so rows the insert must not touch are told apart from zeros."""
+    width = INSERT_D if kv == "int8" else packed_len(INSERT_D)
+    lo, hi, dt = (-127, 128, torch.int8) if kv == "int8" else (-2 ** 31, 2 ** 31, torch.int32)
+
+    def codes():
+        return torch.randint(lo, hi, (nb, t, INSERT_H, width), generator=gen, device=dev,
+                             dtype=dt)
+
+    def scales():
+        return torch.rand(nb, t, INSERT_H, generator=gen, device=dev).to(torch.bfloat16)
+    return dict(zip(kvq.leaf_names(kv), (codes(), scales(), codes(), scales())))
+
+
+def _insert_table(dev, gen):
+    """A paged layer's table for DECODE_LENS (block 16): each slot but the
+    free one holds its pages up to the one its next token lands on, in
+    shuffled blocks, holes past them; the slot at len 256 has every page,
+    so its token lands past the table. -> (table, n_blocks)."""
+    n_pages = DECODE_T // PAGE
+    used = [0 if i == FREE_SLOT else min(n // PAGE + 1, n_pages)
+            for i, n in enumerate(DECODE_LENS)]
+    n_blocks = sum(used) + 4
+    perm = torch.randperm(n_blocks, generator=gen, device=dev).tolist()
+    table = torch.full((DECODE_B, n_pages), n_blocks + 3, dtype=torch.int32)
+    for i, u in enumerate(used):
+        for p in range(u):
+            table[i, p] = perm.pop()
+    return table.to(dev), n_blocks
+
+
+def _insert_before(kv, leaves, k, v, lens, table):
+    """The decode insert as it ran before the insert kernel: two quantizer
+    launches (the kernel's rows mode stands in for the retired row
+    kernel), then the pool's torch scatter and the length bump."""
+    quant = getattr(kvq, f"kv_quant_{kv}")
+    (kc, ks), (vc, vs) = quant(k), quant(v)
+    new = dict(zip(kvq.leaf_names(kv), (kc, ks, vc, vs)))
+    if table is None:
+        kvq.write_timestep(leaves, new, lens)
+    else:
+        kvq.write_paged(leaves, new, lens, table)
+    return lens + 1
+
+
+def _prefill_before(kv, k, v, max_len):
+    """The prefill encode as it ran before: two quantizer launches, then
+    each leaf zero-padded to max_len."""
+    quant = getattr(kvq, f"kv_quant_{kv}")
+    (kc, ks), (vc, vs) = quant(k), quant(v)
+    return {n: kvq.pad_time(a, max_len) for n, a in zip(kvq.leaf_names(kv), (kc, ks, vc, vs))}
+
+
+def _insert_bytes_ops(kv, n_rows, d, isz, out_rows) -> tuple[int, int]:
+    """Bytes (n_rows of K and of V read, out_rows of codes and scales
+    written) and f32 operations (int8 ~4 an element: |x|, max, divide,
+    round; binary 2: |x|, add) of one insert."""
+    width_b = d if kv == "int8" else 4 * packed_len(d)
+    return (2 * n_rows * d * isz + 2 * out_rows * (width_b + 2),
+            (4 if kv == "int8" else 2) * 2 * n_rows * d)
+
+
+def phase_kv_insert(dev, gen, timer) -> dict[str, list]:
+    """The insert kernel (B4a, B4c) at the serving shape against its plain
+    version, bit for bit: the decode insert on the contiguous and the paged
+    pool (the addressed blocks exact; the spare block takes the free slot's
+    and the len-256 slot's rows in no set order), every other byte
+    unchanged, a second call the same, the paged rows equal to the
+    contiguous ones; the prefill encode into the padded cache. Times beside
+    the plain version, the path it replaced (before_ms) and the bound."""
+    lens = torch.tensor(DECODE_LENS, dtype=torch.int32, device=dev)
+    table, n_blocks = _insert_table(dev, gen)
+    n_rows = DECODE_B * INSERT_H
+    rows: dict[str, list] = {"kv_quant_int8": [], "kv_quant_binary": []}
+    for kv in ("int8", "binary"):
+        kname = f"kv_quant_{kv}"
+        names = kvq.leaf_names(kv)
+        k, v = (torch.randn(DECODE_B, 1, INSERT_H, INSERT_D, generator=gen, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        k[1, 0, 3] = 0.0
+        pools = {"contiguous": (_random_leaves(kv, DECODE_B, DECODE_T, dev, gen), None),
+                 "paged": (_random_leaves(kv, n_blocks + 1, PAGE, dev, gen), table)}
+        written = {}
+        for pool, (start, tab) in pools.items():
+            label = f"{kv}, {pool} decode insert"
+            got, again, want = ({n: a.clone() for n, a in start.items()} for _ in range(3))
+            got_lens = kvq.kv_insert(kv, got, k, v, lens, table=tab)
+            kvq.kv_insert(kv, again, k, v, lens, table=tab)
+            want_lens = kvq.kv_insert_plain(kv, want, k, v, lens, table=tab)
+            torch.cuda.synchronize()
+            cut = slice(None) if tab is None else slice(0, -1)     # the addressed blocks
+            for n in names:
+                if not (_same_bits(got[n][cut], want[n][cut]) and
+                        _same_bits(again[n][cut], want[n][cut])):
+                    raise AssertionError(f"kv_insert differs from plain at {label}, {n}")
+            if not torch.equal(got_lens, want_lens):
+                raise AssertionError(f"kv_insert's lengths differ at {label}")
+            mask = torch.zeros(start[names[1]].shape[:2], dtype=torch.bool, device=dev)
+            for i, n in enumerate(DECODE_LENS):
+                if tab is None:
+                    mask[i, min(n, DECODE_T - 1)] = True
+                else:
+                    page = n // PAGE
+                    blk = int(tab[i, page]) if page < tab.shape[1] else n_blocks
+                    mask[min(blk, n_blocks), n % PAGE] = True
+            for n in names:
+                if not _same_bits(got[n][~mask], start[n][~mask]):
+                    raise AssertionError(f"kv_insert wrote outside its rows at {label}, {n}")
+            written[pool] = got
+            work, work_plain, work_before = ({n: a.clone() for n, a in start.items()}
+                                             for _ in range(3))
+            ms = timer(lambda: kvq.kv_insert(kv, work, k, v, lens, table=tab))
+            plain_ms = timer(lambda: kvq.kv_insert_plain(kv, work_plain, k, v, lens,
+                                                          table=tab), reps=10)
+            before_ms = timer(lambda: _insert_before(kv, work_before, k, v, lens, tab),
+                              reps=10)
+            nbytes, ops = _insert_bytes_ops(kv, n_rows, INSERT_D, 2, n_rows)
+            nbytes += 8 * DECODE_B + (4 * DECODE_B if tab is not None else 0)
+            b_ms, b_by = bound(nbytes, ops, F32_FLOPS)
+            row = dict(case=label, B=DECODE_B, T=DECODE_T, Hkv=INSERT_H, D=INSERT_D,
+                       dtype="bfloat16", lens=DECODE_LENS, page=PAGE if tab is not None else None,
+                       max_abs_err=0, ms=ms, plain_ms=plain_ms, before_ms=before_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None, library_call=NO_YARDSTICK)
+            log(kname, **row)
+            rows[kname].append(row)
+        for i, n in enumerate(DECODE_LENS):       # the paged pool got the contiguous rows
+            page = n // PAGE
+            blk = int(table[i, page]) if page < table.shape[1] else n_blocks
+            if blk < n_blocks:
+                for name in names:
+                    if not _same_bits(written["paged"][name][blk, n % PAGE],
+                                      written["contiguous"][name][i, n]):
+                        raise AssertionError(f"kv_insert: paged differs from contiguous at "
+                                             f"{kv}, slot {i}, {name}")
+        for dt in (torch.bfloat16, torch.float32):
+            label = f"{kv}, prefill encode ({DECODE_B}, {PREFILL_S} -> {DECODE_T}, " \
+                    f"{INSERT_H}, {INSERT_D}), {str(dt).split('.')[-1]}"
+            kp, vp = (torch.randn(DECODE_B, PREFILL_S, INSERT_H, INSERT_D, generator=gen,
+                                  device=dev).to(dt) for _ in range(2))
+            kp[2, 5, 7] = 0.0
+            got = kvq.kv_prefill(kv, kp, vp, DECODE_T)
+            again = kvq.kv_prefill(kv, kp, vp, DECODE_T)
+            want = kvq.kv_prefill_plain(kv, kp, vp, DECODE_T)
+            torch.cuda.synchronize()
+            if not all(_same_bits(got[n], want[n]) and _same_bits(again[n], want[n])
+                       for n in names):
+                raise AssertionError(f"kv_prefill differs from plain at {label}")
+            ms = timer(lambda: kvq.kv_prefill(kv, kp, vp, DECODE_T))
+            plain_ms = timer(lambda: kvq.kv_prefill_plain(kv, kp, vp, DECODE_T), reps=10)
+            before_ms = timer(lambda: _prefill_before(kv, kp, vp, DECODE_T), reps=10)
+            nbytes, ops = _insert_bytes_ops(kv, DECODE_B * PREFILL_S * INSERT_H, INSERT_D,
+                                            kp.element_size(), DECODE_B * DECODE_T * INSERT_H)
+            b_ms, b_by = bound(nbytes, ops, F32_FLOPS)
+            row = dict(case=label, B=DECODE_B, S=PREFILL_S, max_len=DECODE_T, Hkv=INSERT_H,
+                       D=INSERT_D, dtype=str(dt).split(".")[-1], max_abs_err=0, ms=ms,
+                       plain_ms=plain_ms, before_ms=before_ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=None, library_call=NO_YARDSTICK)
+            log(kname, **row)
+            rows[kname].append(row)
+    return rows
+
+
 def phase_kvquant(dev, gen, timer) -> dict[str, list]:
-    """B4a-d bit for bit against their plain versions, each case with one
-    all-zero row; times beside the bound (bytes: each input read once, each
-    output written once, over 3.35 TB/s; the few f32 operations per element
-    over 67 TFLOP/s bind less). No single PyTorch call computes any of the
-    four, so there is no yardstick."""
-    rows: dict[str, list] = {k: [] for k in ("kv_quant_int8", "kv_dequant_int8",
-                                             "kv_quant_binary", "kv_dequant_binary")}
+    """The insert kernel at the serving shape (phase_kv_insert), then B4a-d
+    as row kernels bit for bit against their plain versions, each case with
+    one all-zero row; times beside the bound (bytes: each input read once,
+    each output written once, over 3.35 TB/s; the few f32 operations per
+    element over 67 TFLOP/s bind less). No single PyTorch call computes any
+    of the four, so there is no yardstick."""
+    rows: dict[str, list] = {"kv_dequant_int8": [], "kv_dequant_binary": [],
+                             **phase_kv_insert(dev, gen, timer)}
     for name, shape, dt in KV_CASES:
         d = shape[-1]
         x = torch.randn(*shape, generator=gen, device=dev).to(dt)
@@ -720,9 +904,10 @@ def phase_kvquant(dev, gen, timer) -> dict[str, list]:
             ms = timer(fn)
             plain_ms = timer(plain, reps=10)
             b_ms, b_by = bound(nbytes, ops, F32_FLOPS)
-            row = dict(case=name, rows=n, D=d, dtype=str(dt).split(".")[-1], max_abs_err=0,
+            row = dict(case=name if kname.startswith("kv_dequant") else f"rows mode, {name}",
+                       rows=n, D=d, dtype=str(dt).split(".")[-1], max_abs_err=0,
                        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                       library_ms=None, library_call="none: no single PyTorch call computes it")
+                       library_ms=None, library_call=NO_YARDSTICK)
             log(kname, **row)
             rows[kname].append(row)
     return rows
@@ -953,8 +1138,7 @@ def phase_hybrid(dev, gen, timer) -> list[dict]:
         b_ms, b_by = bound(4 * (m * kp + n * kp + 2 * n + m * n / 32), 2.0 * m * n * k,
                            INT8_OPS)
         row = dict(case=name, M=m, N=n, K=k, max_abs_err=0, ms=ms, plain_ms=plain_ms,
-                   bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                   library_call="none: no single PyTorch call computes it")
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None, library_call=NO_YARDSTICK)
         log("hybrid_dense", **row)
         rows.append(row)
     return rows

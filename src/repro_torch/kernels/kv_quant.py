@@ -18,12 +18,22 @@ Replaces the TPU kernels B4a-d (``kv_quant_int8_pallas``,
 ``kv_dequant_int8_pallas``, ``kv_quant_binary_pallas``,
 ``kv_dequant_binary_pallas``) with the CUDA kernels in ``csrc/kv_quant.cu``
 (bound by bytes; see that file). The TPU kernels pad rows to a block; the
-CUDA kernels take any row count and any D.
+CUDA kernels take any row count, and the quantizers any D up to ``MAX_D``.
 
-Each wrapper (``kv_quant_int8``, ``kv_dequant_int8``, ``kv_quant_binary``,
-``kv_dequant_binary``) runs its kernel for a CUDA tensor and its plain
-version (``*_plain``, the port of repro's XLA twin) for a CPU tensor; for a
-CUDA tensor it launches the kernel or raises. ``<wrapper>.launches`` counts
+The quantizers are one insert kernel, which encodes and writes in one
+launch: ``kv_quant_int8`` / ``kv_quant_binary`` return the codes of a
+(..., D) input (mode (a)); ``kv_insert`` encodes one decode token's K and
+V per slot and writes them into a contiguous or a paged pool at each
+slot's length, as the serving pool's ``insert_timestep`` and
+``paged_insert_timestep`` did with two quantizer launches and a torch
+scatter; ``kv_prefill`` encodes a prefill's K and V into a zero-padded
+cache, as ``from_prefill`` did with ``pad_time``. Each counts one launch on
+its codec's ``kv_quant_<codec>.launches``.
+
+Each wrapper runs its kernel for a CUDA tensor and its plain version
+(``*_plain``: the port of repro's XLA twin, and for the inserts the encode
+pair followed by the pool's torch scatter) for a CPU tensor; for a CUDA
+tensor it launches the kernel or raises. ``<wrapper>.launches`` counts
 kernel launches.
 
 The sum of mean |x| has one fixed order, which the plain version writes out
@@ -41,6 +51,8 @@ import torch
 from repro_torch.core.binarize import LANE_BITS, pack_bits, packed_len, unpack_bits
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+MAX_D = 256                           # head dims the insert kernel takes
+CODECS = ("int8", "binary")
 
 
 # ---------------------------------------------------------------------------
@@ -94,22 +106,91 @@ def kv_dequant_binary_plain(packed: torch.Tensor, scales: torch.Tensor, d: int,
 
 
 # ---------------------------------------------------------------------------
+# the pool's writes, in torch (the inserts' plain versions; the bf16 codec
+# writes through them on every device)
+# ---------------------------------------------------------------------------
+
+def leaf_names(codec: str) -> tuple[str, str, str, str]:
+    """A quantized codec's leaves: (k codes, k scales, v codes, v scales)."""
+    c = {"int8": "q", "binary": "p"}[codec]
+    return f"k_{c}", "k_s", f"v_{c}", "v_s"
+
+
+def pad_time(a: torch.Tensor, max_len: int) -> torch.Tensor:
+    """Pad (B, S, ...) with zeros to (B, max_len, ...) along axis 1 (a zero
+    scale dequantizes to 0, so pad rows stay inert even before the lengths
+    mask them)."""
+    out = a.new_zeros((a.shape[0], max_len, *a.shape[2:]))
+    out[:, :a.shape[1]] = a
+    return out
+
+
+def write_timestep(leaves: dict, new: dict, lens: torch.Tensor) -> None:
+    """Write one token per sequence, new[name] (B, 1, ...), into the
+    contiguous leaves[name] (B, T, ...) at position lens, in place. The
+    position is clamped to T - 1, as repro's dynamic_update_slice clamps
+    it."""
+    for name, t in new.items():
+        buf = leaves[name]
+        rows = torch.arange(buf.shape[0], device=buf.device)
+        buf[rows, torch.clamp(lens, max=buf.shape[1] - 1).to(torch.int64)] = \
+            t[:, 0].to(buf.dtype)
+
+
+def write_paged(leaves: dict, new: dict, lens: torch.Tensor, table: torch.Tensor) -> None:
+    """Write one token per slot into paged leaves (n_blocks + 1, bs, ...)
+    at (table[b, len // bs], len % bs), in place. Free slots meet table
+    holes (ids >= n_blocks), and a length at or past the table's last page
+    meets none: both write to the spare block, where repro's ``mode="drop"``
+    drops them."""
+    first = leaves[next(iter(new))]
+    n_blocks, bs = first.shape[0] - 1, first.shape[1]
+    n_pages = table.shape[1]
+    idx = lens.to(torch.int64)
+    page = idx // bs
+    phys = table.gather(1, torch.clamp(page, max=n_pages - 1)[:, None])[:, 0]
+    phys = torch.where(page < n_pages, phys, n_blocks)
+    at = (torch.clamp(phys, max=n_blocks).to(torch.int64), idx - page * bs)
+    for name, t in new.items():
+        buf = leaves[name]
+        buf[at] = t[:, 0].to(buf.dtype)
+
+
+def _encode_plain(codec: str, k: torch.Tensor, v: torch.Tensor) -> dict:
+    quant = kv_quant_int8_plain if codec == "int8" else kv_quant_binary_plain
+    (kc, ks), (vc, vs) = quant(k), quant(v)
+    return dict(zip(leaf_names(codec), (kc, ks, vc, vs)))
+
+
+def kv_insert_plain(codec: str, leaves: dict, k: torch.Tensor, v: torch.Tensor,
+                    lens: torch.Tensor, *, table: torch.Tensor | None = None) -> torch.Tensor:
+    """The encode pair, then the pool's torch scatter; returns lens + 1."""
+    new = _encode_plain(codec, k, v)
+    if table is None:
+        write_timestep(leaves, new, lens)
+    else:
+        write_paged(leaves, new, lens, table)
+    return lens + 1
+
+
+def kv_prefill_plain(codec: str, k: torch.Tensor, v: torch.Tensor, max_len: int) -> dict:
+    """The encode pair, each leaf zero-padded to max_len along time."""
+    return {name: pad_time(t, max_len) for name, t in _encode_plain(codec, k, v).items()}
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernels
 # ---------------------------------------------------------------------------
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argument types before the stream (csrc/kv_quant.cu)
-_ARGTYPES = {"kv_quant_int8": [_P, _I, _P, _P, _I, _I],
-             "kv_quant_binary": [_P, _I, _P, _P, _I, _I],
+_ARGTYPES = {"kv_encode": [_I, _I] + [_P] * 9 + [_I] * 8,
              "kv_dequant_int8": [_P, _P, _P, _I, _I],
              "kv_dequant_binary": [_P, _P, _P, _I, _I]}
 _FNS: dict[str, object] = {}
 
 
-def _launch(wrapper, *args, device) -> None:
-    """Call the C entry point named after ``wrapper`` on the current stream,
-    raise on a launch error, and count the launch."""
-    name = wrapper.__name__
+def _entry(name: str):
     fn = _FNS.get(name)
     if fn is None:
         from repro_torch.kernels import build
@@ -117,8 +198,15 @@ def _launch(wrapper, *args, device) -> None:
         fn.argtypes = [*_ARGTYPES[name], _P]
         fn.restype = ctypes.c_int
         _FNS[name] = fn
+    return fn
+
+
+def _launch(wrapper, *args, device) -> None:
+    """Call the dequantizer entry point named after ``wrapper`` on the
+    current stream, raise on a launch error, and count the launch."""
     from repro_torch.kernels.build import check
-    check(fn(*args, torch.cuda.current_stream(device).cuda_stream), name)
+    name = wrapper.__name__
+    check(_entry(name)(*args, torch.cuda.current_stream(device).cuda_stream), name)
     wrapper.launches += 1
 
 
@@ -135,21 +223,158 @@ def _rows(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(-1, t.shape[-1]).contiguous()
 
 
-def _quant(wrapper, x: torch.Tensor, width: int, dtype):
-    """Quantize x's rows into (N, width) words of ``dtype`` and bf16 scales
-    (N,); returns both shaped by x's leading dims."""
+def _code_layout(codec: str, d: int) -> tuple[int, torch.dtype]:
+    """Width and dtype of a row's codes: D int8, or ceil(D / 32) words."""
+    return (d, torch.int8) if codec == "int8" else (packed_len(d), torch.int32)
+
+
+def _quant_wrapper(codec: str):
+    return kv_quant_int8 if codec == "int8" else kv_quant_binary
+
+
+def _encode(codec: str, x, xv, codes, codes_v, scales, scales_v, *, lens=None, table=None,
+            lens_out=None, b: int, s: int, s_out: int, h: int, t: int) -> None:
+    """Launch the insert kernel on the current stream (K and V, or x alone
+    with xv None), raise on a launch error, and count one launch on the
+    codec's quantizer."""
+    from repro_torch.kernels.build import check
+    wrapper = _quant_wrapper(codec)
+    d = x.shape[-1]
+    if b * s_out * h >= 2 ** 31 - 16:
+        raise ValueError(f"{wrapper.__name__}: {b * s_out * h} rows exceed 31 bits")
+
+    def ptr(a):
+        return None if a is None else a.data_ptr()
+    n_pages = 0 if table is None else table.shape[1]
+    n_blocks = codes.shape[0] - 1 if table is not None else 0
+    check(_entry("kv_encode")(
+        CODECS.index(codec), int(x.dtype == torch.bfloat16), ptr(x), ptr(xv), ptr(codes),
+        ptr(codes_v), ptr(scales), ptr(scales_v), ptr(lens), ptr(table), ptr(lens_out),
+        b, s, s_out, h, d, t, n_pages, n_blocks,
+        torch.cuda.current_stream(x.device).cuda_stream), wrapper.__name__)
+    wrapper.launches += 1
+
+
+def _check_kv(what: str, k: torch.Tensor, v: torch.Tensor) -> None:
+    """K and V as the insert kernel takes them: (B, S, H, D) bf16 or f32,
+    the same dtype, shape and device, contiguous, 1 <= D <= MAX_D."""
+    if k.dtype not in _KERNEL_DTYPES or v.dtype != k.dtype:
+        raise TypeError(f"{what} takes bf16 or f32 k and v of one dtype on the card, "
+                        f"got {k.dtype} and {v.dtype}")
+    if k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"{what} takes k and v (B, S, H, D) of one shape, got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    if v.device != k.device:
+        raise ValueError(f"{what}: k on {k.device}, v on {v.device}")
+    if not (k.is_contiguous() and v.is_contiguous()):
+        raise ValueError(f"{what} takes contiguous k and v")
+    if not 1 <= k.shape[-1] <= MAX_D:
+        raise ValueError(f"{what} takes head dims 1..{MAX_D}, not {k.shape[-1]}")
+
+
+def kv_quant_int8(x: torch.Tensor):
+    """(..., D) bf16 or f32 -> (values int8 (..., D), scales bf16 (...,))."""
+    if not _on_cuda(x, "kv_quant_int8"):
+        return kv_quant_int8_plain(x)
+    return _quant_rows("int8", x)
+
+
+def kv_quant_binary(x: torch.Tensor):
+    """(..., D) bf16 or f32 -> (packed int32 (..., ceil(D / 32)), scales bf16)."""
+    if not _on_cuda(x, "kv_quant_binary"):
+        return kv_quant_binary_plain(x)
+    return _quant_rows("binary", x)
+
+
+def _quant_rows(codec: str, x: torch.Tensor):
+    """Mode (a): the codes and scales of x's rows, shaped by its leading
+    dims."""
+    name = _quant_wrapper(codec).__name__
     if x.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"{wrapper.__name__} takes bf16 or f32 rows on the card, "
-                        f"got {x.dtype}")
+        raise TypeError(f"{name} takes bf16 or f32 rows on the card, got {x.dtype}")
+    d = x.shape[-1]
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"{name} takes head dims 1..{MAX_D}, not {d}")
     x2 = _rows(x)
-    n, d = x2.shape
+    n = x2.shape[0]
+    width, dtype = _code_layout(codec, d)
     words = torch.empty((n, width), dtype=dtype, device=x.device)
     scales = torch.empty((n,), dtype=torch.bfloat16, device=x.device)
     if n:
-        _launch(wrapper, x2.data_ptr(), int(x.dtype == torch.bfloat16), words.data_ptr(),
-                scales.data_ptr(), n, d, device=x.device)
+        _encode(codec, x2, None, words, None, scales, None, b=n, s=1, s_out=1, h=1, t=1)
     lead = x.shape[:-1]
     return words.reshape(*lead, width), scales.reshape(lead)
+
+
+def kv_insert(codec: str, leaves: dict, k: torch.Tensor, v: torch.Tensor,
+              lens: torch.Tensor, *, table: torch.Tensor | None = None) -> torch.Tensor:
+    """Encode one decode token's k, v (B, 1, Hkv, D) per slot into the
+    ``codec`` ("int8" or "binary") leaves of a pool and write them at each
+    slot's length, in place: contiguous leaves (B, T, Hkv, .) at min(lens,
+    T - 1), or, with ``table`` (B, n_pages) int32, paged leaves (n_blocks +
+    1, bs, Hkv, .) at (table[b, lens // bs], lens % bs), a hole, a free slot
+    or a length past the table's pages writing the spare block. lens (B,)
+    int32. Returns lens + 1, a new tensor (lens itself is not written)."""
+    if codec not in CODECS:
+        raise ValueError(f"kv_insert takes codec int8 or binary, not {codec!r}")
+    if not _on_cuda(k, "kv_insert"):
+        return kv_insert_plain(codec, leaves, k, v, lens, table=table)
+    _check_kv("kv_insert", k, v)
+    b, s, h, d = k.shape
+    if s != 1:
+        raise ValueError(f"kv_insert writes one token per slot, got S = {s}")
+    names = leaf_names(codec)
+    kc, ks, vc, vs = (leaves[n] for n in names)
+    width, code_dtype = _code_layout(codec, d)
+    nb, t = kc.shape[:2]
+    codes, scales = (code_dtype, (nb, t, h, width)), (torch.bfloat16, (nb, t, h))
+    want = [(names[0], kc, *codes), (names[1], ks, *scales), (names[2], vc, *codes),
+            (names[3], vs, *scales), ("lens", lens, torch.int32, (b,))]
+    if table is not None:
+        want.append(("table", table, torch.int32, (b, table.shape[-1])))
+    for what, a, dt, shape in want:
+        if a.dtype != dt:
+            raise TypeError(f"kv_insert takes {dt} {what}, got {a.dtype}")
+        if tuple(a.shape) != shape:
+            raise ValueError(f"kv_insert: {what} {tuple(a.shape)}, want {shape} for k "
+                             f"{tuple(k.shape)}")
+        if a.device != k.device:
+            raise ValueError(f"kv_insert: {what} on {a.device}, k on {k.device}")
+        if not a.is_contiguous():
+            raise ValueError(f"kv_insert takes a contiguous {what}")
+        if a.data_ptr() % a.element_size():
+            raise ValueError(f"kv_insert: {what} is not aligned to its element size")
+    if table is None and nb != b:
+        raise ValueError(f"kv_insert: contiguous leaves hold {nb} slots, k {b}")
+    if table is not None and table.shape[-1] == 0:
+        raise ValueError("kv_insert: a table of no pages")
+    lens_out = torch.empty_like(lens)
+    _encode(codec, k, v, kc, vc, ks, vs, lens=lens, table=table, lens_out=lens_out,
+            b=b, s=1, s_out=1, h=h, t=t)
+    return lens_out
+
+
+def kv_prefill(codec: str, k: torch.Tensor, v: torch.Tensor, max_len: int) -> dict:
+    """Encode a prefill's k, v (B, S, Hkv, D) into the ``codec`` leaves of
+    a (B, max_len, Hkv, .) cache, zero codes and zero scales at positions
+    >= S. Returns the four leaves by name (no len)."""
+    if codec not in CODECS:
+        raise ValueError(f"kv_prefill takes codec int8 or binary, not {codec!r}")
+    if not _on_cuda(k, "kv_prefill"):
+        return kv_prefill_plain(codec, k, v, max_len)
+    _check_kv("kv_prefill", k, v)
+    b, s, h, d = k.shape
+    if max_len < s:
+        raise ValueError(f"kv_prefill: max_len {max_len} < S = {s}")
+    names = leaf_names(codec)
+    width, dtype = _code_layout(codec, d)
+    kc, vc = (torch.empty((b, max_len, h, width), dtype=dtype, device=k.device)
+              for _ in range(2))
+    ks, vs = (torch.empty((b, max_len, h), dtype=torch.bfloat16, device=k.device)
+              for _ in range(2))
+    if b * max_len * h:
+        _encode(codec, k, v, kc, vc, ks, vs, b=b, s=s, s_out=max_len, h=h, t=max_len)
+    return dict(zip(names, (kc, ks, vc, vs)))
 
 
 def _dequant(wrapper, words: torch.Tensor, scales: torch.Tensor, d: int, dtype):
@@ -169,13 +394,6 @@ def _dequant(wrapper, words: torch.Tensor, scales: torch.Tensor, d: int, dtype):
     return out.reshape(*words.shape[:-1], d).to(dtype)
 
 
-def kv_quant_int8(x: torch.Tensor):
-    """(..., D) bf16 or f32 -> (values int8 (..., D), scales bf16 (...,))."""
-    if not _on_cuda(x, "kv_quant_int8"):
-        return kv_quant_int8_plain(x)
-    return _quant(kv_quant_int8, x, x.shape[-1], torch.int8)
-
-
 def kv_dequant_int8(values: torch.Tensor, scales: torch.Tensor, *,
                     dtype=torch.bfloat16) -> torch.Tensor:
     """values int8 (..., D), scales bf16 (...,) -> (..., D) in ``dtype``."""
@@ -184,13 +402,6 @@ def kv_dequant_int8(values: torch.Tensor, scales: torch.Tensor, *,
     if values.dtype != torch.int8:
         raise TypeError(f"kv_dequant_int8 takes int8 values, got {values.dtype}")
     return _dequant(kv_dequant_int8, values, scales, values.shape[-1], dtype)
-
-
-def kv_quant_binary(x: torch.Tensor):
-    """(..., D) bf16 or f32 -> (packed int32 (..., ceil(D / 32)), scales bf16)."""
-    if not _on_cuda(x, "kv_quant_binary"):
-        return kv_quant_binary_plain(x)
-    return _quant(kv_quant_binary, x, packed_len(x.shape[-1]), torch.int32)
 
 
 def kv_dequant_binary(packed: torch.Tensor, scales: torch.Tensor, d: int, *,

@@ -16,9 +16,11 @@ decode attends through ``kernels/kv_decode.py``: for a CUDA tensor one
 kernel per layer and step dequantizes the codes in registers (B4b's and
 B4d's math) inside the online softmax, reading only the positions below
 len (repro scans kv blocks with the XLA twins fused into the block load);
-for a CPU tensor the reference's recurrence runs. Quantizing goes through
-the kernels of ``kernels/kv_quant.py`` (B4a, B4c), and so does the context
-of a cached prefix (B4b, B4d): a CUDA tensor never meets a plain version.
+for a CPU tensor the reference's recurrence runs. Inserting goes through
+the insert kernel of ``kernels/kv_quant.py`` (B4a, B4c: one launch encodes
+K and V and writes them into the pool, contiguous, paged or at prefill),
+and the context of a cached prefix through B4b, B4d: a CUDA tensor never
+meets a plain version.
 
 The paged pool replaces each slot's private (max_len, ...) region with one
 shared pool of (n_blocks, block_size, ...) blocks per layer in any codec's
@@ -113,29 +115,6 @@ def kv_pool_byte_breakdown(caches: list) -> dict:
     return out
 
 
-def _pad_time(a: torch.Tensor, max_len: int) -> torch.Tensor:
-    """Pad (B, S, ...) with zeros to (B, max_len, ...) along axis 1 (a zero
-    scale dequantizes to 0, so pad rows stay inert even before the lengths
-    mask them)."""
-    out = a.new_zeros((a.shape[0], max_len, *a.shape[2:]))
-    out[:, :a.shape[1]] = a
-    return out
-
-
-def _write_timestep(cache: dict, new_leaves: dict) -> dict:
-    """Insert one token per sequence at position cache['len'] for every
-    named leaf (values, scales), in place. The position is clamped to T - 1,
-    as repro's dynamic_update_slice clamps it."""
-    idx = cache["len"]
-    for name, new in new_leaves.items():
-        buf = cache[name]
-        rows = torch.arange(buf.shape[0], device=buf.device)
-        buf[rows, torch.clamp(idx, max=buf.shape[1] - 1).to(torch.int64)] = \
-            new[:, 0].to(buf.dtype)
-    cache["len"] = idx + 1
-    return cache
-
-
 # ---------------------------------------------------------------------------
 # codecs
 # ---------------------------------------------------------------------------
@@ -158,13 +137,16 @@ class CacheCodec:
     def from_prefill(self, k: torch.Tensor, v: torch.Tensor, max_len: int) -> dict:
         """Encode a prefilled (B, S, H, D) k/v pair into a max_len cache."""
         b, s = k.shape[:2]
-        enc = {name: _pad_time(leaf, max_len) for name, leaf in self.encode(k, v).items()}
+        enc = {name: kvq.pad_time(leaf, max_len) for name, leaf in self.encode(k, v).items()}
         enc["len"] = torch.full((b,), s, dtype=torch.int32, device=k.device)
         return enc
 
     def insert_timestep(self, cache: dict, k_new, v_new) -> dict:
-        """Insert one token per sequence at position cache['len'], in place."""
-        return _write_timestep(cache, self.encode(k_new, v_new))
+        """Insert one token per sequence at position cache['len'] (clamped
+        to T - 1), in place."""
+        kvq.write_timestep(cache, self.encode(k_new, v_new), cache["len"])
+        cache["len"] = cache["len"] + 1
+        return cache
 
     def materialize(self, cache: dict, dtype=torch.bfloat16, *, head_dim=None):
         """The full dequantized (k, v), both (B, T, H, D): tests and checks
@@ -217,7 +199,26 @@ class Bf16Codec(CacheCodec):
         return 2 * n_kv * head_dim * 2
 
 
-class Int8Codec(CacheCodec):
+class _QuantCodec(CacheCodec):
+    """int8 and binary: one launch of the insert kernel (kernels/kv_quant.py)
+    encodes K and V and writes codes and scales where the cache keeps them,
+    on the contiguous and the paged pool and at prefill."""
+
+    def from_prefill(self, k, v, max_len):
+        enc = kvq.kv_prefill(self.name, k, v, max_len)
+        enc["len"] = torch.full((k.shape[0],), k.shape[1], dtype=torch.int32,
+                                device=k.device)
+        return enc
+
+    def insert_timestep(self, cache, k_new, v_new):
+        """Insert one token per sequence at position cache['len'], in place,
+        through the block table if the cache has one."""
+        cache["len"] = kvq.kv_insert(self.name, cache, k_new, v_new, cache["len"],
+                                     table=cache.get("table"))
+        return cache
+
+
+class Int8Codec(_QuantCodec):
     """values int8 + per-(token, head) absmax scale bf16."""
 
     name = "int8"
@@ -251,7 +252,7 @@ class Int8Codec(CacheCodec):
         return 2 * n_kv * (head_dim + 2)
 
 
-class BinaryCodec(CacheCodec):
+class BinaryCodec(_QuantCodec):
     """Sign bits packed 32 to a word + per-(token, head) absmean scale bf16:
     the paper's binary-layer memory trade applied to K/V. Lossy (tolerance
     in tests/test_kvcache.py); greedy decode stays coherent but is not
@@ -325,14 +326,6 @@ def _n_blocks(cache: dict) -> int:
     return next(v for k, v in cache.items() if k not in _INDEX_LEAVES).shape[0] - 1
 
 
-def paged_block_size(cache: dict) -> int:
-    """Block size of a paged layer: the time axis of its deepest leaf (the
-    values; scales are one rank lower)."""
-    leaf = max((v for k, v in cache.items() if k not in _INDEX_LEAVES),
-               key=lambda a: a.dim())
-    return leaf.shape[1]
-
-
 def paged_update_slots(pool: list, rows: torch.Tensor, lens: torch.Tensor,
                        slots: torch.Tensor) -> list:
     """Rebind slots' block tables and lengths (admission, eviction), in
@@ -369,16 +362,11 @@ def paged_insert_prefill(pool: list, new: list, dest_pages: torch.Tensor) -> lis
 def paged_insert_timestep(cache: dict, k_new, v_new, codec: CacheCodec) -> dict:
     """Per-layer decode insert, in place: encode one token per slot and
     write it at (table[b, len // bs], len % bs). Free slots meet table holes
-    and write to the spare block."""
-    idx = cache["len"].to(torch.int64)
-    bs = paged_block_size(cache)
-    table = cache["table"]
-    page = idx // bs
-    phys = table.gather(1, torch.clamp(page, max=table.shape[1] - 1)[:, None])[:, 0]
-    at = (torch.clamp(phys, max=_n_blocks(cache)).to(torch.int64), idx - page * bs)
-    for name, new in codec.encode(k_new, v_new).items():
-        buf = cache[name]
-        buf[at] = new[:, 0].to(buf.dtype)
+    and write to the spare block. int8 and binary: the codec's insert
+    kernel; bf16: a torch scatter."""
+    if codec.name != "bf16":
+        return codec.insert_timestep(cache, k_new, v_new)
+    kvq.write_paged(cache, codec.encode(k_new, v_new), cache["len"], cache["table"])
     cache["len"] = cache["len"] + 1
     return cache
 

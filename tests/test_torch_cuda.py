@@ -415,6 +415,174 @@ def test_kv_quant_kernels_take_leading_dims_and_refuse_f16(dev):
         kvq.kv_quant_int8(x.half())
 
 
+def _pool_leaves(codec, nb, t, h, d, dev, g):
+    """Random codes and scales for a pool of nb x t rows of h heads, so
+    rows the insert kernel must not touch are told apart from zeros."""
+    width = d if codec == "int8" else -(-d // 32)
+    lo, hi, dt = (-127, 128, torch.int8) if codec == "int8" else (-2 ** 31, 2 ** 31, torch.int32)
+
+    def codes():
+        return torch.randint(lo, hi, (nb, t, h, width), generator=g, device=dev, dtype=dt)
+
+    def scales():
+        return torch.rand(nb, t, h, generator=g, device=dev).to(torch.bfloat16)
+    return dict(zip(kvq.leaf_names(codec), (codes(), scales(), codes(), scales())))
+
+
+def _same_leaves(a: dict, b: dict) -> bool:
+    return all(torch.equal(_bits(a[n]), _bits(b[n])) for n in a)
+
+
+# the decode insert: lengths 0, 1, T - 1 and T (clamped to T - 1 on the
+# contiguous pool; past the table's pages, so the spare block, on the paged
+# one), and a free slot (len 0, all holes on the paged pool)
+INSERT_LENS = [0, 1, 31, 32, 0]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [16, 64, 80, 96, 128, 129])
+@pytest.mark.parametrize("codec", ["int8", "binary"])
+def test_kv_insert_kernel_matches_plain(dev, codec, d, dtype):
+    """The insert kernel (B4a / B4c) in its four modes against its plain
+    version, bit for bit: (a) rows, (b) the contiguous decode insert, (c)
+    the paged one, (d) the prefill encode into a zero-padded cache. Every
+    pool byte outside the written rows is unchanged, a second call writes
+    the same bits, the paged pool gets the contiguous pool's rows, and each
+    call counts one launch."""
+    g = _gen(dev, 7 * d + len(dtype))
+    dt = getattr(torch, dtype)
+    quant = getattr(kvq, f"kv_quant_{codec}")
+    plain = getattr(kvq, f"kv_quant_{codec}_plain")
+    names = kvq.leaf_names(codec)
+    h, t, bs = 3, 32, 8
+    b = len(INSERT_LENS)
+
+    # (a) rows, with an all-zero row
+    x = (torch.randn(37, h, d, generator=g, device=dev) * 3).to(dt)
+    x[5] = 0.0
+    before = quant.launches
+    (wc, ws), (pc, ps) = quant(x), plain(x)
+    torch.cuda.synchronize()
+    assert quant.launches == before + 1
+    assert torch.equal(wc, pc) and torch.equal(_bits(ws), _bits(ps))
+
+    k, v = ((torch.randn(b, 1, h, d, generator=g, device=dev) * 3).to(dt) for _ in range(2))
+    k[2] = 0.0
+    lens = torch.tensor(INSERT_LENS, dtype=torch.int32, device=dev)
+
+    # (b) contiguous
+    pool = _pool_leaves(codec, b, t, h, d, dev, g)
+    runs = []
+    for _ in range(2):
+        leaves = {n: a.clone() for n, a in pool.items()}
+        before = quant.launches
+        new_lens = kvq.kv_insert(codec, leaves, k, v, lens)
+        torch.cuda.synchronize()
+        assert quant.launches == before + 1
+        runs.append(leaves)
+    want = {n: a.clone() for n, a in pool.items()}
+    want_lens = kvq.kv_insert_plain(codec, want, k, v, lens)
+    assert torch.equal(new_lens, want_lens) and lens.tolist() == INSERT_LENS
+    assert _same_leaves(runs[0], want) and _same_leaves(runs[1], want)
+    at = [min(n, t - 1) for n in INSERT_LENS]
+    written = torch.zeros(b, t, dtype=torch.bool, device=dev)
+    written[torch.arange(b), torch.tensor(at)] = True
+    for n in names:
+        assert torch.equal(_bits(runs[0][n])[~written], _bits(pool[n])[~written])
+
+    # (c) paged: shuffled blocks, holes, a slot past its pages, a free slot
+    cont = runs[0]
+    n_pages, n_blocks = t // bs, 12
+    perm = torch.randperm(n_blocks, generator=g, device=dev).tolist()
+    table = torch.full((b, n_pages), n_blocks + 2, dtype=torch.int32)
+    for i, n in enumerate(INSERT_LENS[:-1]):
+        for p in range(min(n // bs + 1, n_pages)):
+            table[i, p] = perm.pop()
+    ppool = _pool_leaves(codec, n_blocks + 1, bs, h, d, dev, g)
+    runs = []
+    for _ in range(2):
+        leaves = {n: a.clone() for n, a in ppool.items()}
+        new_lens = kvq.kv_insert(codec, leaves, k, v, lens, table=table.to(dev))
+        torch.cuda.synchronize()
+        runs.append(leaves)
+    want = {n: a.clone() for n, a in ppool.items()}
+    want_lens = kvq.kv_insert_plain(codec, want, k, v, lens, table=table.to(dev))
+    assert torch.equal(new_lens, want_lens)
+    # the addressed blocks are exact and repeat; the spare block takes two
+    # rows at offset 0 (the free slot's and the slot's past its pages), in
+    # no set order
+    addressed = [{n: a[:-1] for n, a in r.items()} for r in (*runs, want)]
+    assert _same_leaves(addressed[0], addressed[2]) and _same_leaves(addressed[1], addressed[2])
+    written = torch.zeros(n_blocks + 1, bs, dtype=torch.bool, device=dev)
+    for i, n in enumerate(INSERT_LENS):
+        blk = int(table[i, n // bs]) if n // bs < n_pages else n_blocks
+        blk = min(blk, n_blocks)
+        written[blk, n % bs] = True
+        if blk < n_blocks:                 # the contiguous pool's row, bit for bit
+            for name in names:
+                assert torch.equal(_bits(runs[0][name][blk, n % bs]), _bits(cont[name][i, n]))
+    assert bool(written[n_blocks, 0])
+    for n in names:
+        assert torch.equal(_bits(runs[0][n])[~written], _bits(ppool[n])[~written])
+
+    # (d) prefill into a zero-padded cache, over memory left dirty
+    kp, vp = ((torch.randn(b, 13, h, d, generator=g, device=dev) * 3).to(dt) for _ in range(2))
+    kp[1, 4] = 0.0
+    junk = torch.full((1 << 22,), -1, dtype=torch.int32, device=dev)
+    del junk
+    before = quant.launches
+    got, again = kvq.kv_prefill(codec, kp, vp, t), kvq.kv_prefill(codec, kp, vp, t)
+    want = kvq.kv_prefill_plain(codec, kp, vp, t)
+    torch.cuda.synchronize()
+    assert quant.launches == before + 2
+    assert set(got) == set(want) == set(names)
+    assert _same_leaves(got, want) and _same_leaves(again, want)
+
+
+def test_kv_insert_kernel_refuses_what_it_does_not_take(dev):
+    k = torch.randn(2, 1, 4, 80, device=dev, dtype=torch.bfloat16)
+    cache = {**_pool_leaves("int8", 2, 16, 4, 80, dev, _gen(dev, 3)),
+             "len": torch.tensor([3, 16], dtype=torch.int32, device=dev)}
+    lens = cache["len"]
+    kvq.kv_insert("int8", cache, k, k, lens)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        kvq.kv_insert("int8", cache, k.half(), k.half(), lens)
+    with pytest.raises(TypeError, match="one dtype"):
+        kvq.kv_insert("int8", cache, k, k.float(), lens)
+    with pytest.raises(ValueError, match="one token"):
+        kvq.kv_insert("int8", cache, k.expand(2, 2, 4, 80).contiguous(),
+                      k.expand(2, 2, 4, 80).contiguous(), lens)
+    with pytest.raises(ValueError, match="contiguous"):
+        kvq.kv_insert("int8", cache, k.transpose(0, 2), k.transpose(0, 2), lens)
+    with pytest.raises(TypeError, match="lens"):
+        kvq.kv_insert("int8", cache, k, k, lens.long())
+    with pytest.raises(ValueError, match="lens"):
+        kvq.kv_insert("int8", cache, k, k, lens.cpu())
+    with pytest.raises(TypeError, match="k_s"):
+        kvq.kv_insert("int8", {**cache, "k_s": cache["k_s"].float()}, k, k, lens)
+    with pytest.raises(TypeError, match="k_p"):
+        kvq.kv_insert("binary", {**cache, "k_p": cache["k_q"], "v_p": cache["v_q"]}, k, k,
+                      lens)
+    with pytest.raises(ValueError, match="v_q"):
+        kvq.kv_insert("int8", {**cache, "v_q": cache["v_q"][:, :8].contiguous()}, k, k, lens)
+    with pytest.raises(ValueError, match="contiguous leaves hold"):
+        kvq.kv_insert("int8", cache, k[:1].contiguous(), k[:1].contiguous(),
+                      lens[:1].contiguous())
+    table = torch.zeros(2, 2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="table"):
+        kvq.kv_insert("int8", cache, k, k, lens, table=table)
+    with pytest.raises(ValueError, match="int8 or binary"):
+        kvq.kv_insert("bf16", cache, k, k, lens)
+    wide = torch.randn(2, 1, 4, 264, device=dev)
+    with pytest.raises(ValueError, match="head dims"):
+        kvq.kv_prefill("int8", wide, wide, 4)
+    with pytest.raises(ValueError, match="head dims"):
+        kvq.kv_quant_binary(wide)
+    with pytest.raises(ValueError, match="max_len"):
+        kvq.kv_prefill("binary", k.expand(2, 5, 4, 80).contiguous(),
+                       k.expand(2, 5, 4, 80).contiguous(), 4)
+
+
 # (B, Hq, Hkv, D, T, lens, q dtype): the kv_decode phase of chip_smoke.py at
 # small sizes (G 1 and 4, D 64 / 80 / 128, bf16 and f32 q), plus T 320 (ten
 # chunks of 32 for 8 warps: a warp takes two) and G 8 (8 query rows)
@@ -515,11 +683,12 @@ def test_short_quantized_and_paged_serve_on_card(dev, kv):
     """The smoke LM (f32) served on the card: the contiguous and the paged
     pool (block 8) of one codec give the same tokens (the kv_decode kernel
     sums in an order that depends on positions only), with the codec's
-    quantizer launched 2 x layers per wave and per step, kv_decode once per
-    layer per step, and the codec's dequantizer only for a cached prefix's
-    context (2 x layers per wave that has one); the prefix cache then hits
-    on a shared header. (Tokens across batch shapes are not compared: the
-    random-init model's top-2 gaps sit at float noise.)"""
+    insert kernel launched once per layer per wave and per step (K and V in
+    one launch), kv_decode once per layer per step, and the codec's
+    dequantizer only for a cached prefix's context (2 x layers per wave
+    that has one); the prefix cache then hits on a shared header. (Tokens
+    across batch shapes are not compared: the random-init model's top-2 gaps
+    sit at float noise.)"""
     cfg = smoke_config("stablelm-3b").replace(compute_dtype="float32",
                                               param_dtype="float32")
     api = get_model(cfg)
@@ -538,7 +707,7 @@ def test_short_quantized_and_paged_serve_on_card(dev, kv):
         outs.append([res[r] for r in rids])
         waves, steps = eng.stats["prefills"], eng.stats["decode_steps"]
         assert (quant.launches - before[0], dequant.launches - before[1],
-                decode.launches - before[2]) == (2 * cfg.n_layers * (waves + steps), 0,
+                decode.launches - before[2]) == (cfg.n_layers * (waves + steps), 0,
                                                  cfg.n_layers * steps)
     assert outs[0] == outs[1]
     eng = ServeEngine(api, params, max_batch=2, max_len=48, kv_cache=kv, kv_block_size=8,
