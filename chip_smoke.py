@@ -12,7 +12,7 @@ Phases, one output line each (or a few), every failure raising:
      function, the registers, stack and spills that ptxas reported
      (-Xptxas=-v, in the build logs) and the count of tensor-core
      instructions (IMMA / IGMMA / HMMA / HGMMA / BMMA) in cuobjdump -sass,
-     required in B2's, B3's bf16, B1's and B6's kernel functions;
+     required in B2's, B3's bf16, B1's, B5's and B6's kernel functions;
   3. int8: the int8-binary GEMM kernel against its plain version at the
      serving path's shapes (decode M = 1, 8 and 16, prefill M = 8 x 128
      and 8 x 256, bin_in (N, K) = (6912, 2560) and bin_out (2560, 6912)),
@@ -84,8 +84,17 @@ Phases, one output line each (or a few), every failure raising:
      yardstick is the same cuBLAS call as int8's, on unpacked signs; then
      the kernel at every K split it takes, each exact and repeatable,
      timed beside the split its host plan picks;
-  8. hybrid_dense: the fused binary layer bit-exact at (256, 1024, 1024)
-     and at ragged M; no PyTorch call computes it, so no yardstick;
+  8. hybrid_dense: the fused binary layer bit for bit against its plain
+     version, twice, at the MNIST hidden layers (M = 256 first, then 1,
+     128, 512; N = K = 1024), ragged M 77, ragged K 100 (N 64), K 384 (Kp
+     12), a long K (8, 1024, 2560) that the plan splits, and scales and
+     shifts that make y exactly +0.0 and -0.0; times beside the plain
+     version, the bound, a flushed one-element fill_ and, as context, the
+     unfused sequence it stands for (B1's kernel, then the f32 affine, the
+     sign and pack_bits in torch: unfused_ms, its words equal to the
+     kernel's); no single PyTorch call computes it, so no yardstick; then
+     the kernel at every K split it takes, each exact and repeatable,
+     timed beside the split its host plan picks;
   9. bf16_matmul: the bf16 GEMM within 2e-2 (tests/test_kernels.py), with
      hardtanh off and on, at (256, 1024, 512) and the MNIST float layers at
      batch 256 (fc0's K = 784, fc3's N = 10, fc1 / fc2's 1024 -> 1024);
@@ -431,7 +440,7 @@ def phase_flash(dev, gen, timer) -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: serve stablelm-3b at full width
+# phase 6: serve stablelm-3b at full width
 # ---------------------------------------------------------------------------
 
 N_REQUESTS, PROMPT_LENS, MAX_NEW = 12, (16, 48, 100, 128), 16
@@ -474,7 +483,7 @@ OUR_KERNELS = {  # every __global__ function of src/repro_torch/csrc -> family
     "dequant_binary_kernel": "kv_quant (ours)",
     "kv_decode_kernel": "kv_decode (ours)",
     "binary_matmul_mma_kernel": "binary_matmul (ours)",
-    "hybrid_dense_kernel": "hybrid_dense (ours)",
+    "hybrid_dense_mma_kernel": "hybrid_dense (ours)",
     "bf16_matmul_mma_kernel": "bf16_matmul (ours)",
     "bf16_matmul_wgmma_kernel": "bf16_matmul (ours)",
 }
@@ -677,7 +686,7 @@ def phase_serve(dev, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase: KV quantize / dequantize (B4a-d)
+# phase 5: KV quantize / dequantize (B4a-d)
 # ---------------------------------------------------------------------------
 
 KV_CASES = [  # (name, shape (..., D), dtype): the serving path's, then ragged
@@ -914,7 +923,7 @@ def phase_kvquant(dev, gen, timer) -> dict[str, list]:
 
 
 # ---------------------------------------------------------------------------
-# phase: dequant-fused decode attention (B4b's and B4d's decode use)
+# phase 5b: dequant-fused decode attention (B4b's and B4d's decode use)
 # ---------------------------------------------------------------------------
 
 DECODE_B, DECODE_T, PAGE = 8, 256, 16
@@ -1047,7 +1056,7 @@ def phase_kv_decode(dev, gen, timer) -> dict[str, list]:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: XNOR-popcount GEMM
+# phase 7: XNOR-popcount GEMM
 # ---------------------------------------------------------------------------
 
 XNOR_CASES = [  # (name, M, N, K)
@@ -1110,42 +1119,104 @@ def phase_xnor_splits(dev, gen, timer) -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: fused hybrid dense
+# phase 8: fused hybrid dense
 # ---------------------------------------------------------------------------
 
-HYBRID_CASES = [  # (name, M, N, K)
-    ("mnist hidden, batch 256", 256, 1024, 1024),
-    ("ragged M 77", 77, 1024, 1024),
+HYBRID_CASES = [  # (name, M, N, K, signed zero)
+    ("mnist hidden, batch 256", 256, 1024, 1024, False),
+    ("mnist hidden, batch 1", 1, 1024, 1024, False),
+    ("mnist hidden, batch 128", 128, 1024, 1024, False),
+    ("mnist hidden, batch 512", 512, 1024, 1024, False),
+    ("ragged M 77", 77, 1024, 1024, False),
+    ("ragged K 100", 32, 64, 100, False),
+    ("K 384, Kp 12", 64, 1024, 384, False),
+    ("long K 2560 (split)", 8, 1024, 2560, False),
+    ("+-0.0 at the sign, batch 256", 256, 1024, 1024, True),
 ]
 
 
+def _hybrid_inputs(m, n, k, signed_zero, dev, gen):
+    """Packed signs and a scale / shift: random, or +-1 with shift -0.0
+    (y = +0.0 / -0.0 where the dot is 0) and -+2 (y = +0.0 where it is 2),
+    the second checked to put both zeros in y."""
+    pa = pack_bits(torch.randn(m, k, generator=gen, device=dev))
+    pw = pack_bits(torch.randn(n, k, generator=gen, device=dev))
+    if not signed_zero:
+        return (pa, pw, torch.randn(n, generator=gen, device=dev) * 0.1 + 0.5,
+                torch.randn(n, generator=gen, device=dev) * 0.1)
+    scale = torch.tensor([1.0, -1.0, 1.0, -1.0], device=dev).repeat(n // 4)
+    shift = torch.tensor([-0.0, -0.0, -2.0, 2.0], device=dev).repeat(n // 4)
+    y = binary_matmul_plain(pa, pw, k).float() * scale + shift
+    if not (((y == 0) & torch.signbit(y)).any() and ((y == 0) & ~torch.signbit(y)).any()):
+        raise AssertionError("the signed-zero case has no +0.0 or no -0.0 in y")
+    return pa, pw, scale, shift
+
+
+def _hybrid_unfused(pa, pw, scale, shift, k):
+    """What B5 fuses, step by step: B1's kernel, then the f32 affine, the
+    sign and pack_bits in torch."""
+    return pack_bits(binary_matmul(pa, pw, k).float() * scale + shift)
+
+
 def phase_hybrid(dev, gen, timer) -> list[dict]:
+    """B5 bit for bit against its plain version at every case, twice; timed
+    beside the plain version, the bound, a flushed one-element fill_ (the
+    floor of one launch under this timer) and, as context, the unfused
+    sequence it stands for (unfused_ms; its words must equal the
+    kernel's)."""
+    one = torch.zeros(1, device=dev)
+    fill_ms = timer(lambda: one.fill_(1.0))
     rows = []
-    for name, m, n, k in HYBRID_CASES:
-        pa = pack_bits(torch.randn(m, k, generator=gen, device=dev))
-        pw = pack_bits(torch.randn(n, k, generator=gen, device=dev))
-        scale = torch.randn(n, generator=gen, device=dev) * 0.1 + 0.5
-        shift = torch.randn(n, generator=gen, device=dev) * 0.1
-        args = (pa, pw, scale, shift, k)
+    for name, m, n, k, signed_zero in HYBRID_CASES:
+        args = (*_hybrid_inputs(m, n, k, signed_zero, dev, gen), k)
         got, want = hybrid_dense(*args), hybrid_dense_plain(*args)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(f"hybrid_dense kernel differs from plain at {name}: "
                                  f"{int((got != want).sum())} words")
+        if not torch.equal(hybrid_dense(*args), got):
+            raise AssertionError(f"hybrid_dense: a second call differs at {name}")
+        if not torch.equal(_hybrid_unfused(*args), got):
+            raise AssertionError(f"hybrid_dense: the unfused sequence differs at {name}")
         ms = timer(lambda: hybrid_dense(*args))
         plain_ms = timer(lambda: hybrid_dense_plain(*args), reps=10)
+        unfused_ms = timer(lambda: _hybrid_unfused(*args))
         kp = packed_len(k)
         b_ms, b_by = bound(4 * (m * kp + n * kp + 2 * n + m * n / 32), 2.0 * m * n * k,
                            INT8_OPS)
         row = dict(case=name, M=m, N=n, K=k, max_abs_err=0, ms=ms, plain_ms=plain_ms,
-                   bound_ms=b_ms, bound_by=b_by, library_ms=None, library_call=NO_YARDSTICK)
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None, library_call=NO_YARDSTICK,
+                   unfused_ms=unfused_ms, fill_ms=fill_ms, over_fill=ms / fill_ms)
         log("hybrid_dense", **row)
         rows.append(row)
     return rows
 
 
+def phase_hybrid_splits(dev, gen, timer) -> list[dict]:
+    """B5 at each K split it takes (1, 2, 4, 8 chunks of whole stages),
+    each bit-exact and repeatable, timed beside the plan's pick."""
+    from repro_torch.kernels import hybrid_dense as hd
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = []
+    for name, m, n, k, signed_zero in HYBRID_CASES:
+        args = (*_hybrid_inputs(m, n, k, signed_zero, dev, gen), k)
+        want = hybrid_dense_plain(*args)
+        units = -(-packed_len(k) // hd.STAGE_WORDS)
+        chunks = {s: hd.STAGE_WORDS * -(-units // s) for s in splits_for(units)}
+        options = {f"{s} chunks": (lambda kc=kc: hd._launch(*args, kc))
+                   for s, kc in chunks.items()}
+        planned = hd.plan(m, n, k, n_sms)
+
+        def same(got, label):
+            if not torch.equal(got, want):
+                raise AssertionError(f"hybrid_dense kernel differs from plain at {label}")
+        rows.append(_sweep("hybrid_split", name, (m, n, k), options,
+                           f"{-(-packed_len(k) // planned)} chunks", same, timer))
+    return rows
+
+
 # ---------------------------------------------------------------------------
-# phase 8: bf16 GEMM
+# phase 9: bf16 GEMM
 # ---------------------------------------------------------------------------
 
 BF16_CASES = [  # (name, M, N, K, hardtanh)
@@ -1224,7 +1295,7 @@ def phase_bf16_splits(dev, gen, timer) -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
-# phase 9: the paper's MNIST net (the port's quickstart path)
+# phase 10: the paper's MNIST net (the port's quickstart path)
 # ---------------------------------------------------------------------------
 
 MNIST_BATCHES = (1, 256)      # the paper's Table I
@@ -1388,12 +1459,13 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all(SOURCES)
     log("build", seconds=time.perf_counter() - t0, dir=str(build.BUILD_DIR))
-    # B2's two designs, B3's bf16 instantiations, B1 (b1 BMMA) and B6's two
-    # designs (HGMMA, HMMA) run on the tensor cores: each function's SASS
-    # must hold its opcode
+    # B2's two designs, B3's bf16 instantiations, B1 and B5 (b1 BMMA) and
+    # B6's two designs (HGMMA, HMMA) run on the tensor cores: each
+    # function's SASS must hold its opcode
     build_rows = phase_build_report()
     for sym, kind in (("int8_matmul_mma_kernel", "IMMA"), ("int8_matmul_wgmma_kernel", "IGMMA"),
                       ("flash_fwd_mma_kernel", "HMMA"), ("binary_matmul_mma_kernel", "BMMA"),
+                      ("hybrid_dense_mma_kernel", "BMMA"),
                       ("bf16_matmul_wgmma_kernel", "HGMMA"), ("bf16_matmul_mma_kernel", "HMMA")):
         counted = [r["tensor_core_ops"] for r in build_rows if sym in r["function"]]
         if not counted:
@@ -1413,6 +1485,7 @@ def main() -> int:
     xnor_rows = phase_xnor(dev, gen, timer)
     phase_xnor_splits(dev, gen, timer)
     hybrid_rows = phase_hybrid(dev, gen, timer)
+    phase_hybrid_splits(dev, gen, timer)
     bf16_rows = phase_bf16(dev, gen, timer)
     phase_bf16_splits(dev, gen, timer)
     del timer

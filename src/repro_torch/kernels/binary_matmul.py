@@ -59,11 +59,13 @@ SPLIT_COST = 3            # a split's reduction, in stages, per doubling
 SLOTS = 4                 # blocks an SM is counted to hold
 
 
-def plan(m: int, n: int, k: int, n_sms: int = 132) -> int:
+def plan(m: int, n: int, k: int, n_sms: int = 132,
+         tile: tuple[int, int] = TILE) -> int:
     """The launch's ``kchunk``: the K range is cut into chunks of that many
     packed words, one block of a thread block cluster each, at stage
     boundaries (multiples of 8 words), so that every chunk but the last is
-    whole; the split is ``ksplit.cheapest_split``'s.
+    whole; the split is ``ksplit.cheapest_split``'s over blocks of ``tile``
+    outputs (B5, ``hybrid_dense``, runs this main loop on its own tiles).
 
     On the H100 one call at the MNIST shapes is one round trip to memory
     whatever its grid: 32 blocks (M = 1) ran as fast as 256 blocks of 16 x
@@ -71,7 +73,7 @@ def plan(m: int, n: int, k: int, n_sms: int = 132) -> int:
     reduction, while the spec draft's 10 stages (K = 2560) ran fastest in
     2 chunks (PERF.md section 6)."""
     units = -(-packed_len(k) // STAGE_WORDS)
-    tiles = -(-m // TILE[0]) * -(-n // TILE[1])
+    tiles = -(-m // tile[0]) * -(-n // tile[1])
     return STAGE_WORDS * -(-units // cheapest_split(tiles, units, n_sms, SLOTS, SPLIT_COST))
 
 

@@ -180,8 +180,12 @@ def test_binary_matmul_kernel_refuses_unaligned_base(dev):
         binary_matmul(pa, torch.zeros(8, 32, dtype=torch.int32, device=dev), 1024)
 
 
-# (M, K, N): the MNIST hidden layer at batch 256, ragged M, ragged K
-@pytest.mark.parametrize("m,k,n", [(256, 1024, 1024), (77, 1024, 1024), (40, 100, 64)])
+# (M, K, N): the MNIST hidden layer at batch 256, ragged M, ragged K; M 1 /
+# 16 / 17 / 33 around the 32-row tile and the 16-row warp tile; Kp 12 (the
+# 4-byte copies); K 2560, where the plan splits K in two
+@pytest.mark.parametrize("m,k,n", [(256, 1024, 1024), (77, 1024, 1024), (40, 100, 64),
+                                   (1, 1024, 1024), (16, 1024, 64), (17, 1024, 64),
+                                   (33, 1024, 96), (64, 384, 1024), (8, 2560, 1024)])
 def test_hybrid_dense_kernel_exact(dev, m, k, n):
     g = _gen(dev, m + k + n)
     pa = pack_bits(torch.randn(m, k, generator=g, device=dev))
@@ -194,6 +198,56 @@ def test_hybrid_dense_kernel_exact(dev, m, k, n):
     assert hybrid_dense.launches == before + 1
     assert got.shape == (m, n // 32)
     assert torch.equal(got, hybrid_dense_plain(pa, pw, scale, shift, k))
+
+
+# (M, K, N): a K range of 8 stages, so every split (1, 2, 4, 8 chunks) is
+# whole; 63 words (4-byte copies, a short last chunk) with ragged M; M = 1
+HYBRID_SPLIT_SHAPES = [(40, 2048, 64), (77, 2016, 96), (1, 2048, 32)]
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("m,k,n", HYBRID_SPLIT_SHAPES)
+def test_hybrid_dense_every_split_exact(dev, m, k, n, splits):
+    """Each K split, forced through the launcher, equals the plain version
+    and gives the same bits on a second call (the cluster adds integers)."""
+    from repro_torch.kernels import hybrid_dense as hd
+    g = _gen(dev, m + k + n + splits)
+    pa = pack_bits(torch.randn(m, k, generator=g, device=dev))
+    pw = pack_bits(torch.randn(n, k, generator=g, device=dev))
+    scale = torch.randn(n, generator=g, device=dev) * 0.1 + 0.5
+    shift = torch.randn(n, generator=g, device=dev) * 0.1
+    units = -(-pa.shape[1] // hd.STAGE_WORDS)
+    assert splits in splits_for(units)
+    kchunk = hd.STAGE_WORDS * -(-units // splits)
+    got = hd._launch(pa, pw, scale, shift, k, kchunk)
+    torch.cuda.synchronize()
+    assert torch.equal(got, hybrid_dense_plain(pa, pw, scale, shift, k))
+    assert torch.equal(got, hd._launch(pa, pw, scale, shift, k, kchunk))
+
+
+@pytest.mark.parametrize("k", [1024, 2560])
+def test_hybrid_dense_kernel_signed_zero(dev, k):
+    """y exactly +0.0 and -0.0 (scale +-1, shift -0.0 where the dot is 0;
+    shift -+2 where it is 2) gives bit 1, as y >= 0 does, unsplit and split."""
+    m, n = 64, 256
+    g = _gen(dev, k)
+    pa = pack_bits(torch.randn(m, k, generator=g, device=dev))
+    pw = pack_bits(torch.randn(n, k, generator=g, device=dev))
+    scale = torch.tensor([1.0, -1.0, 1.0, -1.0], device=dev).repeat(n // 4)
+    shift = torch.tensor([-0.0, -0.0, -2.0, 2.0], device=dev).repeat(n // 4)
+    y = binary_matmul_plain(pa, pw, k).float() * scale + shift
+    zeros = y == 0
+    assert (zeros & torch.signbit(y)).any() and (zeros & ~torch.signbit(y)).any()
+    got = hybrid_dense(pa, pw, scale, shift, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, hybrid_dense_plain(pa, pw, scale, shift, k))
+
+
+def test_hybrid_dense_kernel_refuses_unaligned_base(dev):
+    pa = torch.zeros(4 * 32 + 1, dtype=torch.int32, device=dev)[1:].view(4, 32)
+    one = torch.ones(32, device=dev)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        hybrid_dense(pa, torch.zeros(32, 32, dtype=torch.int32, device=dev), one, one, 1024)
 
 
 def test_hybrid_dense_kernel_refuses_ragged_n(dev):
