@@ -14,8 +14,9 @@ Phases, one output line each (or a few), every failure raising:
      instructions (IMMA / IGMMA / HMMA / HGMMA / BMMA) in cuobjdump -sass,
      required in B2's, B3's bf16, B1's, B5's and B6's kernel functions;
   3. int8: the int8-binary GEMM kernel against its plain version at the
-     serving path's shapes (decode M = 1, 8 and 16, prefill M = 8 x 128
-     and 8 x 256, bin_in (N, K) = (6912, 2560) and bin_out (2560, 6912)),
+     serving path's shapes (decode M = 1, 8 and 16, the speculative
+     verify's M = 8 x 4 = 32, prefill M = 8 x 128 and 8 x 256, bin_in
+     (N, K) = (6912, 2560) and bin_out (2560, 6912)),
      a ragged case and, with activations over all of [-128, 127], a
      decode and a prefill case, required to be exactly equal; times of the
      kernel, the plain version and one cuBLAS call on unpacked operands
@@ -45,7 +46,11 @@ Phases, one output line each (or a few), every failure raising:
      the two dequantizers (B4b, B4d) at the decode insert (8, 1, 32, 80),
      the prefill encode (8, 128, 32, 80) in bf16 and f32, ragged row
      counts and D = 129 and 16, each with an all-zero row; times beside the
-     byte bound (no PyTorch call computes any of them: no yardstick);
+     byte bound (no PyTorch call computes any of them: no yardstick). The
+     span insert (the speculative verify's write of S = 4 tokens a slot at
+     the same lengths, clamped at T - S on the contiguous pool, through a
+     table with pages up to each span's end on the paged one) is held the
+     same way, bit for bit, beside its plain version and byte bound;
  5b. kv_decode: the dequant-fused decode attention (B4b's / B4d's math in
      registers) for int8 and binary on the contiguous pool and a paged pool
      (block 16, shuffled blocks, holes past each length) at B 8, T 256,
@@ -55,12 +60,22 @@ Phases, one output line each (or a few), every failure raising:
      zeros, the same bits on a second call and on both pools; times beside
      the plain recurrence, the earlier loop of per-block B4b / B4d
      launches, the byte bound and, as context only, SDPA over a bf16 cache
-     of the same lengths;
+     of the same lengths; then the verify's attend with per-query lengths
+     (S 4, query j below len + j + 1, bf16 q) within 2e-2, one launch a
+     call, beside its plain version, bound and SDPA with the same masks;
   6. serve: stablelm-3b at full width (32 layers, d_model 2560, bf16,
      random init from a seeded torch.Generator on the card) through
      ServeEngine(max_batch=8, max_len=256), 12 requests of 16 new tokens,
      on five paths, each with the launch counts zeroed just before it and
-     read just after: the bf16 pool, the int8 and the binary pools, and,
+     read just after. Each decode tick is one CUDA graph replay (one replay
+     a step, checked); what a replay adds to the counts (taken from the
+     wrappers' counts during the capture) must equal, per family of our
+     kernels, the captured graph's kernel nodes as libcuda names
+     them; the bf16 and int8 runs are also traced, and there the device's
+     kernel events must equal the counts plus the graph's warm-up step.
+     Each path is run twice for the same tokens and once eagerly
+     (cuda_graphs=False), whose tokens must equal the replayed ones, both
+     tok/s kept: the bf16 pool, the int8 and the binary pools, and,
      on prompts that share a 64-token header with the first request served
      alone before the rest, the int8 pool and a paged int8 pool (block 16)
      with the radix prefix cache. On each: every request gets 16 tokens in
@@ -73,14 +88,33 @@ Phases, one output line each (or a few), every failure raising:
      paged run hits the prefix cache. Logits are finite;
      layer 0 agrees with the plain attention on a small batch, and its
      int8 and binary caches decode as their materialized copies do (2e-2).
-     Profiled runs of the bf16 and int8 paths give the device time by
-     kernel and the device's busy share of the unprofiled wall time, with
-     every kernel symbol of csrc mapped to its family (B2 and B3 must show
-     device time there, and kv_decode and the insert kernel in the int8
-     run);
+     The traced runs of the bf16 and int8 paths, replayed (the counted run)
+     and eager, give the device time by kernel and the device's busy share
+     of the unprofiled wall time, with every kernel symbol of csrc mapped
+     to its family (B2 and B3 must show device time in both bf16 runs, and
+     kv_decode and the insert kernel in both int8 runs);
+ 6b. spec: the same model with spec_k = 3 (the binarized self-draft: its
+     4 float FFNs x 3 matrices through B1) on five paths: bf16, int8 and
+     binary contiguous greedy, paged int8 with the prefix cache on the
+     header prompts, and int8 sampled (temperature 0.8, beside a plain
+     sampled int8 run), each wave one graph replay whose counts are held to
+     the graph's kernel nodes as in 6: every request gets 16
+     tokens in range; launches exactly, per wave, B1 3 x 4 x k, B2 2 x 28
+     x (k + 1), the codec's insert kernel and kv_decode 32 x (k + 1) each
+     (and per prefill wave as on the plain paths); one draft launch and one
+     replay a wave; a second run's tokens and the eager waves' tokens equal;
+     acceptance > 0 over the five paths (random weights: the greedy draft
+     may never agree with the target, whose top-2 gaps are small; the
+     sampled paths share the target's stream); layer 0's and layer 31's
+     verify output within 2e-2 of 4 sequential decodes (bf16 and int8
+     pools). Printed, not gated: the
+     share of tokens equal to the plain graph path's, the plain model's
+     top-2 logit gap at each request's first divergence, acceptance and
+     tok/s (replayed and eager);
   7. xnor: the XNOR-popcount GEMM against its plain version, exactly, at
      the MNIST net's hidden layers (M = 1, 128, 256, 512; N = K = 1024),
-     ragged K (40, 100, 384) and the spec-draft shape (8, 6912, 2560); the
+     ragged K (40, 100, 384) and the spec draft's shapes (gate / up 8 x
+     6912 x 2560, down 8 x 2560 x 6912); the
      yardstick is the same cuBLAS call as int8's, on unpacked signs; then
      the kernel at every K split it takes, each exact and repeatable,
      timed beside the split its host plan picks;
@@ -110,7 +144,10 @@ Phases, one output line each (or a few), every failure raising:
      and 256 (the paper's Table I protocol), warm, without an L2 flush;
  11. a JSON line of the nine kernels and the two kv_decode wrappers:
      launches summed over the paths (B2, B3, B4a-d and kv_decode on the
-     serving paths, B1 on the MNIST path, B5 and B6 on none), largest
+     serving paths, B1 on the spec and the MNIST paths, B5 and B6 on
+     none; each serving and spec path's replayed counts held to its graph's
+     kernel nodes, the bf16 and int8 paths' to the device's kernel events
+     of the same run), largest
      error, times and bounds;
 
 and last, ``{"ok": true, "device": {...}}``. Without a GPU it exits non-zero
@@ -122,6 +159,7 @@ Every phase's lines also go to build/chip_smoke.json.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import statistics
 import subprocess
@@ -140,7 +178,7 @@ from repro_torch.core import hybrid_mlp as H  # noqa: E402
 from repro_torch.core.binarize import pack_bits, pack_signs_int8, packed_len, unpack_bits  # noqa: E402
 from repro_torch.data.synthetic import SyntheticMnist  # noqa: E402
 from repro_torch.examples import quickstart  # noqa: E402
-from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import COUNTED, build  # noqa: E402
 from repro_torch.kernels.bf16_matmul import bf16_matmul, bf16_matmul_plain  # noqa: E402
 from repro_torch.kernels.binary_matmul import binary_matmul, binary_matmul_plain  # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
@@ -156,13 +194,8 @@ from repro_torch.nn.layers import embedding_lookup, rmsnorm_apply  # noqa: E402
 from repro_torch.serving import kvcache as kvc  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
 
-KERNELS = {  # name -> wrapper; every launch count is zeroed before each path
-    "int8_matmul": int8_matmul, "flash_attention": flash_attention,
-    "binary_matmul": binary_matmul, "hybrid_dense": hybrid_dense,
-    "bf16_matmul": bf16_matmul, "kv_quant_int8": kvq.kv_quant_int8,
-    "kv_dequant_int8": kvq.kv_dequant_int8, "kv_quant_binary": kvq.kv_quant_binary,
-    "kv_dequant_binary": kvq.kv_dequant_binary, "kv_decode_int8": kvd.kv_decode_int8,
-    "kv_decode_binary": kvd.kv_decode_binary}
+# name -> wrapper, every counted one; every launch count is zeroed before each path
+KERNELS = {w.__name__: w for w in COUNTED}
 SOURCES = ["int8_matmul", "flash_attention", "binary_matmul", "hybrid_dense",
            "bf16_matmul", "kv_quant", "kv_decode"]   # src/repro_torch/csrc/<name>.cu
 
@@ -283,6 +316,8 @@ INT8_CASES = [  # (name, M, N, K)
     ("decode M 1 bin_out", 1, 2560, 6912),
     ("decode M 16 bin_in", 16, 6912, 2560),
     ("decode M 16 bin_out", 16, 2560, 6912),
+    ("spec verify bin_in M 32", 32, 6912, 2560),
+    ("spec verify bin_out M 32", 32, 2560, 6912),
 ]
 # activations drawn from all of [-128, 127]: the kernel is exact for any
 # int8, and so are the plain f32 version and the yardsticks (|sum| < 2**24)
@@ -498,15 +533,117 @@ def _kernel_family(name: str) -> str:
     return "other (elementwise, norms, copies, argmax)"
 
 
-def _profile(api, params, prompts, wall_unprofiled: float, **kw) -> dict:
-    """Device time by kernel over one serving run (torch.profiler; kernel
-    times come from the device's own clock), and the device's busy share of
-    the same work run without the profiler, whose host-side recording
-    stretches the profiled run's wall time."""
+# wrapper -> the family its kernel functions' device events fall in (OUR_KERNELS)
+WRAPPER_FAMILY = {name: ("kv_quant (ours)" if name.startswith(("kv_quant", "kv_dequant"))
+                         else "kv_decode (ours)" if name.startswith("kv_decode")
+                         else f"{name} (ours)") for name in KERNELS}
+
+
+def _device_launches(prof) -> dict[str, int]:
+    """Kernel events per family of ours in a profiled run: the device's own
+    count of their launches, every node of every graph replay included."""
     from torch.autograd import DeviceType
+    got = dict.fromkeys(sorted(set(OUR_KERNELS.values())), 0)
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and _kernel_family(evt.key) in got:
+            got[_kernel_family(evt.key)] += evt.count
+    return got
+
+
+class _KernelNodeParams(ctypes.Structure):     # CUDA_KERNEL_NODE_PARAMS_v2, cuda.h
+    _fields_ = [("func", ctypes.c_void_p)] + [
+        (f, ctypes.c_uint) for f in ("grid_x", "grid_y", "grid_z", "block_x", "block_y",
+                                     "block_z", "shared_mem")] + [
+        ("kernel_params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+        ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def _graph_kernel_nodes(graph) -> dict[str, int]:
+    """Kernel nodes per family of ours in a captured CUDA graph, named by
+    libcuda (cuGraphGetNodes, cuGraphKernelNodeGetParams,
+    cuFuncGetName / cuKernelGetName): the kernels one replay launches."""
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def ok(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"{what} failed: CUresult {rc}")
+    g, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    ok(cu.cuGraphGetNodes(g, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    ok(cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    got = dict.fromkeys(sorted(set(OUR_KERNELS.values())), 0)
+    for node in nodes:
+        node, kind = ctypes.c_void_p(node), ctypes.c_int()
+        ok(cu.cuGraphNodeGetType(node, ctypes.byref(kind)), "cuGraphNodeGetType")
+        if kind.value != 0:                                 # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        p, name = _KernelNodeParams(), ctypes.c_char_p()
+        ok(cu.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(p)), "cuGraphKernelNodeGetParams")
+        # a node libcuda cannot name counts as none of ours (a node of
+        # ours left unnamed then shows as a missing node)
+        if (p.func and cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(p.func)) == 0) or \
+                (p.kern and cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(p.kern)) == 0):
+            fam = _kernel_family(name.value.decode())
+            if fam in got:
+                got[fam] += 1
+    return got
+
+
+def _by_family(per_wrapper: dict[str, int]) -> dict[str, int]:
+    out = dict.fromkeys(sorted(set(OUR_KERNELS.values())), 0)
+    for name, n in per_wrapper.items():
+        out[WRAPPER_FAMILY[name]] += n
+    return out
+
+
+def _counted_run(label, api, params, prompts, staged=False, profiled=False, **kw):
+    """A path's counted run: the launch counts zeroed just before it and
+    read just after. What a replay adds to them (serving/graphs.py, from
+    the wrappers' counts during the capture) must equal, per family of
+    ours, the kernel nodes of the graph that replayed. ``profiled``: the
+    run is traced (torch.profiler), and per family the device's kernel
+    events must equal the counts plus the graph's warm-up (one eager step,
+    which the counts leave out as set-up).
+    -> (tokens, wall s, engine, counts, profiler or None)"""
+    from torch.profiler import ProfilerActivity, profile
+    zero_counts()
+    if profiled:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out, wall, eng = _serve_once(api, params, prompts, staged=staged, **kw)
+    else:
+        prof = None
+        out, wall, eng = _serve_once(api, params, prompts, staged=staged, **kw)
+    launches = counts()
+    nodes = _graph_kernel_nodes(eng.graph.graph)
+    per_replay = _by_family(dict(zip(KERNELS, eng.graph.per_replay)))
+    if nodes != per_replay:
+        raise AssertionError(f"{label}: the graph's kernel nodes {nodes}, but a replay adds "
+                             f"{per_replay}")
+    if prof is None:
+        return out, wall, eng, launches, None
+    warm = dict(zip(KERNELS, eng.graph.warmup))
+    want = _by_family({name: n + warm[name] for name, n in launches.items()})
+    got = _device_launches(prof)
+    if got != want:
+        raise AssertionError(f"{label}: kernel events on the device {got}, want {want}: the "
+                             f"wrappers counted {launches}, the warm-up {warm}")
+    return out, wall, eng, launches, prof
+
+
+def _profile(api, params, prompts, wall_unprofiled: float, **kw) -> dict:
+    """The summary below of one profiled serving run."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         out, wall, _ = _serve_once(api, params, prompts, **kw)
+    return {"out": out, **_profile_summary(prof, wall, wall_unprofiled)}
+
+
+def _profile_summary(prof, wall: float, wall_unprofiled: float) -> dict:
+    """Device time by kernel over one profiled serving run (kernel times
+    come from the device's own clock), and the device's busy share of the
+    same work run without the profiler, whose host-side recording stretches
+    the profiled run's wall time."""
+    from torch.autograd import DeviceType
     per_kernel = {}     # device-side events only: a CPU op's device time repeats its kernels'
     for evt in prof.key_averages():
         if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0:
@@ -516,7 +653,7 @@ def _profile(api, params, prompts, wall_unprofiled: float, **kw) -> dict:
         fam[_kernel_family(name)] = fam.get(_kernel_family(name), 0.0) + ms
     busy = sum(fam.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:10]
-    return {"out": out, "profiled_wall_ms": wall * 1e3, "device_busy_ms": busy,
+    return {"profiled_wall_ms": wall * 1e3, "device_busy_ms": busy,
             "busy_share": busy / (wall_unprofiled * 1e3),
             "device_ms_by_family": dict(sorted(fam.items(), key=lambda kv: -kv[1])),
             "top_kernels": [{"name": n[:90], "ms": ms, "count": c}
@@ -577,6 +714,37 @@ def _fused_decode_layer0(params, cfg, toks, lens) -> dict:
     return errs
 
 
+def _eager_equal(label, out, api, params, prompts, staged=False, **kw):
+    """The same requests served with every tick (or wave) run eagerly, not
+    replayed from its CUDA graph: the tokens must be the replayed ones.
+    -> the eager run's wall seconds."""
+    e_out, e_wall, e_eng = _serve_once(api, params, prompts, staged=staged, cuda_graphs=False,
+                                       **kw)
+    if e_out != out:
+        raise AssertionError(f"{label}: the graph replays gave other tokens than eager")
+    if e_eng.graph is not None:
+        raise AssertionError(f"{label}: cuda_graphs=False built a graph")
+    return e_wall
+
+
+def _check_replays(label, eng) -> None:
+    """One graph replay per tick or wave, and no eager step on the card."""
+    if eng.graph is None or eng.graph.replays != eng.stats["decode_steps"] or \
+            eng.graph.eager_calls:
+        raise AssertionError(f"{label}: {eng.graph and eng.graph.replays} replays for "
+                             f"{eng.stats['decode_steps']} steps")
+
+
+def _device_time(label, profiles, families) -> None:
+    """Each family shows device time in the replayed profile and in the
+    eager one."""
+    for prof, how in zip(profiles, ("replayed", "eager")):
+        for fam in families:
+            if not prof["device_ms_by_family"].get(fam, 0.0) > 0.0:
+                raise AssertionError(f"{label}: the {how} profile shows no device time for "
+                                     f"{fam}: {prof['device_ms_by_family']}")
+
+
 def phase_serve(dev, card: str) -> dict:
     cfg = get_config("stablelm-3b")
     api = get_model(cfg)
@@ -591,65 +759,70 @@ def phase_serve(dev, card: str) -> dict:
     header = rng.integers(0, cfg.vocab, HEADER)
     shared = [np.concatenate([header, p]) for p in prompts]
 
-    # the main path, with the launch counts zeroed just before it
-    zero_counts()
-    out, wall, eng = _serve_once(api, params, prompts)
-    launches = counts()
+    # the main path, with the launch counts zeroed just before it and read
+    # just after, under the profiler (its kernel events held to the
+    # counts); each decode tick is one CUDA graph replay
+    out, wall, eng, launches, prof_run = _counted_run("bf16", api, params, prompts,
+                                                      profiled=True)
     waves, steps = eng.stats["prefills"], eng.stats["decode_steps"]
     _check_outputs("bf16", out, cfg.vocab)
     _check_path("bf16", launches, eng, cfg, n_binary, "bf16", waves)
+    _check_replays("bf16", eng)
     out2, wall2, _ = _serve_once(api, params, prompts)
     if out2 != out:
         raise AssertionError("a second run of the same requests gave other tokens")
-    prof = _profile(api, params, prompts, wall2)
-    if prof.pop("out") != out:
-        raise AssertionError("the profiled run gave other tokens")
-    for fam in ("int8_matmul (ours)", "flash_attention (ours)"):
-        if not prof["device_ms_by_family"].get(fam, 0.0) > 0.0:
-            raise AssertionError(f"the profile shows no device time for {fam}: "
-                                 f"{prof['device_ms_by_family']}")
+    wall_eager = _eager_equal("bf16", out, api, params, prompts)
+    prof = _profile_summary(prof_run, wall, wall2)
+    prof_eager = _profile(api, params, prompts, wall_eager, cuda_graphs=False)
+    if prof_eager.pop("out") != out:
+        raise AssertionError("the profiled eager run gave other tokens")
+    _device_time("bf16", (prof, prof_eager), ("int8_matmul (ours)", "flash_attention (ours)"))
 
     # the further paths: each with its counts zeroed just before and read
-    # just after, run twice for the same tokens
-    paths = []
+    # just after, run twice for the same tokens, then eagerly
+    paths, plain = [], {"bf16": out}
     for label, kw, on_header in KV_PATHS:
         batch = shared if on_header else prompts
-        zero_counts()
-        k_out, k_wall, k_eng = _serve_once(api, params, batch, staged=on_header, **kw)
-        k_launches = counts()
+        k_out, k_wall, k_eng, k_launches, k_prof = _counted_run(
+            label, api, params, batch, staged=on_header, profiled=label == "int8", **kw)
         _check_outputs(label, k_out, cfg.vocab)
         # with the prefix cache only the first, lone wave prefills without
         # a cached prefix: every later request matches the header
         _check_path(label, k_launches, k_eng, cfg, n_binary, kw["kv_cache"],
                     1 if kw.get("prefix_cache") else k_eng.stats["prefills"])
+        _check_replays(label, k_eng)
         if kw.get("prefix_cache") and not (k_eng.pool.stats["hits"] > 0 and
                                            k_eng.stats["cached_prompt_tokens"] > 0):
             raise AssertionError(f"{label}: no prefix hits {k_eng.pool.stats}")
         k_out2, k_wall2, _ = _serve_once(api, params, batch, staged=on_header, **kw)
         if k_out2 != k_out:
             raise AssertionError(f"{label}: a second run gave other tokens")
+        k_wall_eager = _eager_equal(label, k_out, api, params, batch, staged=on_header, **kw)
+        plain[label] = k_out
         n_tok = sum(len(o) for o in k_out)
         row = dict(path=label, tokens=n_tok, prefill_waves=k_eng.stats["prefills"],
                    decode_steps=k_eng.stats["decode_steps"], launches=k_launches,
+                   graph_replays=k_eng.graph.replays,
                    kv_bytes=k_eng.stats["kv_bytes"],
                    kv_bytes_vs_bf16=KV_BYTES["bf16"] / k_eng.stats["kv_bytes"],
                    prefilled_tokens=k_eng.stats["prefilled_tokens"],
                    cached_prompt_tokens=k_eng.stats["cached_prompt_tokens"],
-                   wall_s_first=k_wall, wall_s=k_wall2, tok_per_s_first=n_tok / k_wall,
-                   tok_per_s=n_tok / k_wall2)
+                   wall_s_first=k_wall, wall_s=k_wall2, wall_s_eager=k_wall_eager,
+                   tok_per_s_first=n_tok / k_wall, tok_per_s=n_tok / k_wall2,
+                   tok_per_s_eager=n_tok / k_wall_eager)
         if kw.get("prefix_cache"):
             row["prefix_pool"] = dict(k_eng.pool.stats)
         elif not on_header:
             row["tokens_as_bf16"] = sum(a == b for o, w in zip(k_out, out)
                                         for a, b in zip(o, w)) / n_tok
         if label == "int8":
-            row["profile"] = _profile(api, params, batch, k_wall2, **kw)
-            if row["profile"].pop("out") != k_out:
-                raise AssertionError("the profiled int8 run gave other tokens")
-            for fam in ("kv_decode (ours)", "kv_quant (ours)"):
-                if not row["profile"]["device_ms_by_family"].get(fam, 0.0) > 0.0:
-                    raise AssertionError(f"the int8 profile shows no device time for {fam}: "
-                                         f"{row['profile']['device_ms_by_family']}")
+            row["profile"] = _profile_summary(k_prof, k_wall, k_wall2)
+            row["profile_eager"] = _profile(api, params, batch, k_wall_eager,
+                                            cuda_graphs=False, **kw)
+            if row["profile_eager"].pop("out") != k_out:
+                raise AssertionError("the profiled eager int8 run gave other tokens")
+            _device_time("int8", (row["profile"], row["profile_eager"]),
+                         ("kv_decode (ours)", "kv_quant (ours)"))
         log("serve_kv", **row)
         paths.append(row)
 
@@ -676,13 +849,178 @@ def phase_serve(dev, card: str) -> dict:
     row = dict(card=card, arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
                binary_blocks=n_binary, requests=N_REQUESTS, tokens=n_tok,
                prefill_waves=waves, decode_steps=steps, launches=launches,
-               kv_bytes=eng.stats["kv_bytes"], init_s=init_s, wall_s_first=wall,
-               wall_s=wall2, tok_per_s_first=n_tok / wall, tok_per_s=n_tok / wall2,
+               graph_replays=eng.graph.replays, kv_bytes=eng.stats["kv_bytes"], init_s=init_s,
+               wall_s_first=wall, wall_s=wall2, wall_s_eager=wall_eager,
+               tok_per_s_first=n_tok / wall, tok_per_s=n_tok / wall2,
+               tok_per_s_eager=n_tok / wall_eager,
                layer0_flash_vs_plain=layer0_err, layer0_fused_vs_materialized=fused_err,
                peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
     log("serve", **row)
     log("profile", card=card, **prof)
-    return {**row, "paths": paths}
+    log("profile_eager", card=card, **prof_eager)
+    spec = phase_spec(api, params, cfg, prompts, shared, plain, n_binary, card)
+    return {**row, "paths": paths, "spec": spec}
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: speculative decoding at full width (the binarized self-draft)
+# ---------------------------------------------------------------------------
+
+SPEC_K = 3
+# (label, ServeEngine options, header prompts, the plain path it is held to)
+SPEC_PATHS = [("spec bf16", {}, False, "bf16"),
+              ("spec int8", dict(kv_cache="int8"), False, "int8"),
+              ("spec binary", dict(kv_cache="binary"), False, "binary"),
+              ("spec paged int8 + prefix cache", dict(kv_cache="int8", kv_block_size=16,
+                                                      prefix_cache=True), True,
+               "paged int8 + prefix cache"),
+              ("spec int8 sampled", dict(kv_cache="int8", temperature=0.8, seed=SEED), False,
+               "int8 sampled")]
+
+
+def _check_spec_path(label, launches, eng, cfg, n_binary, kv: str, flash_waves: int) -> None:
+    """Every kernel's launches on a speculative path: per wave, k draft
+    decodes and one verify of k + 1 tokens, so B1 3 x (float FFNs) x k (the
+    draft's packed denses), B2 2 x (binary FFNs) x (k + 1), the codec's
+    insert kernel and kv_decode layers x (k + 1) each (the verify's one span
+    insert and one attend with q_lens); per prefill wave as on the plain
+    paths; one draft launch and one graph replay a wave."""
+    waves, w, k = eng.stats["prefills"], eng.stats["spec_waves"], eng.spec_k
+    n_float = cfg.n_layers - n_binary
+    want = {name: 0 for name in KERNELS}
+    want["int8_matmul"] = 2 * n_binary * (waves + w * (k + 1))
+    want["binary_matmul"] = 3 * n_float * k * w
+    want["flash_attention"] = cfg.n_layers * flash_waves
+    if kv != "bf16":
+        want[f"kv_quant_{kv}"] = cfg.n_layers * (waves + w * (k + 1))
+        want[f"kv_decode_{kv}"] = cfg.n_layers * w * (k + 1)
+        want[f"kv_dequant_{kv}"] = 2 * cfg.n_layers * (waves - flash_waves)
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, want {want} for {waves} "
+                             f"prefill waves + {w} spec waves")
+    if not (eng.stats["spec_draft_launches"] == w == eng.stats["decode_steps"] > 0):
+        raise AssertionError(f"{label}: draft launches {eng.stats['spec_draft_launches']}, "
+                             f"{w} waves")
+    _check_replays(label, eng)
+
+
+def _top2_gaps(api, params, prompts, out, plain_out, dev) -> list:
+    """At each request's first token that differs from the plain path's,
+    the plain model's top-2 logit gap there (a prefill over the prompt and
+    the plain tokens before it): how close to a tie the two paths split."""
+    gaps = []
+    for p, o, w in zip(prompts, out, plain_out):
+        j = next((i for i, (a, b) in enumerate(zip(o, w)) if a != b), None)
+        if j is None:
+            continue
+        seq = torch.as_tensor(np.concatenate([p, np.asarray(w[:j], np.int64)]), device=dev)
+        logits, _ = api.prefill(params, {"tokens": seq[None]}, max_len=len(seq))
+        top = torch.topk(logits[0].float(), 2).values
+        gaps.append({"index": j, "gap": float(top[0] - top[1])})
+    return gaps
+
+
+def _verify_vs_decode(params, cfg, dev) -> dict:
+    """Layer 0's and layer 31's verify pass (float FFNs, k + 1 = 4 tokens,
+    the bf16 and the int8 pool) against 4 sequential decodes from the same
+    prefilled cache: the span insert and the attend with q_lens against the
+    decode insert and attend, within 2e-2 (absolute and relative, as the
+    layer 0 flash check: the outputs are bf16, whose step at |x| >= 4
+    exceeds 2e-2)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    toks = torch.randint(0, cfg.vocab, (2, 40), generator=gen, device=dev)
+    new = torch.randint(0, cfg.vocab, (2, SPAN_S), generator=gen, device=dev)
+    lens = torch.tensor([40, 17], dtype=torch.int32, device=dev)
+    errs = {}
+    for kv in ("bf16", "int8"):
+        c = cfg.replace(kv_cache=kv)
+        for layer in (0, cfg.n_layers - 1):
+            p, sig = params["blocks"][layer], lc.block_sig(cfg, layer)
+            x = embedding_lookup(params["embed"], toks, compute_dtype=lc.cdt(cfg))
+            _, cache = lc.block_prefill(p, x, c, sig, positions=torch.arange(40, device=dev),
+                                        max_len=64, seq_lens=lens)
+            cache["len"].copy_(lens)
+            seq = {n: a.clone() for n, a in cache.items()}
+            xs = embedding_lookup(params["embed"], new, compute_dtype=lc.cdt(cfg))
+            got, _ = lc.block_verify(p, xs, c, sig, cache)
+            want = torch.cat([lc.block_decode(p, xs[:, j:j + 1], c, sig, seq)[0]
+                              for j in range(SPAN_S)], dim=1)
+            err = float((got.float() - want.float()).abs().max())
+            errs[f"{kv} layer {layer}"] = err
+            if not torch.allclose(got.float(), want.float(), rtol=2e-2, atol=2e-2) or \
+                    not torch.equal(cache["len"], seq["len"]):
+                raise AssertionError(f"verify vs sequential decode, {kv} layer {layer}: {err}")
+    return errs
+
+
+def phase_spec(api, params, cfg, prompts, shared, plain, n_binary, card) -> dict:
+    """Full-width stablelm-3b with spec_k = 3 on five paths (bf16, int8,
+    binary contiguous greedy; paged int8 with the prefix cache on the
+    header prompts; int8 sampled at temperature 0.8), each wave one CUDA
+    graph replay: every request gets its 16 tokens in range, the exact
+    launches per wave, one draft launch a wave, a second run's tokens, the
+    eager waves' tokens, acceptance > 0 over the five paths; printed beside
+    them, not gated: the share of tokens equal to the plain graph path's,
+    the plain logits' top-2 gap at each request's first divergence,
+    acceptance and tok/s, and the draft's agreement with the target."""
+    dev = params["embed"]["table"].device
+    # the plain sampled int8 path the sampled spec path is held to
+    s_out, _, s_eng, s_launches, _ = _counted_run("int8 sampled", api, params, prompts,
+                                                  kv_cache="int8", temperature=0.8, seed=SEED)
+    _check_outputs("int8 sampled", s_out, cfg.vocab)
+    _check_path("int8 sampled", s_launches, s_eng, cfg, n_binary, "int8",
+                s_eng.stats["prefills"])
+    _check_replays("int8 sampled", s_eng)
+    s_out2, s_wall2, _ = _serve_once(api, params, prompts, kv_cache="int8", temperature=0.8,
+                                     seed=SEED)
+    if s_out2 != s_out:
+        raise AssertionError("int8 sampled: a second run gave other tokens")
+    plain = {**plain, "int8 sampled": s_out}
+    s_row = dict(path="int8 sampled", tokens=sum(len(o) for o in s_out),
+                 decode_steps=s_eng.stats["decode_steps"], wall_s=s_wall2,
+                 tok_per_s=sum(len(o) for o in s_out) / s_wall2, launches=s_launches)
+    log("serve_kv", **s_row)
+    rows = []
+    for label, kw, on_header, base in SPEC_PATHS:
+        batch = shared if on_header else prompts
+        kw = dict(kw, spec_k=SPEC_K)
+        out, wall, eng, launches, _ = _counted_run(label, api, params, batch,
+                                                   staged=on_header, **kw)
+        _check_outputs(label, out, cfg.vocab)
+        _check_spec_path(label, launches, eng, cfg, n_binary, kw.get("kv_cache", "bf16"),
+                         1 if kw.get("prefix_cache") else eng.stats["prefills"])
+        out2, wall2, _ = _serve_once(api, params, batch, staged=on_header, **kw)
+        if out2 != out:
+            raise AssertionError(f"{label}: a second run gave other tokens")
+        wall_eager = _eager_equal(label, out, api, params, batch, staged=on_header, **kw)
+        n_tok = sum(len(o) for o in out)
+        same = sum(a == b for o, w in zip(out, plain[base]) for a, b in zip(o, w)) / n_tok
+        row = dict(path=label, plain_path=base, spec_k=SPEC_K, tokens=n_tok,
+                   prefill_waves=eng.stats["prefills"], spec_waves=eng.stats["spec_waves"],
+                   spec_drafted=eng.stats["spec_drafted"],
+                   spec_accepted=eng.stats["spec_accepted"],
+                   acceptance=eng.acceptance_rate(),
+                   spec_draft_launches=eng.stats["spec_draft_launches"],
+                   graph_replays=eng.graph.replays, launches=launches,
+                   tokens_as_plain=same,
+                   top2_gap_at_divergence=(None if kw.get("temperature") else
+                                           _top2_gaps(api, params, batch, out, plain[base],
+                                                      dev)),
+                   wall_s_first=wall, wall_s=wall2, wall_s_eager=wall_eager,
+                   tok_per_s=n_tok / wall2, tok_per_s_eager=n_tok / wall_eager,
+                   cached_prompt_tokens=eng.stats["cached_prompt_tokens"])
+        log("spec", **row)
+        rows.append(row)
+    # random weights: the greedy draft may never agree with the target (a
+    # float FFN's draft output correlates ~0.17 with the target's, PERF.md),
+    # the sampled one does, from the same stream; tests/test_torch_cuda.py
+    # gates acceptance per path on a trained smoke LM
+    if not sum(r["spec_accepted"] for r in rows) > 0:
+        raise AssertionError(f"no draft token accepted on any spec path: {rows}")
+    errs = _verify_vs_decode(params, cfg, dev)
+    log("spec_verify", card=card, verify_vs_sequential_decode=errs)
+    return {"paths": rows, "plain_sampled": s_row, "verify_vs_decode": errs}
 
 
 # ---------------------------------------------------------------------------
@@ -727,13 +1065,13 @@ def _random_leaves(kv, nb, t, dev, gen) -> dict:
     return dict(zip(kvq.leaf_names(kv), (codes(), scales(), codes(), scales())))
 
 
-def _insert_table(dev, gen):
+def _insert_table(dev, gen, span: int = 1):
     """A paged layer's table for DECODE_LENS (block 16): each slot but the
-    free one holds its pages up to the one its next token lands on, in
-    shuffled blocks, holes past them; the slot at len 256 has every page,
-    so its token lands past the table. -> (table, n_blocks)."""
+    free one holds its pages up to the one its last token of ``span`` lands
+    on, in shuffled blocks, holes past them; the slot at len 256 has every
+    page, so its tokens land past the table. -> (table, n_blocks)."""
     n_pages = DECODE_T // PAGE
-    used = [0 if i == FREE_SLOT else min(n // PAGE + 1, n_pages)
+    used = [0 if i == FREE_SLOT else min((n + span - 1) // PAGE + 1, n_pages)
             for i, n in enumerate(DECODE_LENS)]
     n_blocks = sum(used) + 4
     perm = torch.randperm(n_blocks, generator=gen, device=dev).tolist()
@@ -752,7 +1090,7 @@ def _insert_before(kv, leaves, k, v, lens, table):
     (kc, ks), (vc, vs) = quant(k), quant(v)
     new = dict(zip(kvq.leaf_names(kv), (kc, ks, vc, vs)))
     if table is None:
-        kvq.write_timestep(leaves, new, lens)
+        kvq.write_span(leaves, new, lens)
     else:
         kvq.write_paged(leaves, new, lens, table)
     return lens + 1
@@ -847,6 +1185,7 @@ def phase_kv_insert(dev, gen, timer) -> dict[str, list]:
                                       written["contiguous"][name][i, n]):
                         raise AssertionError(f"kv_insert: paged differs from contiguous at "
                                              f"{kv}, slot {i}, {name}")
+        rows[kname] += _span_insert(kv, lens, dev, gen, timer)
         for dt in (torch.bfloat16, torch.float32):
             label = f"{kv}, prefill encode ({DECODE_B}, {PREFILL_S} -> {DECODE_T}, " \
                     f"{INSERT_H}, {INSERT_D}), {str(dt).split('.')[-1]}"
@@ -873,6 +1212,82 @@ def phase_kv_insert(dev, gen, timer) -> dict[str, list]:
             log(kname, **row)
             rows[kname].append(row)
     return rows
+
+
+SPAN_S = 4            # the speculative verify's span at spec_k = 3
+
+
+def _span_insert(kv, lens, dev, gen, timer) -> list[dict]:
+    """The insert kernel's span mode (the verify's write of k + 1 = 4
+    tokens a slot) at the serving shape against its plain version, bit for
+    bit, on the contiguous pool (the start clamped to T - S) and a paged
+    pool whose slots hold pages up to their span's last token (the slot at
+    len 256 runs past the table, the free slot meets holes): every other
+    byte unchanged, a second call the same, the paged rows the contiguous
+    ones where both address a row; timed beside the plain version and the
+    byte bound."""
+    names = kvq.leaf_names(kv)
+    table, n_blocks = _insert_table(dev, gen, span=SPAN_S)
+    k, v = (torch.randn(DECODE_B, SPAN_S, INSERT_H, INSERT_D, generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    pools = {"contiguous": (_random_leaves(kv, DECODE_B, DECODE_T, dev, gen), None),
+             "paged": (_random_leaves(kv, n_blocks + 1, PAGE, dev, gen), table)}
+    out, written = [], {}
+    n_rows = DECODE_B * SPAN_S * INSERT_H
+    for pool, (start, tab) in pools.items():
+        label = f"{kv}, {pool} span insert (S {SPAN_S})"
+        got, again, want = ({n: a.clone() for n, a in start.items()} for _ in range(3))
+        got_lens = kvq.kv_insert(kv, got, k, v, lens, table=tab)
+        kvq.kv_insert(kv, again, k, v, lens, table=tab)
+        want_lens = kvq.kv_insert_plain(kv, want, k, v, lens, table=tab)
+        torch.cuda.synchronize()
+        cut = slice(None) if tab is None else slice(0, -1)
+        for n in names:
+            if not (_same_bits(got[n][cut], want[n][cut]) and
+                    _same_bits(again[n][cut], want[n][cut])):
+                raise AssertionError(f"kv_insert differs from plain at {label}, {n}")
+        if not (torch.equal(got_lens, want_lens) and
+                got_lens.tolist() == [n + SPAN_S for n in DECODE_LENS]):
+            raise AssertionError(f"kv_insert's lengths differ at {label}")
+        mask = torch.zeros(start[names[1]].shape[:2], dtype=torch.bool, device=dev)
+        at = {}
+        for i, n in enumerate(DECODE_LENS):
+            for j in range(SPAN_S):
+                if tab is None:
+                    mask[i, min(n, DECODE_T - SPAN_S) + j] = True
+                    at[i, n + j] = (i, min(n, DECODE_T - SPAN_S) + j)
+                else:
+                    p = n + j
+                    blk = int(tab[i, p // PAGE]) if p // PAGE < tab.shape[1] else n_blocks
+                    mask[min(blk, n_blocks), p % PAGE] = True
+                    if blk < n_blocks:
+                        at[i, p] = (blk, p % PAGE)
+        for n in names:
+            if not _same_bits(got[n][~mask], start[n][~mask]):
+                raise AssertionError(f"kv_insert wrote outside its rows at {label}, {n}")
+        written[pool] = (got, at)
+        work, work_plain = ({n: a.clone() for n, a in start.items()} for _ in range(2))
+        ms = timer(lambda: kvq.kv_insert(kv, work, k, v, lens, table=tab))
+        plain_ms = timer(lambda: kvq.kv_insert_plain(kv, work_plain, k, v, lens, table=tab),
+                         reps=10)
+        nbytes, ops = _insert_bytes_ops(kv, n_rows, INSERT_D, 2, n_rows)
+        nbytes += 8 * DECODE_B + (4 * DECODE_B * tab.shape[1] if tab is not None else 0)
+        b_ms, b_by = bound(nbytes, ops, F32_FLOPS)
+        row = dict(case=label, B=DECODE_B, S=SPAN_S, T=DECODE_T, Hkv=INSERT_H, D=INSERT_D,
+                   dtype="bfloat16", lens=DECODE_LENS, page=PAGE if tab is not None else None,
+                   max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=None, library_call=NO_YARDSTICK)
+        log(f"kv_quant_{kv}", **row)
+        out.append(row)
+    (cg, cat_), (pg, pat) = written["contiguous"], written["paged"]
+    for (i, p), (blk, off) in pat.items():       # the same rows on both pools
+        if DECODE_LENS[i] + SPAN_S <= DECODE_T:          # not clamped on the contiguous pool
+            ci, ct = cat_[i, p]
+            for n in names:
+                if not _same_bits(pg[n][blk, off], cg[n][ci, ct]):
+                    raise AssertionError(f"span insert: paged differs from contiguous at "
+                                         f"{kv}, slot {i}, position {p}, {n}")
+    return out
 
 
 def phase_kvquant(dev, gen, timer) -> dict[str, list]:
@@ -1052,7 +1467,77 @@ def phase_kv_decode(dev, gen, timer) -> dict[str, list]:
                 rows[f"kv_decode_{kv}"].append(row)
             if not _same_bits(outs["contiguous"], outs["paged"]):
                 raise AssertionError(f"kv_decode: paged differs from contiguous at {kv}, {name}")
+    for kv in ("int8", "binary"):
+        rows[f"kv_decode_{kv}"] += _decode_q_lens(kv, dev, gen, timer)
     return rows
+
+
+def _decode_q_lens(kv, dev, gen, timer) -> list[dict]:
+    """kv_decode with the verify's per-query lengths at the serving shape
+    (B 8, S 4, 32 heads of 80, bf16 q; query j of slot b below min(lens[b]
+    + j + 1, T), so the free slot's queries see its first positions) on the
+    contiguous and the paged pool: within 2e-2 of the plain version, the
+    same bits on a second call and on both pools, one launch (G S = 4 rows);
+    timed beside the plain recurrence, the byte bound and, as context, SDPA
+    over a bf16 cache with the same per-query masks."""
+    hq = hkv = INSERT_H
+    d = INSERT_D
+    lens_t = torch.tensor(DECODE_LENS, dtype=torch.int32, device=dev)
+    q_lens = torch.clamp(lens_t[:, None] + torch.arange(1, SPAN_S + 1, device=dev)[None],
+                         max=DECODE_T).to(torch.int32)
+    q = torch.randn(DECODE_B, SPAN_S, hq, d, generator=gen, device=dev).to(torch.bfloat16)
+    wrapper = getattr(kvd, f"kv_decode_{kv}")
+    plain = getattr(kvd, f"kv_decode_{kv}_plain")
+    extra = () if kv == "int8" else (d,)
+    visible = [min(n + SPAN_S, DECODE_T) for n in DECODE_LENS]
+    cont, paged, table = _decode_pools(kv, hkv, d, visible, dev, gen)
+    sdpa_q = torch.randn(DECODE_B, hq, SPAN_S, d, generator=gen, device=dev).to(torch.bfloat16)
+    sdpa_k, sdpa_v = (torch.randn(DECODE_B, hkv, DECODE_T, d, generator=gen, device=dev)
+                      .to(torch.bfloat16) for _ in range(2))
+    cols = torch.arange(DECODE_T, device=dev)
+    mask = (cols[None, None, :] < q_lens[:, :, None])[:, None]        # (B, 1, S, T)
+    ctx_ms = timer(lambda: F.scaled_dot_product_attention(sdpa_q, sdpa_k, sdpa_v,
+                                                          attn_mask=mask))
+    out, outs = [], {}
+    for pool, leaves, tab in (("contiguous", cont, None), ("paged", paged, table)):
+        label = f"{kv}, {pool}, verify (8, {SPAN_S}, 32, 80), bf16 q, q_lens"
+        before = wrapper.launches
+        call = lambda: wrapper(q, *leaves, lens_t, *extra, table=tab, q_lens=q_lens)  # noqa: E731
+        got, again = call(), call()
+        want = plain(q, *leaves, lens_t, *extra, table=tab, q_lens=q_lens)
+        torch.cuda.synchronize()
+        if wrapper.launches != before + 2:
+            raise AssertionError(f"kv_decode with q_lens: {wrapper.launches - before} "
+                                 f"launches for 2 calls at {label}")
+        if not _same_bits(got, again):
+            raise AssertionError(f"kv_decode: a second call differs at {label}")
+        err = float((got.float() - want.float()).abs().max())
+        if not err <= DECODE_TOL[torch.bfloat16]:
+            raise AssertionError(f"kv_decode vs plain at {label}: {err}")
+        outs[pool] = got
+        ms = timer(call)
+        plain_ms = timer(lambda: plain(q, *leaves, lens_t, *extra, table=tab, q_lens=q_lens),
+                         reps=10)
+        row_b = d + 2 if kv == "int8" else 4 * packed_len(d) + 2
+        nbytes = (2 * sum(visible) * hkv * row_b + 2 * q.numel() * q.element_size()
+                  + 4 * DECODE_B * (1 + SPAN_S)
+                  + (4 * sum(-(-n // PAGE) for n in visible) if tab is not None else 0))
+        flops = 4.0 * hq * d * int(q_lens.sum())
+        b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+        row = dict(case=f"{pool}, verify S {SPAN_S} with q_lens, bf16 q", codec=kv, pool=pool,
+                   B=DECODE_B, S=SPAN_S, T=DECODE_T, Hq=hq, Hkv=hkv, D=d, q_dtype="bfloat16",
+                   lens=DECODE_LENS, page=PAGE if tab is not None else None,
+                   max_abs_err=err, tol=DECODE_TOL[torch.bfloat16], ms=ms, plain_ms=plain_ms,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                   library_call="none: no single PyTorch call dequantizes and attends",
+                   context_sdpa_bf16_ms=ctx_ms,
+                   context_call="scaled_dot_product_attention(attn_mask=bool (B, 1, S, T)) "
+                                "over a bf16 cache with the same per-query lengths")
+        log("kv_decode", **row)
+        out.append(row)
+    if not _same_bits(outs["contiguous"], outs["paged"]):
+        raise AssertionError(f"kv_decode with q_lens: paged differs from contiguous at {kv}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1068,6 +1553,7 @@ XNOR_CASES = [  # (name, M, N, K)
     ("ragged K 100", 32, 48, 100),
     ("K 384, Kp 12", 64, 64, 384),
     ("spec draft bin_in", 8, 6912, 2560),
+    ("spec draft w_down", 8, 2560, 6912),
 ]
 
 
@@ -1492,9 +1978,12 @@ def main() -> int:
     mnist = phase_mnist(dev, smi)
 
     # launches on every path: the serving paths (bf16, int8, binary, paged
-    # int8 with the prefix cache) and the MNIST net, each counted from 0
+    # int8 with the prefix cache, int8 sampled), the speculative paths and
+    # the MNIST net, each counted from 0
     path_launches = [serve["launches"], mnist["launches"],
-                     *(p["launches"] for p in serve["paths"])]
+                     *(p["launches"] for p in serve["paths"]),
+                     serve["spec"]["plain_sampled"]["launches"],
+                     *(p["launches"] for p in serve["spec"]["paths"])]
 
     def entry(kname, source, replaces, rows):
         # the headline case is the first: decode bin_in, full-length flash,

@@ -8,8 +8,8 @@
 // they run, as XLA twins that XLA fuses into the block load, inside
 // repro/serving/kvcache.py:282 _fused_quant_decode (contiguous pool, a scan
 // over kv blocks) and :696 paged_decode_attention (paged pool, a scan over
-// the block table). This kernel computes what those two functions compute
-// for q_lens=None:
+// the block table). This kernel computes what those two functions compute,
+// with and without the speculative verify's per-query lengths (q_lens):
 //
 //   q (B, S, Hq, D) bf16 or f32. Leaves, int8: k_q / v_q (.., Hkv, D) int8
 //   and k_s / v_s (.., Hkv) bf16; binary: k_p / v_p (.., Hkv, Kp) 32-bit
@@ -21,10 +21,11 @@
 //   Key / value of (t, kv head h): int8 f32(code) * f32(scale) (B4b);
 //   binary +-f32(scale) from the first D bits (B4d).
 //   Query row (b, s, hq) attends with `scale` to kv head hq / G at the
-//   positions t < L = min(len[b], tmax) (tmax = T, or n_pages * bs), with
-//   an online softmax in f32; out (B, S, Hq, D) in q's type. Every query of
-//   a slot shares len[b]. A slot with L = 0 (a free slot) is written as
-//   zeros.
+//   positions t < L = min(len[b], tmax) (tmax = T, or n_pages * bs), or,
+//   given q_lens (B, S) int32, t < min(q_lens[b, s], tmax), with an online
+//   softmax in f32; out (B, S, Hq, D) in q's type. Without q_lens every
+//   query of a slot shares len[b]. A row with no position (L = 0: a free
+//   slot) is written as zeros.
 //
 // What bounds it on an H100: launch latency, then bytes. At the serving
 // shape (B 8, Hkv = Hq = 32, D 80, T 256) one launch reads at most
@@ -33,10 +34,12 @@
 // 4 D flops per (query, key) pair: nothing for the CUDA cores. A launch
 // costs ~5 us, and each chain of dependent loads from device memory ~1 us.
 //
-// Design: one launch per layer and decode step covers K and V, every slot
-// and every head. The grid (Hkv, B) follows from shapes alone; len and the
-// table are read on the device, so the launch needs no host sync and a
-// CUDA graph can capture it. One block of 8 warps per (slot, kv head)
+// Design: one launch per layer and decode step (or verify pass) covers K
+// and V, every slot and every head. The grid (Hkv, B) follows from shapes
+// alone; len, q_lens and the table are read on the device, so the launch
+// needs no host sync and a CUDA graph can capture it. Each query row has
+// its own limit (in shared memory); a row whose limit lies before a chunk
+// takes nothing from it. One block of 8 warps per (slot, kv head)
 // stages its G * S query rows in shared memory as f32; at G * S = 1 it is
 // held to 128 registers a thread, so two blocks share an SM and the
 // serving shape's 256 blocks run in one wave on 132 SMs. Warp w takes the
@@ -90,6 +93,7 @@ struct Args {
   const void* vc;
   const unsigned short* vs;
   const int32_t* lens;
+  const int32_t* q_lens;               // null: every row attends below len[b]
   const int32_t* table;                // null: contiguous leaves
   void* out;
   int S, Hq, Hkv, D;
@@ -165,8 +169,10 @@ __device__ __forceinline__ void load_chunk(const Args& a, int b, int h, int c, i
 }
 
 // R: query rows (G * S) the block is built for, at least the real count
-// (R 4 and 8 would spill at 128 registers)
-template <int CODEC, int R>
+// (R 4 and 8 would spill at 128 registers). QL: per-query lengths; without
+// them the kernel is the decode step's, every row below len[b], with no
+// per-row test left in it.
+template <int CODEC, int R, bool QL>
 __global__ void __launch_bounds__(THREADS, R == 1 ? 2 : 1)
 kv_decode_kernel(const Args a) {
   __shared__ __align__(16) float qs[R][DMAX];      // zero past D
@@ -178,7 +184,20 @@ kv_decode_kernel(const Args a) {
   const int h = blockIdx.x, b = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int D = a.D, G = a.Hq / a.Hkv, rows = G * a.S;
-  const int L = min(max(__ldg(a.lens + b), 0), a.tmax);
+  // Lr[r]: with QL, the positions query row r (= s G + g) attends to, in
+  // shared memory (registers are the scarce resource at R 8); L, the
+  // block's largest, bounds the chunks it loads
+  __shared__ int Lr[R];
+  int L = min(max(__ldg(a.lens + b), 0), a.tmax);
+  if (QL) {
+    L = 0;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int lim = r < rows ? min(max(__ldg(a.q_lens + b * a.S + r / G), 0), a.tmax) : 0;
+      if (threadIdx.x == 0) Lr[r] = lim;
+      L = max(L, lim);
+    }
+  }
 
   // the warp's first chunk is loaded while the query rows are staged
   Chunk ch;
@@ -216,7 +235,6 @@ kv_decode_kernel(const Args a) {
 
   for (int c = warp; c * CHUNK < L; c += WARPS) {
     const int t0 = c * CHUNK;
-    const bool valid = t0 + lane < L;
 
     // scores
     float sc[R];
@@ -243,7 +261,8 @@ kv_decode_kernel(const Args a) {
         }
       }
 #pragma unroll
-      for (int r = 0; r < R; ++r) sc[r] = valid ? sc[r] * ch.ksc * a.scale : -INFINITY;
+      for (int r = 0; r < R; ++r)
+        sc[r] = t0 + lane < (QL ? Lr[r] : L) ? sc[r] * ch.ksc * a.scale : -INFINITY;
     } else {
 #pragma unroll
       for (int w = 0; w < DMAX / 32; ++w) {
@@ -263,19 +282,26 @@ kv_decode_kernel(const Args a) {
       }
 #pragma unroll
       for (int r = 0; r < R; ++r)
-        sc[r] = valid ? ch.ksc * (2.f * sc[r] - qsum[r]) * a.scale : -INFINITY;
+        sc[r] = t0 + lane < (QL ? Lr[r] : L) ? ch.ksc * (2.f * sc[r] - qsum[r]) * a.scale
+                                              : -INFINITY;
     }
 
-    // online softmax over the chunk, per query row
+    // online softmax over the chunk, per query row; a row whose limit lies
+    // at or before the chunk (t0 >= Lr[r], possible with q_lens) takes
+    // nothing from it
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       if (r >= rows) break;
+      if (QL && t0 >= Lr[r]) {                        // the same for the whole warp
+        pw[warp][r][lane] = 0.f;
+        continue;
+      }
       float cm = sc[r];
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) cm = fmaxf(cm, __shfl_xor_sync(FULL, cm, off));
       const float mn = fmaxf(m[r], cm);               // finite: lane 0 is valid
-      const float alpha = expf(m[r] - mn);            // 0 on the first chunk
-      const float p = valid ? expf(sc[r] - mn) : 0.f;
+      const float alpha = expf(m[r] - mn);            // 0 on the row's first chunk
+      const float p = t0 + lane < (QL ? Lr[r] : L) ? expf(sc[r] - mn) : 0.f;
       float ps = p;
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) ps += __shfl_xor_sync(FULL, ps, off);
@@ -346,22 +372,25 @@ kv_decode_kernel(const Args a) {
 
 template <int CODEC, int R>
 int launch(const Args& a, int B, cudaStream_t st) {
-  kv_decode_kernel<CODEC, R><<<dim3(a.Hkv, B), THREADS, 0, st>>>(a);
+  if (a.q_lens != nullptr)
+    kv_decode_kernel<CODEC, R, true><<<dim3(a.Hkv, B), THREADS, 0, st>>>(a);
+  else
+    kv_decode_kernel<CODEC, R, false><<<dim3(a.Hkv, B), THREADS, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <int CODEC>
 int dispatch(const void* q, int q_bf16, const void* kc, const void* ks, const void* vc,
-             const void* vs, const void* lens, const void* table, void* out, int B, int S,
-             int Hq, int Hkv, int D, int tmax, int bs, int n_pages, int last_block,
-             float scale, void* stream) {
+             const void* vs, const void* lens, const void* q_lens, const void* table,
+             void* out, int B, int S, int Hq, int Hkv, int D, int tmax, int bs, int n_pages,
+             int last_block, float scale, void* stream) {
   if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv || D <= 0 || D > DMAX || tmax < 0 ||
       bs <= 0 || (CODEC == INT8 && D % 16) || (table && (n_pages <= 0 || last_block < 0)))
     return (int)cudaErrorInvalidValue;
   Args a{q, kc, static_cast<const unsigned short*>(ks), vc,
          static_cast<const unsigned short*>(vs), static_cast<const int32_t*>(lens),
-         static_cast<const int32_t*>(table), out, S, Hq, Hkv, D, tmax, bs, n_pages,
-         last_block, q_bf16, scale};
+         static_cast<const int32_t*>(q_lens), static_cast<const int32_t*>(table), out, S,
+         Hq, Hkv, D, tmax, bs, n_pages, last_block, q_bf16, scale};
   cudaStream_t st = (cudaStream_t)stream;
   const int rows = Hq / Hkv * S;
   if (rows <= 1) return launch<CODEC, 1>(a, B, st);
@@ -375,25 +404,29 @@ int dispatch(const void* q, int q_bf16, const void* kc, const void* ks, const vo
 // Contiguous device buffers: q and out (B, S, Hq, D), bf16 (q_bf16 != 0) or
 // f32; kc / vc the codes (int8 (.., Hkv, D), 16-byte aligned, D % 16 == 0;
 // or 32-bit words (.., Hkv, ceil(D / 32))); ks / vs (.., Hkv) bf16; lens
-// (B,) int32. Contiguous leaves: (B, tmax, Hkv, .), table null, bs = tmax.
+// (B,) int32; q_lens null, or (B, S) int32 per-query lengths (each row then
+// attends below its own, len is not read). Contiguous leaves: (B, tmax,
+// Hkv, .), table null, bs = tmax.
 // Paged leaves: (last_block + 1, bs, Hkv, .), table (B, n_pages) int32,
 // tmax = n_pages * bs. G * S <= 8, D <= 128. Each launches on `stream` and
 // returns cudaGetLastError() (0 = launched).
 
 extern "C" int kv_decode_int8_launch(const void* q, const void* kc, const void* ks,
                                      const void* vc, const void* vs, const void* lens,
-                                     const void* table, void* out, int q_bf16, int B, int S,
-                                     int Hq, int Hkv, int D, int tmax, int bs, int n_pages,
-                                     int last_block, float scale, void* stream) {
-  return dispatch<INT8>(q, q_bf16, kc, ks, vc, vs, lens, table, out, B, S, Hq, Hkv, D, tmax,
-                        bs, n_pages, last_block, scale, stream);
+                                     const void* q_lens, const void* table, void* out,
+                                     int q_bf16, int B, int S, int Hq, int Hkv, int D,
+                                     int tmax, int bs, int n_pages, int last_block, float scale,
+                                     void* stream) {
+  return dispatch<INT8>(q, q_bf16, kc, ks, vc, vs, lens, q_lens, table, out, B, S, Hq, Hkv, D,
+                        tmax, bs, n_pages, last_block, scale, stream);
 }
 
 extern "C" int kv_decode_binary_launch(const void* q, const void* kc, const void* ks,
                                        const void* vc, const void* vs, const void* lens,
-                                       const void* table, void* out, int q_bf16, int B, int S,
-                                       int Hq, int Hkv, int D, int tmax, int bs, int n_pages,
-                                       int last_block, float scale, void* stream) {
-  return dispatch<BINARY>(q, q_bf16, kc, ks, vc, vs, lens, table, out, B, S, Hq, Hkv, D,
-                          tmax, bs, n_pages, last_block, scale, stream);
+                                       const void* q_lens, const void* table, void* out,
+                                       int q_bf16, int B, int S, int Hq, int Hkv, int D,
+                                       int tmax, int bs, int n_pages, int last_block,
+                                       float scale, void* stream) {
+  return dispatch<BINARY>(q, q_bf16, kc, ks, vc, vs, lens, q_lens, table, out, B, S, Hq, Hkv,
+                          D, tmax, bs, n_pages, last_block, scale, stream);
 }

@@ -25,20 +25,23 @@
 // straight to where the cache keeps them, in one of four modes:
 //
 //   (a) rows        x (N, D) -> codes (N, W), scales (N,)
-//   (b) contiguous  x (B, 1, H, D); row (b, h) lands at time
-//       decode insert   min(len[b], T - 1) of the (B, T, H, .) leaves
-//   (c) paged       x (B, 1, H, D); row (b, h) lands at block
-//       decode insert   min(table[b, len[b] / bs], n_blocks), row len[b] % bs
-//                   of the (n_blocks + 1, bs, H, .) leaves: a hole, a free
-//                   slot or a page past the table's n_pages writes the spare
-//                   block n_blocks (repro drops those writes)
+//   (b) contiguous  x (B, S, H, D); row (b, s, h) lands at time
+//       insert      min(len[b], T - S) + s of the (B, T, H, .) leaves (the
+//                   start clamped as dynamic_update_slice clamps it)
+//   (c) paged       x (B, S, H, D); row (b, s, h), position p = len[b] + s,
+//       insert      lands at block min(table[b, p / bs], n_blocks), row
+//                   p % bs of the (n_blocks + 1, bs, H, .) leaves: a hole, a
+//                   free slot or a page past the table's n_pages writes the
+//                   spare block n_blocks (repro drops those writes)
 //   (d) prefill     x (B, S, H, D) -> leaves (B, T, H, .) with T >= S,
 //                   written whole: zero codes and zero scales at t >= S
 //
-// with W = D int8 codes, or ceil(D / 32) 32-bit sign words. len and the
-// table are read on the device, so no launch waits on the host. In (b) and
-// (c) one block also writes len + 1 into a separate output (never into len,
-// which other blocks of the launch read).
+// with W = D int8 codes, or ceil(D / 32) 32-bit sign words. S is 1 for a
+// decode step's insert and k + 1 for the speculative verify's span. len and
+// the table are read on the device, so no launch waits on the host and a
+// CUDA graph can capture it. In (b) and (c) one block also writes len + S
+// into a separate output (never into len, which other blocks of the launch
+// read).
 //
 // What bounds it on an H100: its least time is bytes. At the serving
 // path's prefill (B 8, S 128 into T 256, 32 heads of 80, bf16) one launch
@@ -106,8 +109,9 @@ struct EncodeArgs {
 // Leaf row (.., H) that row (b, s, h) of the grid writes.
 __device__ __forceinline__ size_t dst_row(const EncodeArgs& a, int b, int s, int h) {
   if (a.lens == nullptr) return ((size_t)b * a.T + s) * a.H + h;
-  const int pos = max(__ldg(a.lens + b), 0);
-  if (a.table == nullptr) return ((size_t)b * a.T + min(pos, a.T - 1)) * a.H + h;
+  const int len = max(__ldg(a.lens + b), 0);
+  if (a.table == nullptr) return ((size_t)b * a.T + min(len, a.T - a.S) + s) * a.H + h;
+  const int pos = len + s;
   const int page = pos / a.T;
   int phys = page < a.n_pages ? __ldg(a.table + (size_t)b * a.n_pages + page) : a.n_blocks;
   phys = min(max(phys, 0), a.n_blocks);
@@ -269,7 +273,7 @@ kv_encode_kernel(const EncodeArgs a) {
   const bool live = n < a.N;                     // rows past N only shuffle
 
   if (a.lens_out != nullptr && blockIdx.x == 0 && plane == 0)
-    for (int b = threadIdx.x; b < a.B; b += THREADS) a.lens_out[b] = __ldg(a.lens + b) + 1;
+    for (int b = threadIdx.x; b < a.B; b += THREADS) a.lens_out[b] = __ldg(a.lens + b) + a.S;
 
   int b = 0, s = 0, h = 0;
   size_t dst = 0;
@@ -340,11 +344,12 @@ void launch_encode(const EncodeArgs& a, int planes, cudaStream_t st) {
 // plane). ck / cv: int8 (.., H, D) or 32-bit word (.., H, ceil(D / 32))
 // leaves, sk / sv bf16 (.., H) scales, all contiguous. Modes: lens null,
 // rows (b, s < S_out, h) to leaf time s of T (S_out = T; (a) is B = N,
-// S = S_out = T = H = 1); lens non-null (S = S_out = 1), at len[b]
-// through the table if it is non-null (T = bs, table (B, n_pages), block
-// ids clamped to n_blocks, pages past n_pages to block n_blocks), else
-// clamped to T - 1 (leaves (B, T, ..)), and lens_out (B,), if non-null,
-// gets len + 1. 1 <= D <= 256; S may be 0 (every row a zero row).
+// S = S_out = T = H = 1); lens non-null (S = S_out >= 1), row (b, s, h)
+// at position len[b] + s through the table if it is non-null (T = bs,
+// table (B, n_pages), block ids clamped to n_blocks, pages past n_pages to
+// block n_blocks), else at min(len[b], T - S) + s (leaves (B, T, ..),
+// T >= S), and lens_out (B,), if non-null, gets len + S. 1 <= D <= 256;
+// S may be 0 without lens (every row a zero row).
 extern "C" int kv_encode_launch(int codec, int x_bf16, const void* xk, const void* xv,
                                 void* ck, void* cv, void* sk, void* sv, const void* lens,
                                 const void* table, void* lens_out, int B, int S, int S_out,
@@ -352,7 +357,8 @@ extern "C" int kv_encode_launch(int codec, int x_bf16, const void* xk, const voi
                                 void* stream) {
   if (B <= 0 || S < 0 || S_out <= 0 || S_out < S || H <= 0 || D <= 0 || D > DMAX || T <= 0 ||
       (codec != INT8 && codec != BINARY) || (lens_out != nullptr && lens == nullptr) ||
-      (table != nullptr && (lens == nullptr || n_pages <= 0 || n_blocks < 0)))
+      (table != nullptr && (lens == nullptr || n_pages <= 0 || n_blocks < 0)) ||
+      (lens != nullptr && (S < 1 || S_out != S || (table == nullptr && T < S))))
     return (int)cudaErrorInvalidValue;
   const long long n = (long long)B * S_out * H;
   if (n >= (1LL << 31) - ROWS) return (int)cudaErrorInvalidValue;

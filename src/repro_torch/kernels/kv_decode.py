@@ -1,10 +1,11 @@
 """Dequant-fused decode attention over the int8 and binary KV caches.
 
 The port of repro's ``_fused_quant_decode`` and ``paged_decode_attention``
-(repro/serving/kvcache.py:282, :696) for the int8 and binary codecs, without
-the speculative verify's ``q_lens`` (ROADMAP A5): single-step attention of
-q (B, S, Hq, D) over an encoded cache, every query of a slot attending to
-the positions below its ``len``, in f32, with the output in q's dtype.
+(repro/serving/kvcache.py:282, :696) for the int8 and binary codecs:
+single-step attention of q (B, S, Hq, D) over an encoded cache, in f32,
+with the output in q's dtype. Every query of a slot attends to the
+positions below its ``len``, or, given the speculative verify's ``q_lens``
+(B, S) int32, query j of slot b to the positions below q_lens[b, j].
 
   contiguous  leaves (B, T, Hkv, .) and ``lens`` (B,)
   paged       leaves (n_blocks + 1, bs, Hkv, .) and ``table`` (B, n_pages)
@@ -18,7 +19,9 @@ block load. ``kv_decode_int8`` and ``kv_decode_binary`` run, for CUDA
 tensors, the kernel in ``csrc/kv_decode.cu``: one launch per call for K and
 V, every slot and head, dequantizing in registers and reading only the
 positions below len (on the paged pool it walks the table itself; nothing
-is gathered). What bounds it and how it is laid out is noted at the top of
+is gathered). The kernel holds at most ``MAX_ROWS`` query rows (G * S) per
+kv head; above that the wrapper cuts the S axis into chunks of at most
+MAX_ROWS // G queries, one launch each. What bounds it and how it is laid out is noted at the top of
 that file. For CPU tensors they run their plain versions, the reference's
 recurrence (``fused_decode_plain``); for CUDA tensors they launch the kernel
 or raise. ``<wrapper>.launches`` counts kernel launches.
@@ -58,15 +61,17 @@ def gather_pages(leaf: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:
 
 def fused_decode_plain(q: torch.Tensor, leaves: dict, lens: torch.Tensor, dequant, *,
                        table: torch.Tensor | None = None, scale: float | None = None,
-                       kv_block: int = 128) -> torch.Tensor:
+                       kv_block: int = 128, q_lens: torch.Tensor | None = None) -> torch.Tensor:
     """Single-query attention over encoded leaves without materializing
     them: a loop over kv blocks dequantizes one (B, kb, Hkv, D) tile per
     step (``dequant``: a dict of the block's leaves -> (k, v)) into the
     (num, den, max) recurrence. A ragged final block starts at T - kb and
     masks the columns the block before it consumed. With ``table`` the
     leaves are a paged pool: every page of every slot is gathered first
-    (holes clamp to the leaf's last block). Returns (B, S, Hq, D) in q's
-    dtype."""
+    (holes clamp to the leaf's last block). ``q_lens`` (B, S), optional:
+    query j of slot b attends to the columns below q_lens[b, j] instead of
+    every query below lens[b] (repro's ``valid`` with q_lens). Returns
+    (B, S, Hq, D) in q's dtype."""
     if table is not None:
         last = next(iter(leaves.values())).shape[0] - 1
         pages = torch.clamp(table, 0, last)
@@ -76,7 +81,10 @@ def fused_decode_plain(q: torch.Tensor, leaves: dict, lens: torch.Tensor, dequan
     t, hkv = first.shape[1], first.shape[2]
     g = hq // hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    kv_len = torch.clamp(lens.to(torch.int32), max=t)
+    if q_lens is None:
+        lim = torch.clamp(lens.to(torch.int32), max=t)[:, None, None]      # (B, 1, 1)
+    else:
+        lim = torch.clamp(q_lens.to(torch.int32), max=t)[:, :, None]      # (B, S, 1)
     kb = min(kv_block, t)
     qg = q.reshape(b, s, hkv, g, d).to(torch.float32)
     num = q.new_zeros((b, hkv, g, s, d), dtype=torch.float32)
@@ -87,8 +95,8 @@ def fused_decode_plain(q: torch.Tensor, leaves: dict, lens: torch.Tensor, dequan
         k_blk, v_blk = dequant({name: leaf[:, start:start + kb] for name, leaf in leaves.items()})
         sij = torch.einsum("bshgd,bkhd->bhgsk", qg, k_blk.to(torch.float32)) * scale
         cols = start + torch.arange(kb, device=q.device)
-        valid = (cols >= jk * kb)[None, :] & (cols[None, :] < kv_len[:, None])
-        sij = torch.where(valid[:, None, None, None, :], sij, NEG_INF)
+        valid = (cols >= jk * kb)[None, None, :] & (cols[None, None, :] < lim)   # (B, ., kb)
+        sij = torch.where(valid[:, None, None, :, :], sij, NEG_INF)
         m_cur = torch.maximum(m_prev, sij.amax(dim=-1))
         p = torch.exp(sij - m_cur[..., None])
         alpha = torch.exp(m_prev - m_cur)
@@ -106,17 +114,21 @@ def _int8_block(blk: dict):
             kvq.kv_dequant_int8_plain(blk["v_q"], blk["v_s"], torch.float32))
 
 
-def kv_decode_int8_plain(q, k_q, k_s, v_q, v_s, lens, *, table=None, scale=None):
+def kv_decode_int8_plain(q, k_q, k_s, v_q, v_s, lens, *, table=None, scale=None,
+                         q_lens=None):
     leaves = {"k_q": k_q, "k_s": k_s, "v_q": v_q, "v_s": v_s}
-    return fused_decode_plain(q, leaves, lens, _int8_block, table=table, scale=scale)
+    return fused_decode_plain(q, leaves, lens, _int8_block, table=table, scale=scale,
+                              q_lens=q_lens)
 
 
-def kv_decode_binary_plain(q, k_p, k_s, v_p, v_s, lens, d: int, *, table=None, scale=None):
+def kv_decode_binary_plain(q, k_p, k_s, v_p, v_s, lens, d: int, *, table=None, scale=None,
+                           q_lens=None):
     def block(blk):
         return (kvq.kv_dequant_binary_plain(blk["k_p"], blk["k_s"], d, torch.float32),
                 kvq.kv_dequant_binary_plain(blk["v_p"], blk["v_s"], d, torch.float32))
     leaves = {"k_p": k_p, "k_s": k_s, "v_p": v_p, "v_s": v_s}
-    return fused_decode_plain(q, leaves, lens, block, table=table, scale=scale)
+    return fused_decode_plain(q, leaves, lens, block, table=table, scale=scale,
+                              q_lens=q_lens)
 
 
 # ---------------------------------------------------------------------------
@@ -127,10 +139,20 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _FNS: dict[str, object] = {}
 
 
+def query_chunks(s: int, g: int) -> list[tuple[int, int]]:
+    """The query ranges [s0, s1) of the launches for S queries at G query
+    heads per kv head: chunks of at most MAX_ROWS // G queries, so each
+    launch holds at most MAX_ROWS rows a block (one launch where G * S <=
+    MAX_ROWS)."""
+    per = MAX_ROWS // g
+    return [(s0, min(s, s0 + per)) for s0 in range(0, s, per)]
+
+
 def _launch(wrapper, q, codes_k, k_s, codes_v, v_s, lens, table, d: int, width: int,
-            code_dtype, scale) -> torch.Tensor:
+            code_dtype, scale, q_lens=None) -> torch.Tensor:
     """Check what the kernel takes (raising on anything else), launch it on
-    the current stream, raise on a launch error, and count the launch."""
+    the current stream, once per chunk of at most MAX_ROWS // G queries,
+    raise on a launch error, and count each launch."""
     name = wrapper.__name__
     if q.dtype not in _Q_DTYPES:
         raise TypeError(f"{name} takes bf16 or f32 q on the card, got {q.dtype}")
@@ -139,6 +161,8 @@ def _launch(wrapper, q, codes_k, k_s, codes_v, v_s, lens, table, d: int, width: 
             ("lens", lens, torch.int32)]
     if table is not None:
         want.append(("table", table, torch.int32))
+    if q_lens is not None:
+        want.append(("q_lens", q_lens, torch.int32))
     for what, t, dt in want:
         if t.dtype != dt:
             raise TypeError(f"{name} takes {dt} {what}, got {t.dtype}")
@@ -160,6 +184,8 @@ def _launch(wrapper, q, codes_k, k_s, codes_v, v_s, lens, table, d: int, width: 
         raise ValueError(f"{name}: leaves {tuple(codes_k.shape)} / {tuple(codes_v.shape)} / "
                          f"{tuple(k_s.shape)} / {tuple(v_s.shape)} and lens "
                          f"{tuple(lens.shape)} do not line up for B = {b}")
+    if q_lens is not None and q_lens.shape != (b, s):
+        raise ValueError(f"{name}: q_lens {tuple(q_lens.shape)}, want (B, S) = {(b, s)}")
     if table is None:
         if nb != b:
             raise ValueError(f"{name}: contiguous leaves hold {nb} slots, q {b}")
@@ -173,9 +199,10 @@ def _launch(wrapper, q, codes_k, k_s, codes_v, v_s, lens, table, d: int, width: 
         raise ValueError(f"{name}: query heads {hq} not a multiple of kv heads {hkv}")
     if not 1 <= d <= MAX_D:
         raise ValueError(f"{name} takes head dims 1..{MAX_D}, not {d}")
-    if hq // hkv * s > MAX_ROWS:
-        raise ValueError(f"{name} takes at most {MAX_ROWS} query rows (G * S) per kv head, "
-                         f"got G {hq // hkv} x S {s}")
+    g = hq // hkv
+    if g > MAX_ROWS:
+        raise ValueError(f"{name} takes at most {MAX_ROWS} query rows a launch: G {g} query "
+                         f"heads per kv head exceed it")
     if k_s.numel() >= 2 ** 31:
         raise ValueError(f"{name} indexes a leaf's rows in 31 bits, got {k_s.numel()} rows")
     if code_dtype == torch.int8 and (d % 16 or codes_k.data_ptr() % 16 or
@@ -189,37 +216,47 @@ def _launch(wrapper, q, codes_k, k_s, codes_v, v_s, lens, table, d: int, width: 
     if fn is None:
         from repro_torch.kernels import build
         fn = getattr(build.load("kv_decode"), f"{name}_launch")
-        fn.argtypes = [_P] * 8 + [_I] * 10 + [ctypes.c_float, _P]
+        fn.argtypes = [_P] * 9 + [_I] * 10 + [ctypes.c_float, _P]
         fn.restype = ctypes.c_int
         _FNS[name] = fn
     from repro_torch.kernels.build import check
-    check(fn(q.data_ptr(), codes_k.data_ptr(), k_s.data_ptr(), codes_v.data_ptr(),
-             v_s.data_ptr(), lens.data_ptr(), None if table is None else table.data_ptr(),
-             out.data_ptr(), int(q.dtype == torch.bfloat16), b, s, hq, hkv, d, tmax, tb,
-             n_pages, nb - 1, float(scale if scale is not None else 1.0 / math.sqrt(d)),
-             torch.cuda.current_stream(q.device).cuda_stream), name)
-    wrapper.launches += 1
+    for s0, s1 in query_chunks(s, g):
+        whole = s0 == 0 and s1 == s
+        qc = q if whole else q[:, s0:s1].contiguous()
+        ql = q_lens if whole or q_lens is None else q_lens[:, s0:s1].contiguous()
+        oc = out if whole else torch.empty_like(qc)
+        check(fn(qc.data_ptr(), codes_k.data_ptr(), k_s.data_ptr(), codes_v.data_ptr(),
+                 v_s.data_ptr(), lens.data_ptr(), None if ql is None else ql.data_ptr(),
+                 None if table is None else table.data_ptr(), oc.data_ptr(),
+                 int(q.dtype == torch.bfloat16), b, s1 - s0, hq, hkv, d, tmax, tb, n_pages,
+                 nb - 1, float(scale if scale is not None else 1.0 / math.sqrt(d)),
+                 torch.cuda.current_stream(q.device).cuda_stream), name)
+        wrapper.launches += 1
+        if not whole:
+            out[:, s0:s1] = oc
     return out
 
 
-def kv_decode_int8(q, k_q, k_s, v_q, v_s, lens, *, table=None, scale=None):
+def kv_decode_int8(q, k_q, k_s, v_q, v_s, lens, *, table=None, scale=None, q_lens=None):
     """Decode attention over an int8 cache: q (B, S, Hq, D); k_q, v_q int8
     and k_s, v_s bf16 leaves, contiguous or (with ``table``) paged; lens (B,)
-    int32. -> (B, S, Hq, D) in q's dtype."""
+    int32; q_lens (B, S) int32 or None. -> (B, S, Hq, D) in q's dtype."""
     if not kvq._on_cuda(q, "kv_decode_int8"):
-        return kv_decode_int8_plain(q, k_q, k_s, v_q, v_s, lens, table=table, scale=scale)
+        return kv_decode_int8_plain(q, k_q, k_s, v_q, v_s, lens, table=table, scale=scale,
+                                    q_lens=q_lens)
     return _launch(kv_decode_int8, q, k_q, k_s, v_q, v_s, lens, table, q.shape[-1],
-                   q.shape[-1], torch.int8, scale)
+                   q.shape[-1], torch.int8, scale, q_lens)
 
 
-def kv_decode_binary(q, k_p, k_s, v_p, v_s, lens, d: int, *, table=None, scale=None):
+def kv_decode_binary(q, k_p, k_s, v_p, v_s, lens, d: int, *, table=None, scale=None,
+                     q_lens=None):
     """Decode attention over a binary cache: k_p, v_p int32 sign words
     (., ., Hkv, ceil(d / 32)) and bf16 scales, as for ``kv_decode_int8``."""
     if not kvq._on_cuda(q, "kv_decode_binary"):
         return kv_decode_binary_plain(q, k_p, k_s, v_p, v_s, lens, d, table=table,
-                                      scale=scale)
+                                      scale=scale, q_lens=q_lens)
     return _launch(kv_decode_binary, q, k_p, k_s, v_p, v_s, lens, table, d, packed_len(d),
-                   torch.int32, scale)
+                   torch.int32, scale, q_lens)
 
 
 kv_decode_int8.launches = 0

@@ -22,11 +22,12 @@ CUDA kernels take any row count, and the quantizers any D up to ``MAX_D``.
 
 The quantizers are one insert kernel, which encodes and writes in one
 launch: ``kv_quant_int8`` / ``kv_quant_binary`` return the codes of a
-(..., D) input (mode (a)); ``kv_insert`` encodes one decode token's K and
-V per slot and writes them into a contiguous or a paged pool at each
-slot's length, as the serving pool's ``insert_timestep`` and
-``paged_insert_timestep`` did with two quantizer launches and a torch
-scatter; ``kv_prefill`` encodes a prefill's K and V into a zero-padded
+(..., D) input (mode (a)); ``kv_insert`` encodes S tokens' K and V per
+slot (one at a decode step, k + 1 at the speculative verify) and writes
+them into a contiguous or a paged pool from each slot's length on, as the
+serving pool's ``insert_span`` and ``paged_insert_span`` did with two
+quantizer launches and a torch scatter; ``kv_prefill`` encodes a prefill's
+K and V into a zero-padded
 cache, as ``from_prefill`` did with ``pad_time``. Each counts one launch on
 its codec's ``kv_quant_<codec>.launches``.
 
@@ -125,35 +126,39 @@ def pad_time(a: torch.Tensor, max_len: int) -> torch.Tensor:
     return out
 
 
-def write_timestep(leaves: dict, new: dict, lens: torch.Tensor) -> None:
-    """Write one token per sequence, new[name] (B, 1, ...), into the
-    contiguous leaves[name] (B, T, ...) at position lens, in place. The
-    position is clamped to T - 1, as repro's dynamic_update_slice clamps
-    it."""
+def write_span(leaves: dict, new: dict, lens: torch.Tensor) -> None:
+    """Write S tokens per sequence, new[name] (B, S, ...), into the
+    contiguous leaves[name] (B, T, ...) at positions start .. start + S - 1,
+    in place, with start = lens clamped to [0, T - S], as repro's
+    dynamic_update_slice clamps it (S = 1: a decode step's insert)."""
     for name, t in new.items():
         buf = leaves[name]
-        rows = torch.arange(buf.shape[0], device=buf.device)
-        buf[rows, torch.clamp(lens, max=buf.shape[1] - 1).to(torch.int64)] = \
-            t[:, 0].to(buf.dtype)
+        s = t.shape[1]
+        start = torch.clamp(lens.to(torch.int64), 0, buf.shape[1] - s)
+        pos = start[:, None] + torch.arange(s, device=buf.device)[None, :]
+        rows = torch.arange(buf.shape[0], device=buf.device)[:, None]
+        buf[rows, pos] = t.to(buf.dtype)
 
 
 def write_paged(leaves: dict, new: dict, lens: torch.Tensor, table: torch.Tensor) -> None:
-    """Write one token per slot into paged leaves (n_blocks + 1, bs, ...)
-    at (table[b, len // bs], len % bs), in place. Free slots meet table
-    holes (ids >= n_blocks), and a length at or past the table's last page
-    meets none: both write to the spare block, where repro's ``mode="drop"``
-    drops them."""
+    """Write S tokens per slot, new[name] (B, S, ...), into paged leaves
+    (n_blocks + 1, bs, ...), token j at (table[b, p // bs], p % bs) with
+    p = lens[b] + j, in place. Free slots meet table holes (ids >=
+    n_blocks), and a position at or past the table's last page meets none:
+    both write to the spare block, where repro's ``mode="drop"`` drops
+    them."""
     first = leaves[next(iter(new))]
     n_blocks, bs = first.shape[0] - 1, first.shape[1]
     n_pages = table.shape[1]
-    idx = lens.to(torch.int64)
+    s = next(iter(new.values())).shape[1]
+    idx = lens.to(torch.int64)[:, None] + torch.arange(s, device=lens.device)[None, :]
     page = idx // bs
-    phys = table.gather(1, torch.clamp(page, max=n_pages - 1)[:, None])[:, 0]
+    phys = table.gather(1, torch.clamp(page, max=n_pages - 1))
     phys = torch.where(page < n_pages, phys, n_blocks)
     at = (torch.clamp(phys, max=n_blocks).to(torch.int64), idx - page * bs)
     for name, t in new.items():
         buf = leaves[name]
-        buf[at] = t[:, 0].to(buf.dtype)
+        buf[at] = t.to(buf.dtype)
 
 
 def _encode_plain(codec: str, k: torch.Tensor, v: torch.Tensor) -> dict:
@@ -164,13 +169,13 @@ def _encode_plain(codec: str, k: torch.Tensor, v: torch.Tensor) -> dict:
 
 def kv_insert_plain(codec: str, leaves: dict, k: torch.Tensor, v: torch.Tensor,
                     lens: torch.Tensor, *, table: torch.Tensor | None = None) -> torch.Tensor:
-    """The encode pair, then the pool's torch scatter; returns lens + 1."""
+    """The encode pair, then the pool's torch scatter; returns lens + S."""
     new = _encode_plain(codec, k, v)
     if table is None:
-        write_timestep(leaves, new, lens)
+        write_span(leaves, new, lens)
     else:
         write_paged(leaves, new, lens, table)
-    return lens + 1
+    return lens + k.shape[1]
 
 
 def kv_prefill_plain(codec: str, k: torch.Tensor, v: torch.Tensor, max_len: int) -> dict:
@@ -308,21 +313,23 @@ def _quant_rows(codec: str, x: torch.Tensor):
 
 def kv_insert(codec: str, leaves: dict, k: torch.Tensor, v: torch.Tensor,
               lens: torch.Tensor, *, table: torch.Tensor | None = None) -> torch.Tensor:
-    """Encode one decode token's k, v (B, 1, Hkv, D) per slot into the
-    ``codec`` ("int8" or "binary") leaves of a pool and write them at each
-    slot's length, in place: contiguous leaves (B, T, Hkv, .) at min(lens,
-    T - 1), or, with ``table`` (B, n_pages) int32, paged leaves (n_blocks +
-    1, bs, Hkv, .) at (table[b, lens // bs], lens % bs), a hole, a free slot
-    or a length past the table's pages writing the spare block. lens (B,)
-    int32. Returns lens + 1, a new tensor (lens itself is not written)."""
+    """Encode S tokens' k, v (B, S, Hkv, D) per slot (S = 1 at a decode
+    step, k + 1 at the speculative verify) into the ``codec`` ("int8" or
+    "binary") leaves of a pool and write token j of slot b at position
+    lens[b] + j, in place: contiguous leaves (B, T, Hkv, .) at min(lens,
+    T - S) + j, or, with ``table`` (B, n_pages) int32, paged leaves
+    (n_blocks + 1, bs, Hkv, .) at (table[b, p // bs], p % bs), a hole, a
+    free slot or a position past the table's pages writing the spare block.
+    lens (B,) int32. Returns lens + S, a new tensor (lens itself is not
+    written)."""
     if codec not in CODECS:
         raise ValueError(f"kv_insert takes codec int8 or binary, not {codec!r}")
     if not _on_cuda(k, "kv_insert"):
         return kv_insert_plain(codec, leaves, k, v, lens, table=table)
     _check_kv("kv_insert", k, v)
     b, s, h, d = k.shape
-    if s != 1:
-        raise ValueError(f"kv_insert writes one token per slot, got S = {s}")
+    if s < 1:
+        raise ValueError(f"kv_insert writes at least one token per slot, got S = {s}")
     names = leaf_names(codec)
     kc, ks, vc, vs = (leaves[n] for n in names)
     width, code_dtype = _code_layout(codec, d)
@@ -346,11 +353,13 @@ def kv_insert(codec: str, leaves: dict, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"kv_insert: {what} is not aligned to its element size")
     if table is None and nb != b:
         raise ValueError(f"kv_insert: contiguous leaves hold {nb} slots, k {b}")
+    if table is None and t < s:
+        raise ValueError(f"kv_insert: a span of {s} tokens does not fit T = {t}")
     if table is not None and table.shape[-1] == 0:
         raise ValueError("kv_insert: a table of no pages")
     lens_out = torch.empty_like(lens)
     _encode(codec, k, v, kc, vc, ks, vs, lens=lens, table=table, lens_out=lens_out,
-            b=b, s=1, s_out=1, h=h, t=t)
+            b=b, s=s, s_out=s, h=h, t=t)
     return lens_out
 
 

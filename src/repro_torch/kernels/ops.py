@@ -33,6 +33,12 @@ from repro_torch.kernels.int8_matmul import int8_matmul
 
 BINARY_MODES = ("xnor", "int8", "bf16")
 
+# the binarized self-draft's packed lowerings (ModelConfig.spec_draft_impl),
+# with repro's names (repro/kernels/ops.py:31); each is one of the modes
+SPEC_DRAFT_IMPLS = ("auto", "xla_xnor", "int8_mxu", "pallas_xnor")
+_DRAFT_MODES = {"auto": "xnor", "xla_xnor": "xnor", "pallas_xnor": "xnor",
+                "int8_mxu": "int8"}
+
 
 def resolve_impl(mode: str) -> str:
     """mode -> the lowering the binary ops run. Which device runs it is the
@@ -40,6 +46,18 @@ def resolve_impl(mode: str) -> str:
     if mode not in BINARY_MODES:
         raise ValueError(f"unknown binary mode {mode!r}")
     return mode
+
+
+def draft_mode(impl: str) -> str:
+    """A ``spec_draft_impl`` -> the binary mode its packed product runs:
+    repro's XNOR lowerings ("auto", "xla_xnor", "pallas_xnor") are B1's
+    XNOR-popcount product, its +-1 int8 one ("int8_mxu") is B2's, which
+    multiplies the same +-1 int8 activations by the packed bits. Each runs
+    its kernel for a CUDA tensor and its plain version for a CPU one."""
+    if impl not in _DRAFT_MODES:
+        raise ValueError(f"unknown spec_draft_impl {impl!r}: expected one of "
+                         f"{SPEC_DRAFT_IMPLS}")
+    return _DRAFT_MODES[impl]
 
 
 def _matmul_packed(x2d: torch.Tensor, w_packed: torch.Tensor, k: int,

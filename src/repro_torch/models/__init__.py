@@ -9,6 +9,7 @@
     caches = api.init_paged_cache(n_blocks, block_size, max_batch, n_pages, device=)
     logits, caches = api.prefill_ctx(params, {"tokens": t}, ctx, ctx_lens,
                                      max_len=, seq_lens=)
+    logits, caches = api.verify(params, caches, tokens)     # (B, S) -> (B, S, Vp)
 
 The port serves ``family="dense"`` with GQA attention. MLA and the other
 families raise NotImplementedError (ROADMAP A8); training (``loss``)
@@ -35,6 +36,10 @@ class ModelApi(NamedTuple):
     # a cached prefix gathered from the pool
     init_paged_cache: Callable
     prefill_ctx: Callable
+    # the speculative-decoding verify step: verify(params, caches, tokens
+    # (B, S)) scores S tokens in one pass, their K/V appended to the caches;
+    # None for a model whose cache decodes one token at a time (MLA)
+    verify: Callable | None = None
 
 
 def get_model(cfg: ModelConfig) -> ModelApi:
@@ -59,4 +64,5 @@ def get_model(cfg: ModelConfig) -> ModelApi:
             cfg, nb, bsz, mb, npg, device=device),
         prefill_ctx=lambda p, b, ctx, cl, **kw: t.lm_prefill_ctx(p, cfg, b["tokens"], ctx,
                                                                  cl, **kw),
+        verify=lambda p, c, tok: t.lm_verify(p, cfg, c, tok),
     )

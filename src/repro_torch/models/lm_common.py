@@ -67,7 +67,13 @@ def ffn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         mode = cfg.policy.binary_mode
         h = binary_dense_apply_packed(p["bin_in"], x, mode=mode)
         return binary_dense_apply_packed(p["bin_out"], h, mode=mode).to(x.dtype)
-    return nn.swiglu_apply(p, x, compute_dtype=cdt(cfg))
+    # binary_impl matters only where these denses are the self-draft's
+    # packed ones (serving/spec.binarize_draft_params)
+    return nn.swiglu_apply(p, x, compute_dtype=cdt(cfg), binary_impl=cfg.spec_draft_impl)
+
+
+def _dense(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return nn.dense_apply(p, x, compute_dtype=cdt(cfg), binary_impl=cfg.spec_draft_impl)
 
 
 # ---------------------------------------------------------------------------
@@ -90,9 +96,9 @@ def gqa_init(cfg: ModelConfig, *, generator, device) -> dict:
 def gqa_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions):
     b, s, _ = x.shape
     dh = cfg.kv_head_dim()
-    q = nn.dense_apply(p["wq"], x, compute_dtype=cdt(cfg)).reshape(b, s, cfg.n_heads, dh)
-    k = nn.dense_apply(p["wk"], x, compute_dtype=cdt(cfg)).reshape(b, s, cfg.n_kv_heads, dh)
-    v = nn.dense_apply(p["wv"], x, compute_dtype=cdt(cfg)).reshape(b, s, cfg.n_kv_heads, dh)
+    q = _dense(p["wq"], x, cfg).reshape(b, s, cfg.n_heads, dh)
+    k = _dense(p["wk"], x, cfg).reshape(b, s, cfg.n_kv_heads, dh)
+    v = _dense(p["wv"], x, cfg).reshape(b, s, cfg.n_kv_heads, dh)
     if cfg.qk_norm:
         q = nn.rmsnorm_apply(p["q_norm"], q)
         k = nn.rmsnorm_apply(p["k_norm"], k)
@@ -106,7 +112,7 @@ def gqa_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, positions):
     """Causal self attention over the full sequence, no cache."""
     q, k, v = gqa_qkv(p, x, cfg, positions)
     o = attn_lib.prefill_attention(q, k, v, chunk=cfg.attn_chunk, impl=cfg.attn_impl)
-    return nn.dense_apply(p["wo"], o.reshape(*x.shape[:2], -1), compute_dtype=cdt(cfg))
+    return _dense(p["wo"], o.reshape(*x.shape[:2], -1), cfg)
 
 
 def gqa_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict):
@@ -118,13 +124,36 @@ def gqa_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict):
     q, k, v = gqa_qkv(p, x, cfg, positions)
     codec = kvc.get_codec(cfg.kv_cache)
     if "table" in cache:
-        cache = kvc.paged_insert_timestep(cache, k, v, codec)
+        cache = kvc.paged_insert_span(cache, k, v, codec)
         o = kvc.paged_decode_attention(q, cache, codec)
     else:
-        cache = codec.insert_timestep(cache, k, v)
+        cache = codec.insert_span(cache, k, v)
         o = codec.decode_attention(q, cache, impl=cfg.attn_impl)
-    o = o.reshape(*x.shape[:2], -1)
-    return nn.dense_apply(p["wo"], o, compute_dtype=cdt(cfg)), cache
+    return _dense(p["wo"], o.reshape(*x.shape[:2], -1), cfg), cache
+
+
+def gqa_verify(p: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict):
+    """Multi-token decode against the cache: the speculative verify step.
+    x (B, S, d) carries a draft wave (S = k + 1 tokens); their exact K/V go
+    to positions len .. len + S - 1 (over the draft's approximate ones,
+    which no read saw: every read masks by len), and query j attends to the
+    columns below len + j + 1 through the decode attend with per-query
+    lengths, so one pass scores every draft position. Both pool layouts and
+    every codec; ``len`` advances by S (the engine rolls it back to len +
+    accepted)."""
+    s = x.shape[1]
+    base = cache["len"]                                             # (B,) pre-insert
+    positions = base[:, None] + torch.arange(s, device=x.device)[None, :]
+    q, k, v = gqa_qkv(p, x, cfg, positions)
+    q_lens = (positions + 1).to(torch.int32)    # taken before the insert moves len
+    codec = kvc.get_codec(cfg.kv_cache)
+    if "table" in cache:
+        cache = kvc.paged_insert_span(cache, k, v, codec)
+        o = kvc.paged_decode_attention(q, cache, codec, q_lens=q_lens)
+    else:
+        cache = codec.insert_span(cache, k, v)
+        o = codec.decode_attention(q, cache, q_lens=q_lens)
+    return _dense(p["wo"], o.reshape(*x.shape[:2], -1), cfg), cache
 
 
 # ---------------------------------------------------------------------------
@@ -184,7 +213,7 @@ def block_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig, sig: BlockSig, *,
     else:
         o = attn_lib.prefill_attention(q, k, v, chunk=cfg.attn_chunk, kv_len=seq_lens,
                                        impl=cfg.attn_impl)
-    a = nn.dense_apply(p["attn"]["wo"], o.reshape(b, s, -1), compute_dtype=cdt(cfg))
+    a = _dense(p["attn"]["wo"], o.reshape(b, s, -1), cfg)
     cache = kvc.get_codec(cfg.kv_cache).from_prefill(k, v, max_len)
     x = x + a
     h = nn.rmsnorm_apply(p["ln2"], x)
@@ -196,6 +225,21 @@ def block_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, sig: BlockSig,
     _check_sig(sig)
     h = nn.rmsnorm_apply(p["ln1"], x)
     a, cache = gqa_decode(p["attn"], h, cfg, cache)
+    x = x + a
+    h = nn.rmsnorm_apply(p["ln2"], x)
+    return x + ffn_apply(p["ffn"], h, cfg), cache
+
+
+def block_verify(p: dict, x: torch.Tensor, cfg: ModelConfig, sig: BlockSig,
+                 cache: dict):
+    """block_decode for an S-token verify wave (GQA only: MLA's absorbed
+    decode has no multi-token form, as in repro)."""
+    if sig.attn == "mla":
+        raise ValueError("speculative verify requires GQA attention blocks; MLA "
+                         "families decode one token at a time")
+    _check_sig(sig)
+    h = nn.rmsnorm_apply(p["ln1"], x)
+    a, cache = gqa_verify(p["attn"], h, cfg, cache)
     x = x + a
     h = nn.rmsnorm_apply(p["ln2"], x)
     return x + ffn_apply(p["ffn"], h, cfg), cache
@@ -236,6 +280,14 @@ def segments_decode(blocks: list, x: torch.Tensor, cfg: ModelConfig, caches: lis
     """Every block in turn against its cache (updated in place)."""
     for i, (p, c) in enumerate(zip(blocks, caches)):
         x, caches[i] = block_decode(p, x, cfg, block_sig(cfg, i), c)
+    return x, caches
+
+
+def segments_verify(blocks: list, x: torch.Tensor, cfg: ModelConfig, caches: list):
+    """segments_decode for an S-token verify wave: block_verify per block,
+    each cache updated in place."""
+    for i, (p, c) in enumerate(zip(blocks, caches)):
+        x, caches[i] = block_verify(p, x, cfg, block_sig(cfg, i), c)
     return x, caches
 
 

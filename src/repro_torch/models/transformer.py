@@ -1,6 +1,6 @@
 """Decoder LM for the dense GQA archs (port of repro/models/transformer.py,
 serving half: init, prefill, suffix prefill against a cached prefix,
-decode, contiguous and paged caches)."""
+decode, the speculative verify, contiguous and paged caches)."""
 
 from __future__ import annotations
 
@@ -99,6 +99,19 @@ def lm_decode(params: dict, cfg: ModelConfig, caches: list, tokens: torch.Tensor
     x = _embed(params, cfg, tokens)
     h, caches = lc.segments_decode(params["blocks"], x, cfg, caches)
     return _logits(params, cfg, h)[:, 0], caches
+
+
+def lm_verify(params: dict, cfg: ModelConfig, caches: list, tokens: torch.Tensor):
+    """Speculative-decoding verify: tokens (B, S) = [last emitted token,
+    then S - 1 draft tokens] -> (logits (B, S, Vp), caches updated in
+    place). Token j's exact K/V lands at position len + j and its logits
+    are the target's distribution of the next token given the prefix
+    through token j: what sequential decode gives when drafts 1..j were all
+    accepted. ``len`` advances by S; the engine rolls it back to len +
+    accepted (entries past len are invisible to every read)."""
+    x = _embed(params, cfg, tokens)
+    h, caches = lc.segments_verify(params["blocks"], x, cfg, caches)
+    return _logits(params, cfg, h), caches
 
 
 def lm_init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device) -> list:

@@ -32,7 +32,23 @@ def dense_init(in_dim: int, out_dim: int, *, generator, device, bias: bool = Fal
     return p
 
 
-def dense_apply(p: dict, x: torch.Tensor, *, compute_dtype=torch.bfloat16):
+def dense_apply(p: dict, x: torch.Tensor, *, compute_dtype=torch.bfloat16,
+                binary_impl: str = "auto"):
+    if "w_packed" in p:
+        # the binarized self-draft's weights (serving/spec.py), XNOR-net
+        # style:  x @ W ~= (sign(x) @ sign(W)) * beta * alpha  with alpha the
+        # per-output mean |W| baked into ``scale`` and beta the per-token
+        # mean |x|, in f32 (repro/nn/layers.py:35-55). ``binary_impl`` is
+        # ModelConfig.spec_draft_impl: the packed product's lowering
+        # (kernels/ops.draft_mode), exact integers either way
+        from repro_torch.core.binary_dense import binary_dense_apply_packed
+        from repro_torch.kernels.ops import draft_mode
+        xf = x.to(torch.float32)
+        beta = xf.abs().mean(dim=-1, keepdim=True)
+        y = binary_dense_apply_packed(p, xf, mode=draft_mode(binary_impl)) * beta
+        if "b" in p:
+            y = y + p["b"].to(torch.float32)
+        return y.to(compute_dtype)
     y = x.to(compute_dtype) @ p["w"].to(compute_dtype)
     if "b" in p:
         y = y + p["b"].to(compute_dtype)
@@ -110,12 +126,15 @@ def swiglu_init(dim: int, hidden: int, *, generator, device,
             "w_down": dense_init(hidden, dim, **kw)}
 
 
-def swiglu_apply(p: dict, x: torch.Tensor, *, compute_dtype=torch.bfloat16):
-    """silu in f32, as repro/models/lm_common.py:88."""
-    g = dense_apply(p["w_gate"], x, compute_dtype=compute_dtype)
-    u = dense_apply(p["w_up"], x, compute_dtype=compute_dtype)
+def swiglu_apply(p: dict, x: torch.Tensor, *, compute_dtype=torch.bfloat16,
+                 binary_impl: str = "auto"):
+    """silu in f32, as repro/models/lm_common.py:88. ``binary_impl`` picks
+    the packed lowering where the denses are the self-draft's packed ones."""
+    kw = dict(compute_dtype=compute_dtype, binary_impl=binary_impl)
+    g = dense_apply(p["w_gate"], x, **kw)
+    u = dense_apply(p["w_up"], x, **kw)
     h = F.silu(g.to(torch.float32)).to(compute_dtype) * u
-    return dense_apply(p["w_down"], h, compute_dtype=compute_dtype)
+    return dense_apply(p["w_down"], h, **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -15,8 +15,35 @@ Prefill batches are padded to power-of-two length buckets and group sizes;
 slots ride through the decode step; their rows are computed and ignored.
 
 Greedy decoding takes ``torch.argmax``, which returns the first maximum,
-as ``jnp.argmax`` does. The pool lives on the device of ``params`` and is
-updated in place.
+as ``jnp.argmax`` does. Sampling (``temperature > 0``) draws row r from its
+request's own stream, fold_in(fold_in(PRNGKey(seed), rid), len(out)), with
+JAX's bits (serving/sampling.py), so a request's tokens depend only on
+(params, prompt, seed, rid) and equal repro's. The pool lives on the device
+of ``params`` and is updated in place.
+
+Speculative decoding (``spec_k > 0``) swaps the one-token tick for a
+draft / verify wave (serving/spec.py): the binarized self-draft proposes
+``spec_k`` tokens through the target's own cache, one float verify pass
+scores all of them, and the engine keeps the longest prefix that matches
+what each request's own stream emits from the target's logits, plus one
+correction or bonus token (scheduler.accept_wave). Each token is picked
+from the verify's logits where the plain engine picks from a decode's, so
+the tokens equal the plain engine's where the two passes round the same
+way: on the CPU they do (tests/test_torch_spec.py); on a card they can
+differ, bf16 most, whose verify attends through the plain recurrence
+(kernels/kv_decode.fused_decode_plain) where its decode takes the dot
+attention, and cuBLAS rounds a verify at M = B(k + 1) unlike a decode at
+M = B (ROADMAP B 1(a) routes the bf16 verify through a kernel). The
+rollback is a per-slot length reset.
+``spec_draft_impl`` picks the draft's packed product (B1 for "auto").
+
+On a card each decode tick, and each speculative wave, is one CUDA graph
+replay (serving/graphs.py; ``cuda_graphs=False`` runs them eagerly, for
+comparison): the engine fills static device buffers (tokens, request ids,
+steps, base lengths) and replays. Admission (prefill waves, the slot and
+page scatters with their host sync), the host read of the picked tokens,
+the accept rule, the rollback and the radix bookkeeping stay outside the
+graph.
 
 ``kv_cache`` picks the pool's codec (bf16, int8, binary; serving/kvcache.py).
 Two pool layouts (``kv_block_size``):
@@ -28,9 +55,8 @@ Two pool layouts (``kv_block_size``):
                 share its physical blocks and prefill only their un-cached
                 suffix.
 
-Not ported yet, and refused with the ROADMAP item that ports them: sampled
-decoding (temperature > 0) and speculative decoding (A5), interleaved
-prefill, the SLO scheduler and telemetry (A6), and meshes (A9).
+Not ported yet, and refused with the ROADMAP item that ports them:
+interleaved prefill, the SLO scheduler and telemetry (A6), and meshes (A9).
 """
 
 from __future__ import annotations
@@ -40,15 +66,18 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.kernels.ops import SPEC_DRAFT_IMPLS
 from repro_torch.serving import kvcache as kvc
+from repro_torch.serving import sampling
+from repro_torch.serving.graphs import StepGraph
 from repro_torch.serving.prefix import PrefixPool
 from repro_torch.serving.scheduler import (AdmissionError, FifoScheduler, Request,
-                                           bucket_len, make_buckets, pad_group,
-                                           slo_rank)
+                                           accept_wave, bucket_len, make_buckets,
+                                           pad_group, slo_rank)
 
 # every ServeEngine.stats key and what it counts
 STATS_SCHEMA = {
-    "decode_steps": "engine ticks (batched decode steps)",
+    "decode_steps": "engine ticks (decode steps or spec waves)",
     "occupied_slot_steps": "sum over ticks of occupied slots",
     "prefills": "prefill waves (one per admitted group)",
     "admitted": "requests admitted into a slot",
@@ -57,6 +86,11 @@ STATS_SCHEMA = {
     "prefilled_tokens": "tokens run through prefill attention",
     "cached_prompt_tokens": "prompt tokens served from the radix prefix cache "
                             "instead of prefill",
+    "spec_waves": "speculative draft / verify waves run",
+    "spec_drafted": "draft tokens proposed",
+    "spec_accepted": "draft tokens accepted by verify",
+    "spec_draft_launches": "device launches spent drafting: one per wave (a graph "
+                           "replay on a card)",
     "kv_bytes": "resident bytes of the preallocated KV pool",
 }
 
@@ -76,16 +110,13 @@ class _PagedSlot:
 
 class ServeEngine:
     def __init__(self, api, params, *, max_batch: int = 8, max_len: int = 512,
-                 temperature: float = 0.0, attn_impl: str | None = None,
+                 temperature: float = 0.0, seed: int = 0, attn_impl: str | None = None,
                  kv_cache: str | None = None, kv_block_size: int = 0,
                  prefix_cache: bool = False, n_blocks: int | None = None,
-                 spec_k: int = 0, mesh=None,
+                 spec_k: int = 0, spec_draft: str = "binary",
+                 spec_draft_impl: str | None = None, mesh=None,
                  telemetry=None, interleave: bool = False,
-                 scheduler: str = "fifo"):
-        if temperature > 0:
-            _not_ported("sampled decoding (temperature > 0)", "A5")
-        if spec_k:
-            _not_ported("speculative decoding (spec_k)", "A5")
+                 scheduler: str = "fifo", cuda_graphs: bool = True):
         if interleave:
             _not_ported("interleaved prefill", "A6")
         if telemetry is not None:
@@ -96,7 +127,11 @@ class ServeEngine:
             raise ValueError(f"unknown scheduler {scheduler!r}")
         if mesh is not None:
             _not_ported("tensor-parallel serving (mesh)", "A9")
-        overrides = {k: v for k, v in (("attn_impl", attn_impl), ("kv_cache", kv_cache))
+        if spec_draft_impl is not None and spec_draft_impl not in SPEC_DRAFT_IMPLS:
+            raise ValueError(f"unknown spec_draft_impl {spec_draft_impl!r}: "
+                             f"expected one of {SPEC_DRAFT_IMPLS}")
+        overrides = {k: v for k, v in (("attn_impl", attn_impl), ("kv_cache", kv_cache),
+                                       ("spec_draft_impl", spec_draft_impl))
                      if v is not None}
         if overrides:
             # model fns close over cfg, so a fresh api is the only seam
@@ -105,6 +140,16 @@ class ServeEngine:
         if prefix_cache and not kv_block_size:
             raise ValueError("prefix_cache requires kv_block_size > 0 "
                              "(the radix cache shares paged blocks)")
+        if spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+        if spec_k and spec_draft != "binary":
+            raise ValueError(f"unknown speculative draft {spec_draft!r}: 'binary' (the "
+                             "sign-packed self-draft) is the only draft; spec_k=0 "
+                             "disables speculation")
+        if spec_k and api.verify is None:
+            raise ValueError(f"model {api.cfg.name!r} has no multi-token verify step "
+                             "(MLA/SSM caches decode one token at a time); speculative "
+                             "decoding requires a GQA KV pool (spec_k=0)")
         self.api, self.params = api, params
         self.device = params["embed"]["table"].device
         self.max_batch, self.max_len = max_batch, max_len
@@ -137,6 +182,30 @@ class ServeEngine:
         self.step_count = 0
         self.stats = {k: 0 for k in STATS_SCHEMA}
         self.stats["kv_bytes"] = kvc.kv_pool_bytes(self.caches)
+        self.temperature = float(temperature)
+        self._seed_key = sampling.prng_key(seed, device=self.device)
+        self.spec_k = int(spec_k)
+        # the step's static inputs: the graph reads them, the host fills
+        # them with copy_ before each call
+        z = dict(dtype=torch.int32, device=self.device)
+        self._tok = torch.zeros((max_batch, 1), **z)
+        self._rids = torch.zeros((max_batch,), **z)
+        self._steps = torch.zeros((max_batch,), **z)
+        self._base_lens = torch.zeros((max_batch,), **z)
+        keep = [c["len"] for c in self.caches]
+        if self.spec_k:
+            from repro_torch.serving.spec import binarize_draft_params, make_spec_wave
+            # the draft aliases every target tensor but the float FFNs'
+            # packed bits and scales
+            self.draft_params = binarize_draft_params(params, api.cfg)
+            self._spec_wave = make_spec_wave(api, k=self.spec_k,
+                                             temperature=self.temperature,
+                                             seed_key=self._seed_key)
+            fn = self._wave_fn
+        else:
+            fn = self._tick_fn
+        self.graph = StepGraph(fn, self.device, keep=keep) if cuda_graphs else None
+        self._step_fn = self.graph if cuda_graphs else fn
 
     def check_request(self, prompt_len: int, max_new: int,
                       slo: str = "standard") -> None:
@@ -155,13 +224,16 @@ class ServeEngine:
                 f"prompt length {prompt_len} exceeds the largest prefill "
                 f"bucket ({self.buckets[-1]})",
                 prompt_len=int(prompt_len), limit=int(self.buckets[-1]))
-        if prompt_len + max_new > self.max_len:
+        if prompt_len + max_new + self.spec_k > self.max_len:
+            extra = f" + spec_k ({self.spec_k})" if self.spec_k else ""
             raise AdmissionError(
                 "too_long",
-                f"prompt ({prompt_len}) + max_new ({max_new}) exceeds max_len "
-                f"({self.max_len})",
+                f"prompt ({prompt_len}) + max_new ({max_new}){extra} exceeds max_len "
+                f"({self.max_len})"
+                + (": speculative waves write up to spec_k tokens of scratch K/V past "
+                   "the last kept position" if self.spec_k else ""),
                 prompt_len=int(prompt_len), max_new=int(max_new),
-                spec_k=0, max_len=int(self.max_len))
+                spec_k=int(self.spec_k), max_len=int(self.max_len))
 
     def add_request(self, prompt, max_new: int = 16, stop_tokens=(),
                     slo: str = "standard") -> int:
@@ -174,9 +246,39 @@ class ServeEngine:
                                   slo=slo, arrival=self.step_count))
         return rid
 
-    def _sample(self, logits: torch.Tensor) -> np.ndarray:
-        """Greedy: the first maximum of each row."""
-        return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+    def _stream_arrays(self, reqs) -> tuple[np.ndarray, np.ndarray]:
+        """Each row's stream: (rid, len(out)), free / dummy rows (None) pinned
+        to (0, 0); their tokens are never read."""
+        rids = np.asarray([r.rid if r is not None else 0 for r in reqs], np.int32)
+        steps = np.asarray([len(r.out) if r is not None else 0 for r in reqs], np.int32)
+        return rids, steps
+
+    def _sample(self, logits: torch.Tensor, reqs) -> np.ndarray:
+        """reqs: one Request (or None for a free / dummy row) per row of
+        logits. Greedy: the first maximum of each row. Sampled: row r draws
+        from its request's stream fold_in(fold_in(seed, rid), len(out))."""
+        rids, steps = self._stream_arrays(reqs)
+        return sampling.pick(logits, self.temperature, self._seed_key, self._tensor(rids),
+                             self._tensor(steps)).cpu().numpy()
+
+    def _tick_fn(self) -> tuple:
+        """One decode step over the pool from the static inputs, the pool
+        updated in place: what a tick's graph holds. -> (tokens (B,),)."""
+        logits, _ = self.api.decode(self.params, self.caches, self._tok)
+        return (sampling.pick(logits, self.temperature, self._seed_key, self._rids,
+                              self._steps),)
+
+    def _wave_fn(self) -> tuple:
+        """One speculative wave from the static inputs: what a wave's graph
+        holds. -> (drafts (B, k + 1), candidates (B, k + 1))."""
+        toks, cand, _ = self._spec_wave(self.params, self.draft_params, self.caches,
+                                        self._tok, self._rids, self._steps, self._base_lens)
+        return toks, cand
+
+    def _fill(self, **host) -> None:
+        """Copy host arrays into the static inputs of the same names."""
+        for name, a in host.items():
+            getattr(self, f"_{name}").copy_(torch.from_numpy(np.ascontiguousarray(a)))
 
     # -- slot lifecycle -----------------------------------------------------
 
@@ -226,7 +328,7 @@ class ServeEngine:
         """Sample first tokens and scatter one prefilled group's caches into
         free slots."""
         free = [i for i, r in enumerate(self.slots) if r is None]
-        nxt = self._sample(logits)
+        nxt = self._sample(logits, list(group) + [None] * (gp - len(group)))
         # dummy rows aim past the pool and are dropped by the scatter
         idx = np.full((gp,), self.max_batch, np.int64)
         idx[:len(group)] = free[:len(group)]
@@ -283,7 +385,9 @@ class ServeEngine:
         while deferred:
             r = deferred[0]
             chain = chains[r.rid]
-            need = -(-(len(r.prompt) + r.max_new - 1) // bs) - len(chain)
+            # + spec_k: verify waves write draft scratch K/V up to spec_k
+            # positions past the last kept token
+            need = -(-(len(r.prompt) + r.max_new - 1 + self.spec_k) // bs) - len(chain)
             blocks = self.pool.alloc(need, clock=self.step_count)
             if blocks is None:
                 break                      # pool exhausted this wave
@@ -355,7 +459,8 @@ class ServeEngine:
         bs = self.block_size
         free = [i for i, r in enumerate(self.slots) if r is None]
         slots = free[:len(admitted)]
-        nxt = self._sample(logits)
+        nxt = self._sample(logits, [r for r, _, _ in admitted]
+                           + [None] * (a["gp"] - len(admitted)))
         self.caches = kvc.paged_insert_prefill(self.caches, new, self._tensor(a["dest"]))
         # dummy rows aim past the pool and drop
         slot_idx = np.full((a["gp"],), self.max_batch, np.int64)
@@ -398,14 +503,20 @@ class ServeEngine:
 
     def step(self) -> bool:
         """One tick: admit into free slots, then one batched decode step over
-        the full pool. Returns False once no slot is occupied (idle)."""
+        the full pool (or one draft / verify wave with spec_k > 0). Returns
+        False once no slot is occupied (idle)."""
+        if self.spec_k:
+            return self._step_spec()
         self._admit()
         active = [i for i, r in enumerate(self.slots) if r is not None]
         if not active:
             return False
-        logits, self.caches = self.api.decode(
-            self.params, self.caches, torch.as_tensor(self.next_tok, device=self.device))
-        nxt = self._sample(logits)
+        self._fill(tok=self.next_tok)
+        if self.temperature > 0:
+            rids, steps = self._stream_arrays(self.slots)
+            self._fill(rids=rids, steps=steps)
+        (picked,) = self._step_fn()
+        nxt = picked.cpu().numpy()
         self.step_count += 1
         self.stats["decode_steps"] += 1
         self.stats["occupied_slot_steps"] += len(active)
@@ -419,6 +530,69 @@ class ServeEngine:
                     self._publish_block(st, cur // self.block_size - 1, r)
             self._append_token(i, int(nxt[i]))
         return True
+
+    def _step_spec(self) -> bool:
+        """One speculative wave: admit, draft spec_k tokens through the
+        binarized self-draft (sharing the target's cache), verify them and
+        the pending token in one float pass, and keep each slot's longest
+        matching prefix plus one correction / bonus token. The wave's j-th
+        token is drawn from the target's logits on the request's own (rid,
+        step) stream, so the tokens equal the plain engine's; the draft only
+        decides how many a wave banks (1 .. spec_k + 1 a slot)."""
+        self._admit()
+        active = [i for i, r in enumerate(self.slots) if r is not None]
+        if not active:
+            return False
+        k = self.spec_k
+        # the pre-wave cache length per slot (plen + len(out) - 1: next_tok's
+        # K/V is not in yet); free slots pin to 0, so their scratch writes
+        # stay invisible and bounded, and to stream (0, 0)
+        base_len = np.zeros((self.max_batch,), np.int32)
+        for i in active:
+            r = self.slots[i]
+            base_len[i] = len(r.prompt) + len(r.out) - 1
+        rids, steps = self._stream_arrays(self.slots)
+        self._fill(tok=self.next_tok, rids=rids, steps=steps, base_lens=base_len)
+        toks, cand = self._step_fn()
+        tok_mat, cand = toks.cpu().numpy(), cand.cpu().numpy()      # (B, k + 1)
+        self.stats["spec_draft_launches"] += 1
+
+        # accept / reject on the host, then roll the lengths back before any
+        # bookkeeping: rejected positions fall past len (free slots to 0);
+        # a paged _finish, which zeroes its slot, runs after this
+        wave: dict[int, list[int]] = {}
+        new_lens = np.zeros((self.max_batch,), np.int32)
+        for i in active:
+            emitted = accept_wave(cand[i], tok_mat[i, 1:])
+            wave[i] = emitted
+            self.stats["spec_drafted"] += k
+            self.stats["spec_accepted"] += len(emitted) - 1
+            new_lens[i] = base_len[i] + len(emitted)
+        kvc.set_cache_lengths(self.caches, self._tensor(new_lens))
+        self.step_count += 1
+        self.stats["decode_steps"] += 1
+        self.stats["spec_waves"] += 1
+        self.stats["occupied_slot_steps"] += len(active)
+        for i in active:
+            r = self.slots[i]
+            for tok in wave[i]:
+                if self.prefix_on:
+                    # as in the plain tick: the verify completed the block
+                    # covering [cur - bs, cur) with exact K/V
+                    st = self._pstate[i]
+                    cur = st.plen + len(r.out)
+                    if cur % self.block_size == 0:
+                        self._publish_block(st, cur // self.block_size - 1, r)
+                if self._append_token(i, int(tok)):
+                    # finished (max_new or a stop token): the rest of the
+                    # wave is neither emitted nor counted
+                    break
+        return True
+
+    def acceptance_rate(self) -> float:
+        """Fraction of draft tokens the verify pass accepted."""
+        d = self.stats["spec_drafted"]
+        return self.stats["spec_accepted"] / d if d else 0.0
 
     def run(self) -> dict[int, list[int]]:
         """Drain queue and slots; returns rid -> generated ids (cumulative

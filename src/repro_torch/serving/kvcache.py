@@ -33,9 +33,14 @@ find the rows it keeps. No decode attends to the spare block (a hole clamps
 to it only past a slot's length), and the pool's bytes leave it out.
 
 The port updates the pool in place where repro returns a new pool (repro
-donates the old one to XLA for the same effect). The speculative verify
-step's span writes (``insert_span``, ``paged_insert_span``) come with
-ROADMAP A5.
+donates the old one to XLA for the same effect): every write, the lengths
+included, goes into the tensors the pool already holds, and no leaf is
+ever rebound, so a CUDA graph that captured a decode step or a speculative
+wave (serving/graphs.py) reads and writes the pool the engine holds on
+every replay. The speculative verify inserts a span of S = k + 1 tokens a
+slot (``insert_span``, ``paged_insert_span``: one launch of the insert
+kernel a layer on the quantized codecs) and attends with per-query lengths
+(``q_lens``: query j of slot b below q_lens[b, j]).
 """
 
 from __future__ import annotations
@@ -57,10 +62,11 @@ _INDEX_LEAVES = ("len", "table")
 def set_cache_lengths(caches: list, seq_lens: torch.Tensor) -> list:
     """Reset every layer's lengths after a right-padded prefill: the pad
     positions become invisible, and the next decode overwrites position
-    seq_lens — a padded prefill then decodes exactly as an unpadded one."""
-    seq_lens = seq_lens.to(torch.int32)
+    seq_lens — a padded prefill then decodes exactly as an unpadded one. The
+    speculative wave's rewind and the engine's rollback after it use it too.
+    In place: each layer's ``len`` tensor is written, never rebound."""
     for c in caches:
-        c["len"] = seq_lens.clone()
+        c["len"].copy_(seq_lens)
     return caches
 
 
@@ -141,11 +147,13 @@ class CacheCodec:
         enc["len"] = torch.full((b,), s, dtype=torch.int32, device=k.device)
         return enc
 
-    def insert_timestep(self, cache: dict, k_new, v_new) -> dict:
-        """Insert one token per sequence at position cache['len'] (clamped
-        to T - 1), in place."""
-        kvq.write_timestep(cache, self.encode(k_new, v_new), cache["len"])
-        cache["len"] = cache["len"] + 1
+    def insert_span(self, cache: dict, k_new, v_new) -> dict:
+        """Insert S tokens per sequence, (B, S, H, D) k_new / v_new, from
+        position cache['len'] on (the start clamped to [0, T - S], as
+        repro's dynamic_update_slice clamps it), in place; ``len`` advances
+        by S (the speculative verify's write; S = 1 is a decode step's)."""
+        kvq.write_span(cache, self.encode(k_new, v_new), cache["len"])
+        cache["len"].add_(k_new.shape[1])
         return cache
 
     def materialize(self, cache: dict, dtype=torch.bfloat16, *, head_dim=None):
@@ -154,7 +162,10 @@ class CacheCodec:
         needed where the layout rounds D up (binary)."""
         raise NotImplementedError
 
-    def decode_attention(self, q, cache: dict, *, scale=None, impl: str = "auto"):
+    def decode_attention(self, q, cache: dict, *, scale=None, impl: str = "auto",
+                         q_lens=None):
+        """q (B, S, Hq, D) over the cache; every query below cache['len'],
+        or query j of slot b below q_lens[b, j] (the speculative verify)."""
         raise NotImplementedError
 
     def bytes_per_token(self, n_kv: int, head_dim: int) -> int:
@@ -186,7 +197,13 @@ class Bf16Codec(CacheCodec):
     def materialize(self, cache, dtype=torch.bfloat16, *, head_dim=None):
         return cache["k"].to(dtype), cache["v"].to(dtype)
 
-    def decode_attention(self, q, cache, *, scale=None, impl="auto"):
+    def decode_attention(self, q, cache, *, scale=None, impl="auto", q_lens=None):
+        if q_lens is not None:
+            # the verify: per-query lengths exist on the fused recurrence
+            # only (bf16 passes through dequant_block), as in repro
+            return kvd.fused_decode_plain(q, self.encoded_leaves(cache), cache["len"],
+                                          lambda blk: self.dequant_block(blk, q.shape[-1]),
+                                          scale=scale, q_lens=q_lens)
         return attn_lib.decode_attention(q, cache["k"], cache["v"], kv_len=cache["len"],
                                          scale=scale, impl=impl)
 
@@ -210,11 +227,12 @@ class _QuantCodec(CacheCodec):
                                 device=k.device)
         return enc
 
-    def insert_timestep(self, cache, k_new, v_new):
-        """Insert one token per sequence at position cache['len'], in place,
-        through the block table if the cache has one."""
-        cache["len"] = kvq.kv_insert(self.name, cache, k_new, v_new, cache["len"],
-                                     table=cache.get("table"))
+    def insert_span(self, cache, k_new, v_new):
+        """Insert S tokens per sequence from position cache['len'] on, in
+        place, through the block table if the cache has one: one launch of
+        the insert kernel, then ``len`` gets the kernel's len + S."""
+        cache["len"].copy_(kvq.kv_insert(self.name, cache, k_new, v_new, cache["len"],
+                                         table=cache.get("table")))
         return cache
 
 
@@ -240,9 +258,10 @@ class Int8Codec(_QuantCodec):
         return (kvq.kv_dequant_int8(cache["k_q"], cache["k_s"], dtype=dtype),
                 kvq.kv_dequant_int8(cache["v_q"], cache["v_s"], dtype=dtype))
 
-    def decode_attention(self, q, cache, *, scale=None, impl="auto"):
+    def decode_attention(self, q, cache, *, scale=None, impl="auto", q_lens=None):
         return kvd.kv_decode_int8(q, cache["k_q"], cache["k_s"], cache["v_q"], cache["v_s"],
-                                  cache["len"], table=cache.get("table"), scale=scale)
+                                  cache["len"], table=cache.get("table"), scale=scale,
+                                  q_lens=q_lens)
 
     def dequant_block(self, blk, d):
         return (kvq.kv_dequant_int8(blk["k_q"], blk["k_s"], dtype=torch.float32),
@@ -280,10 +299,10 @@ class BinaryCodec(_QuantCodec):
         return (kvq.kv_dequant_binary(cache["k_p"], cache["k_s"], head_dim, dtype=dtype),
                 kvq.kv_dequant_binary(cache["v_p"], cache["v_s"], head_dim, dtype=dtype))
 
-    def decode_attention(self, q, cache, *, scale=None, impl="auto"):
+    def decode_attention(self, q, cache, *, scale=None, impl="auto", q_lens=None):
         return kvd.kv_decode_binary(q, cache["k_p"], cache["k_s"], cache["v_p"], cache["v_s"],
                                     cache["len"], q.shape[-1], table=cache.get("table"),
-                                    scale=scale)
+                                    scale=scale, q_lens=q_lens)
 
     def dequant_block(self, blk, d):
         return (kvq.kv_dequant_binary(blk["k_p"], blk["k_s"], d, dtype=torch.float32),
@@ -359,31 +378,34 @@ def paged_insert_prefill(pool: list, new: list, dest_pages: torch.Tensor) -> lis
     return pool
 
 
-def paged_insert_timestep(cache: dict, k_new, v_new, codec: CacheCodec) -> dict:
-    """Per-layer decode insert, in place: encode one token per slot and
-    write it at (table[b, len // bs], len % bs). Free slots meet table holes
-    and write to the spare block. int8 and binary: the codec's insert
-    kernel; bf16: a torch scatter."""
+def paged_insert_span(cache: dict, k_new, v_new, codec: CacheCodec) -> dict:
+    """Per-layer insert of S tokens a slot, in place: encode them and write
+    token j at (table[b, p // bs], p % bs), p = len + j; ``len`` advances by
+    S. Free slots meet table holes, and positions past the table's pages
+    meet none: both write to the spare block (repro drops them). int8 and
+    binary: the codec's insert kernel; bf16: a torch scatter."""
     if codec.name != "bf16":
-        return codec.insert_timestep(cache, k_new, v_new)
+        return codec.insert_span(cache, k_new, v_new)
     kvq.write_paged(cache, codec.encode(k_new, v_new), cache["len"], cache["table"])
-    cache["len"] = cache["len"] + 1
+    cache["len"].add_(k_new.shape[1])
     return cache
 
 
 def paged_decode_attention(q: torch.Tensor, cache: dict, codec: CacheCodec, *,
-                           scale: float | None = None) -> torch.Tensor:
-    """Single-query attention through the block table. int8 and binary: the
-    codec's decode, whose kernel walks the table as repro's scan does, one
-    page at a time, and reads only the pages below each slot's length. bf16:
-    every page of every slot is gathered in one indexed read (holes clamp to
-    the spare block, whose columns lie past the slot's length, so they mask
-    out) and the plain recurrence runs over that contiguous view."""
+                           scale: float | None = None, q_lens=None) -> torch.Tensor:
+    """Attention through the block table, every query below its slot's
+    length or, with ``q_lens`` (B, S), query j of slot b below q_lens[b, j].
+    int8 and binary: the codec's decode, whose kernel walks the table as
+    repro's scan does, one page at a time, and reads only the pages below
+    each slot's length. bf16: every page of every slot is gathered in one
+    indexed read (holes clamp to the spare block, whose columns lie past
+    the slot's length, so they mask out) and the plain recurrence runs over
+    that contiguous view."""
     if codec.name != "bf16":
-        return codec.decode_attention(q, cache, scale=scale)
+        return codec.decode_attention(q, cache, scale=scale, q_lens=q_lens)
     return kvd.fused_decode_plain(q, codec.encoded_leaves(cache), cache["len"],
                                   lambda blk: codec.dequant_block(blk, q.shape[-1]),
-                                  table=cache["table"], scale=scale)
+                                  table=cache["table"], scale=scale, q_lens=q_lens)
 
 
 def gather_prefix_context(pool: list, ctx_pages: torch.Tensor, codec: CacheCodec,

@@ -9,10 +9,11 @@ repro — importing ``repro.serving.scheduler`` would run
     every other queued request that shares its length bucket, up to the
     number of free slots;
   * ``AdmissionError`` — the structured per-request rejection the engine
-    raises at ``add_request`` time.
+    raises at ``add_request`` time;
+  * ``accept_wave`` — the speculative-decoding accept rule.
 
-The SLO scheduler, the speculative accept rule and the workload generators
-come with the slices that use them (ROADMAP A5, A6).
+The SLO scheduler and the workload generators come with the slice that
+uses them (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -129,3 +130,24 @@ class FifoScheduler:
         group = [r for r in queue
                  if bucket_len(length_of(r), self.buckets) == head_bucket]
         return group[:n_free]
+
+
+def accept_wave(candidates, drafts) -> list[int]:
+    """Speculative-decoding accept rule (pure policy).
+
+    candidates: the k+1 tokens the request's own RNG stream emits from
+    *target* logits at verify positions 0..k (candidates[j] is what the
+    non-speculative engine would emit as the wave's j-th token, valid
+    whenever drafts 0..j-1 were all accepted). drafts: the k draft
+    proposals. Returns the wave's emitted tokens (1..k+1): the longest
+    draft prefix that matches the candidates, then one correction token
+    (first mismatch) or bonus token (all drafts held). Token-identity
+    with sequential decoding is structural: every returned token IS a
+    candidate, conditioned on an all-accepted history."""
+    emitted = []
+    for j, d in enumerate(drafts):
+        emitted.append(int(candidates[j]))
+        if emitted[-1] != int(d):
+            return emitted
+    emitted.append(int(candidates[len(drafts)]))
+    return emitted

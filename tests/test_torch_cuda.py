@@ -28,7 +28,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.core import hybrid_mlp as H  # noqa: E402
 from repro_torch.core.binarize import pack_bits, pack_signs_int8  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import COUNTED as GRAPH_COUNTED, ops  # noqa: E402
 from repro_torch.kernels.bf16_matmul import bf16_matmul, bf16_matmul_plain  # noqa: E402
 from repro_torch.kernels.binary_matmul import (binary_matmul,  # noqa: E402
                                                binary_matmul_plain)
@@ -603,9 +603,9 @@ def test_kv_insert_kernel_refuses_what_it_does_not_take(dev):
         kvq.kv_insert("int8", cache, k.half(), k.half(), lens)
     with pytest.raises(TypeError, match="one dtype"):
         kvq.kv_insert("int8", cache, k, k.float(), lens)
-    with pytest.raises(ValueError, match="one token"):
-        kvq.kv_insert("int8", cache, k.expand(2, 2, 4, 80).contiguous(),
-                      k.expand(2, 2, 4, 80).contiguous(), lens)
+    with pytest.raises(ValueError, match="does not fit"):
+        kvq.kv_insert("int8", cache, k.expand(2, 17, 4, 80).contiguous(),
+                      k.expand(2, 17, 4, 80).contiguous(), lens)
     with pytest.raises(ValueError, match="contiguous"):
         kvq.kv_insert("int8", cache, k.transpose(0, 2), k.transpose(0, 2), lens)
     with pytest.raises(TypeError, match="lens"):
@@ -635,6 +635,68 @@ def test_kv_insert_kernel_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="max_len"):
         kvq.kv_prefill("binary", k.expand(2, 5, 4, 80).contiguous(),
                        k.expand(2, 5, 4, 80).contiguous(), 4)
+
+
+# the verify's span insert (S 4 into T 32): lengths within T, clamped at
+# T - S (30, 32), and a free slot; on the paged pool (block 8) spans that
+# cross a page, run past the table's pages, and meet a hole
+SPAN_LENS = [0, 5, 30, 32, 13]
+SPAN_S = 4
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [16, 80, 129])
+@pytest.mark.parametrize("codec", ["int8", "binary"])
+def test_kv_insert_span_kernel_matches_plain(dev, codec, d, dtype):
+    """The insert kernel's span mode (the speculative verify's write) bit
+    for bit against kv_insert_plain's span on both pools: every written row
+    exact (the spare block aside, which takes the dropped rows in no set
+    order), every other byte unchanged, a second call the same, the lengths
+    advanced by S, one launch a call."""
+    g = _gen(dev, 11 * d + len(dtype))
+    dt = getattr(torch, dtype)
+    quant = getattr(kvq, f"kv_quant_{codec}")
+    names = kvq.leaf_names(codec)
+    h, t, bs = 3, 32, 8
+    b = len(SPAN_LENS)
+    k, v = ((torch.randn(b, SPAN_S, h, d, generator=g, device=dev) * 3).to(dt) for _ in range(2))
+    k[1, 2] = 0.0
+    lens = torch.tensor(SPAN_LENS, dtype=torch.int32, device=dev)
+    n_pages, n_blocks = t // bs, 16
+    perm = torch.randperm(n_blocks, generator=g, device=dev).tolist()
+    table = torch.full((b, n_pages), n_blocks + 1, dtype=torch.int32)
+    for i, p in ((1, 0), (1, 1), (2, 3), (3, 0), (3, 3), (4, 1)):  # slot 4: a hole at page 2
+        table[i, p] = perm.pop()
+    table[0] = n_blocks                    # slot 0 free: all holes
+    for tab, nb, tt in ((None, b, t), (table.to(dev), n_blocks + 1, bs)):
+        pool = _pool_leaves(codec, nb, tt, h, d, dev, g)
+        runs = []
+        for _ in range(2):
+            leaves = {n: a.clone() for n, a in pool.items()}
+            before = quant.launches
+            new_lens = kvq.kv_insert(codec, leaves, k, v, lens, table=tab)
+            torch.cuda.synchronize()
+            assert quant.launches == before + 1
+            runs.append(leaves)
+        want = {n: a.clone() for n, a in pool.items()}
+        want_lens = kvq.kv_insert_plain(codec, want, k, v, lens, table=tab)
+        assert torch.equal(new_lens, want_lens)
+        assert new_lens.tolist() == [n + SPAN_S for n in SPAN_LENS]
+        cut = slice(None) if tab is None else slice(0, -1)
+        for r in runs:
+            assert _same_leaves({n: a[cut] for n, a in r.items()},
+                                {n: a[cut] for n, a in want.items()})
+        written = torch.zeros(nb, tt, dtype=torch.bool, device=dev)
+        for i, n in enumerate(SPAN_LENS):
+            for j in range(SPAN_S):
+                if tab is None:
+                    written[i, min(n, t - SPAN_S) + j] = True
+                else:
+                    p = n + j
+                    blk = int(table[i, p // bs]) if p // bs < n_pages else n_blocks
+                    written[min(blk, n_blocks), p % bs] = True
+        for n in names:
+            assert torch.equal(_bits(runs[0][n])[~written], _bits(pool[n])[~written])
 
 
 # (B, Hq, Hkv, D, T, lens, q dtype): the kv_decode phase of chip_smoke.py at
@@ -730,6 +792,207 @@ def test_kv_decode_kernel_refuses_what_it_does_not_take(dev):
                            vc[..., :72].contiguous(), vs, lens)
     with pytest.raises(ValueError, match="query rows"):
         kvd.kv_decode_int8(torch.randn(2, 1, 18, 80, device=dev), kc, ks, vc, vs, lens)
+
+
+# (B, Hq, Hkv, D, T, lens, S, q dtype): the verify's per-query lengths. G 1
+# at S 4 (stablelm-3b at k = 3: one launch), G 4 at S 3 (12 rows: two
+# launches) and G 1 at S 9 (two launches)
+Q_LENS_CASES = [
+    (4, 4, 4, 80, 64, [40, 1, 0, 60], 4, "float32"),
+    (4, 4, 4, 80, 64, [40, 1, 0, 60], 4, "bfloat16"),
+    (3, 8, 2, 64, 48, [17, 44, 5], 3, "float32"),
+    (2, 2, 2, 128, 48, [3, 38], 9, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("kv", ["int8", "binary"])
+@pytest.mark.parametrize("b,hq,hkv,d,t,lens,s,dtype", Q_LENS_CASES)
+def test_kv_decode_q_lens_kernel_matches_plain(dev, kv, b, hq, hkv, d, t, lens, s, dtype):
+    """kv_decode with q_lens (query j of slot b below lens[b] + j + 1, the
+    verify's limits) against its plain version (1e-4 f32 q, 2e-2 bf16 q),
+    one launch per chunk of kv_decode.query_chunks, the same bits on both
+    pools and on a second call."""
+    g = _gen(dev, b * t + d + s)
+    q = torch.randn(b, s, hq, d, generator=g, device=dev).to(getattr(torch, dtype))
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q_lens = (lens_t[:, None] + torch.arange(1, s + 1, device=dev)[None]).to(torch.int32)
+    wrapper = getattr(kvd, f"kv_decode_{kv}")
+    plain = getattr(kvd, f"kv_decode_{kv}_plain")
+    extra = () if kv == "int8" else (d,)
+    cont, paged, table = _decode_pools(kv, b, t, hkv, d, [n + s for n in lens], dev, g)
+    n_launch = len(kvd.query_chunks(s, hq // hkv))
+    outs = []
+    for leaves, tab in ((cont, None), (paged, table)):
+        before = wrapper.launches
+        got = wrapper(q, *leaves, lens_t, *extra, table=tab, q_lens=q_lens)
+        again = wrapper(q, *leaves, lens_t, *extra, table=tab, q_lens=q_lens)
+        want = plain(q, *leaves, lens_t, *extra, table=tab, q_lens=q_lens)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 2 * n_launch
+        assert torch.equal(_bits(got), _bits(again))
+        torch.testing.assert_close(got.float(), want.float(), atol=DECODE_TOL[dtype], rtol=0)
+        outs.append(got)
+    assert torch.equal(_bits(outs[0]), _bits(outs[1]))
+    # without q_lens every query attends below len: as if each had len
+    same = wrapper(q, *cont, lens_t, *extra,
+                   q_lens=lens_t[:, None].expand(b, s).contiguous())
+    torch.testing.assert_close(same, wrapper(q, *cont, lens_t, *extra), atol=0, rtol=0)
+
+
+def _smoke_engine_runs(dev, **kw):
+    """The smoke LM (binary FFNs in the middle block, f32) on the card,
+    served eagerly and through CUDA graphs: (tokens eager, tokens graphed,
+    the graphed engine, the launch counts of each run)."""
+    cfg = smoke_config("stablelm-3b").replace(compute_dtype="float32", param_dtype="float32")
+    api = get_model(cfg)
+    params = _to(api.init(0, device="cpu"), dev)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, 4 + 3 * i) for i in range(5)]
+    outs, engs, launches = [], [], []
+    for graphs in (False, True):
+        eng = ServeEngine(api, params, max_batch=2, max_len=64, cuda_graphs=graphs, **kw)
+        before = {w.__name__: w.launches for w in GRAPH_COUNTED}
+        rids = [eng.add_request(p, max_new=8) for p in prompts]
+        res = eng.run()
+        outs.append([res[r] for r in rids])
+        engs.append(eng)
+        launches.append({w.__name__: w.launches - before[w.__name__] for w in GRAPH_COUNTED})
+    return outs, engs, launches
+
+
+@pytest.mark.parametrize("kw", [dict(kv_cache="int8"),
+                                dict(kv_cache="binary", kv_block_size=8),
+                                dict(kv_cache="int8", temperature=0.8, seed=3),
+                                dict(kv_cache="int8", spec_k=3),
+                                dict(kv_cache="int8", kv_block_size=8, spec_k=3,
+                                     temperature=0.8, seed=3)],
+                         ids=["int8", "binary-paged", "int8-sampled", "spec", "spec-paged-sampled"])
+def test_graph_replay_equals_eager_on_card(dev, kw):
+    """Each decode tick (or speculative wave) replayed as one CUDA graph
+    gives the eager engine's tokens, one replay a step; every kernel's
+    launches equal the eager run's (the warm-up and the capture do not
+    count); a spec engine counts one draft launch a wave, with B1 in the
+    draft's float FFNs."""
+    (eager, graphed), (e0, e1), (l0, l1) = _smoke_engine_runs(dev, **kw)
+    assert graphed == eager
+    assert e1.stats == e0.stats
+    assert e1.graph.replays == e1.stats["decode_steps"] and e0.graph is None
+    assert l1 == l0
+    if kw.get("spec_k"):
+        assert e1.stats["spec_draft_launches"] == e1.stats["spec_waves"]
+        assert l1["binary_matmul"] == 3 * 2 * kw["spec_k"] * e1.stats["spec_waves"]
+
+
+def test_graph_counts_each_replay(dev):
+    """After N replays a wrapper's count has grown by N x what one eager
+    call adds, and the warm-up and the capture added nothing."""
+    from repro_torch.serving.graphs import StepGraph
+    g = _gen(dev, 3)
+    a = pack_signs_int8(torch.randn(8, 256, generator=g, device=dev))
+    pw = pack_bits(torch.randn(64, 256, generator=g, device=dev))
+    state = torch.zeros(4, dtype=torch.int32, device=dev)
+
+    def fn():
+        state.add_(1)
+        return (int8_matmul(a, pw), int8_matmul(a, pw))
+
+    step = StepGraph(fn, dev, keep=[state])
+    before = int8_matmul.launches
+    for n in range(1, 4):
+        out = step()
+        torch.cuda.synchronize()
+        assert int8_matmul.launches == before + 2 * n and step.replays == n
+        assert state.tolist() == [n] * 4            # the warm-up left no trace
+    assert torch.equal(out[0], int8_matmul_plain(a, pw))
+
+
+def _markov(start, n, vocab):
+    out, x = [], start
+    for _ in range(n):
+        out.append(x)
+        x = (x * 7 + 13) % vocab
+    return np.asarray(out, np.int64)
+
+
+def _float_leaves(tree):
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        return [t for v in tree for t in _float_leaves(v)]
+    return [tree] if tree.is_floating_point() else []
+
+
+@pytest.fixture(scope="module")
+def markov_lm():
+    """The smoke LM with float FFNs (f32), trained on the CPU for 200 AdamW
+    steps on the affine-Markov map x -> (7x + 13) mod vocab: the torch twin
+    of tests/conftest.py's ``trained_lm`` (this file imports no jax). Its
+    argmax gaps of several logits let the binarized self-draft agree with
+    the target, which random weights at any width barely do. Skips without
+    a card, so the training runs only where the tests do."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from repro_torch.configs.base import PrecisionPolicy
+    from repro_torch.models import lm_common as lc
+    from repro_torch.models import transformer as tr
+    cfg = smoke_config("stablelm-3b").replace(policy=PrecisionPolicy(), compute_dtype="float32",
+                                              param_dtype="float32")
+    api = get_model(cfg)
+    params = api.init(0, device="cpu")
+    leaves = _float_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    opt = torch.optim.AdamW(leaves, lr=1e-3)
+    rng = np.random.default_rng(0)
+    pos = torch.arange(16)
+    for _ in range(200):
+        toks = torch.as_tensor(np.stack([_markov(int(x), 17, cfg.vocab)
+                                         for x in rng.integers(0, cfg.vocab, 32)]))
+        h, _ = lc.segments_prefill(params["blocks"], tr._embed(params, cfg, toks[:, :-1]), cfg,
+                                   positions=pos, max_len=16)
+        logits = tr._logits(params, cfg, h)[..., :cfg.vocab]
+        loss = torch.nn.functional.cross_entropy(logits.reshape(-1, cfg.vocab),
+                                                 toks[:, 1:].reshape(-1))
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+    for t in leaves:
+        t.requires_grad_(False)
+    assert float(loss.detach()) < 0.2
+    return cfg, api, params
+
+
+@pytest.mark.parametrize("pool", ["contiguous", "paged"])
+@pytest.mark.parametrize("kv", ["bf16", "int8", "binary"])
+def test_spec_on_trained_lm_accepts_on_card(dev, markov_lm, kv, pool):
+    """Speculative decoding (k = 3, greedy) of a trained LM on the card, on
+    each codec and both pools (the paged one with the prefix cache, so
+    blocks filled inside a wave are published and hit): drafts are
+    accepted on every path, the graph replays give the eager waves' tokens
+    and stats, and one draft launch and one replay make a wave. Tokens are
+    held to the eager engine's, not to the plain engine's: on a card the
+    verify and the decode round differently (serving/engine.py)."""
+    cfg, api, params = markov_lm
+    params = _to(params, dev)
+    prompts = [_markov(3 if i % 2 == 0 else 50, 4 + 3 * i, cfg.vocab) for i in range(5)]
+    kw = dict(kv_cache=kv, spec_k=3)
+    if pool == "paged":
+        kw.update(kv_block_size=8, prefix_cache=True)
+    outs, engs = [], []
+    for graphs in (False, True):
+        eng = ServeEngine(api, params, max_batch=2, max_len=64, cuda_graphs=graphs, **kw)
+        rids = [eng.add_request(p, max_new=8) for p in prompts]
+        res = eng.run()
+        outs.append([res[r] for r in rids])
+        engs.append(eng)
+    eager, graphed = engs
+    assert outs[1] == outs[0] and all(len(o) == 8 for o in outs[1])
+    assert graphed.stats == eager.stats
+    assert graphed.graph.replays == graphed.stats["spec_waves"] == \
+        graphed.stats["spec_draft_launches"] > 0
+    assert graphed.acceptance_rate() > 0
+    if pool == "paged":
+        assert graphed.pool.stats["hits"] > 0
 
 
 @pytest.mark.parametrize("kv", ["int8", "binary"])

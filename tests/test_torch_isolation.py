@@ -61,7 +61,8 @@ def test_port_imports_no_jax_and_refuses_missing_card():
     for mod in ("core.hybrid_mlp", "core.accelerator_model", "kernels.binary_matmul",
                 "kernels.hybrid_dense", "kernels.bf16_matmul", "optim.bnn",
                 "data.synthetic", "examples.quickstart", "kernels.kv_quant",
-                "kernels.kv_decode", "serving.kvcache", "serving.prefix"):
+                "kernels.kv_decode", "serving.kvcache", "serving.prefix", "serving.spec",
+                "serving.sampling", "serving.graphs"):
         assert "repro_torch." + mod in out["modules"]
     assert out["leaked"] == []
     assert set(out["raised"]) == {"init", "serve", "mlp_init", "quickstart"}

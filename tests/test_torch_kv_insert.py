@@ -7,10 +7,10 @@ torch scatter), which the card holds the kernel to bit for bit. Here the
 port's codec entry points, which reach those wrappers, are held against
 repro's, leaf for leaf:
 
-* (b) ``Int8Codec`` / ``BinaryCodec.insert_timestep`` on a contiguous pool
-  at lengths 0, 1, T - 1 and T (repro's dynamic_update_slice clamps T to
-  T - 1);
-* (c) ``paged_insert_timestep`` on a paged pool with a shuffled table,
+* (b) ``Int8Codec`` / ``BinaryCodec.insert_span`` of one token (a decode
+  step's insert) on a contiguous pool at lengths 0, 1, T - 1 and T
+  (repro's insert_timestep: dynamic_update_slice clamps T to T - 1);
+* (c) ``paged_insert_span`` of one token on a paged pool with a shuffled table,
   holes, a free slot (all holes) and a length of n_pages * bs (no page):
   repro drops those writes, the port lands them in its spare block, so the
   addressed blocks must match and the spare block must have been written;
@@ -98,7 +98,7 @@ def test_contiguous_insert_equals_repro(codec, dtype, d):
     jcache = {**{n: jnp.asarray(a) for n, a in leaves.items()}, "len": jnp.asarray(lens)}
     cache = {**{n: _t(a) for n, a in leaves.items()}, "len": torch.from_numpy(lens)}
     want = jkvc.get_codec(codec).insert_timestep(jcache, jk, jv)
-    got = kvc.get_codec(codec).insert_timestep(cache, tk, tv)
+    got = kvc.get_codec(codec).insert_span(cache, tk, tv)
     assert set(got) == set(want)
     for name in want:
         _same(got[name], want[name])
@@ -123,10 +123,10 @@ def test_paged_insert_equals_repro(codec, dtype, d):
               "table": jnp.asarray(table), "len": jnp.asarray(lens)}
     # the port's pool holds one spare block past the n_blocks the table addresses
     cache = {**{n: torch.cat([_t(a), torch.zeros_like(_t(a)[:1])]) for n, a in leaves.items()},
-             "table": torch.from_numpy(table), "len": torch.from_numpy(lens)}
+             "table": torch.from_numpy(table), "len": torch.from_numpy(lens.copy())}
     codec_j, codec_t = jkvc.get_codec(codec), kvc.get_codec(codec)
     want = jkvc.paged_insert_timestep(jcache, jk, jv, codec_j)
-    got = kvc.paged_insert_timestep(cache, tk, tv, codec_t)
+    got = kvc.paged_insert_span(cache, tk, tv, codec_t)
     for name in kvq.leaf_names(codec):
         _same(got[name][:-1], want[name])
     # the free slot and the slot past its pages wrote the spare block's row 0

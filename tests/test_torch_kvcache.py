@@ -91,7 +91,7 @@ def test_insert_timestep_writes_at_len(name, pool):
         cache = codec.from_prefill(k, v, 32)
         cache["len"] = torch.tensor(lens, dtype=torch.int32)
         before = codec.materialize(dict(cache), head_dim=D)[0].clone()
-        out = codec.insert_timestep(cache, kn, vn)
+        out = codec.insert_span(cache, kn, vn)
         km, vm = codec.materialize(out, head_dim=D)
     else:
         cache = _paged_layer(codec, k, v, lens)
@@ -103,7 +103,7 @@ def test_insert_timestep_writes_at_len(name, pool):
             leaves = {n: gather_pages(t, table[:2]) for n, t in c.items()}
             return codec.materialize(leaves, head_dim=D)
         before = contiguous(enc)[0]
-        out = kvc.paged_insert_timestep(cache, kn, vn, codec)
+        out = kvc.paged_insert_span(cache, kn, vn, codec)
         km, vm = contiguous(codec.encoded_leaves(out))
         # the free slot's row is all holes: its token went to the spare
         # block, and only two positions of the addressed blocks changed

@@ -136,8 +136,10 @@ def test_bad_requests_raise_admission_error(engines, prompt, max_new, code):
 def test_unported_engine_options_raise(engines):
     make, _ = engines
     _, teng = make(max_batch=2, max_len=32)
-    for kw, item in [({"temperature": 0.5}, "A5"), ({"spec_k": 2}, "A5"),
-                     ({"interleave": True}, "A6"),
+    for kw, item in [({"interleave": True}, "A6"),
                      ({"scheduler": "slo"}, "A6"), ({"mesh": object()}, "A9")]:
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             ServeEngine(teng.api, teng.params, max_batch=2, max_len=32, **kw)
+    # sampled and speculative decoding are ported (A5)
+    for kw in ({"temperature": 0.5}, {"spec_k": 2}):
+        ServeEngine(teng.api, teng.params, max_batch=2, max_len=32, **kw)
