@@ -15,7 +15,8 @@ Phases, one output line each (or a few), every failure raising:
      required in B2's, B3's bf16, B1's, B5's and B6's kernel functions;
   3. int8: the int8-binary GEMM kernel against its plain version at the
      serving path's shapes (decode M = 1, 8 and 16, the speculative
-     verify's M = 8 x 4 = 32, prefill M = 8 x 128 and 8 x 256, bin_in
+     verify's M = 8 x 4 = 32, prefill M = 8 x 128 and 8 x 256, an
+     interleaved prefill slice's M = 64 and 128, bin_in
      (N, K) = (6912, 2560) and bin_out (2560, 6912)),
      a ragged case and, with activations over all of [-128, 127], a
      decode and a prefill case, required to be exactly equal; times of the
@@ -62,7 +63,9 @@ Phases, one output line each (or a few), every failure raising:
      launches, the byte bound and, as context only, SDPA over a bf16 cache
      of the same lengths; then the verify's attend with per-query lengths
      (S 4, query j below len + j + 1, bf16 q) within 2e-2, one launch a
-     call, beside its plain version, bound and SDPA with the same masks;
+     call, beside its plain version, bound and SDPA with the same masks,
+     and the same at an interleaved prefill slice's S 8 (one launch) and
+     S 16 (two launches of 8 query rows, each query keeping its length);
   6. serve: stablelm-3b at full width (32 layers, d_model 2560, bf16,
      random init from a seeded torch.Generator on the card) through
      ServeEngine(max_batch=8, max_len=256), 12 requests of 16 new tokens,
@@ -111,6 +114,29 @@ Phases, one output line each (or a few), every failure raising:
      share of tokens equal to the plain graph path's, the plain model's
      top-2 logit gap at each request's first divergence, acceptance and
      tok/s (replayed and eager);
+ 6c. interleave: the same model with interleaved prefill (prefill slices
+     run eagerly between the decode ticks' graph replays) on three paths:
+     contiguous int8 and binary at the default slice (8 tokens) and paged
+     int8 with the prefix cache on the header prompts at prefill_chunk 32.
+     Each path's tokens equal the chunked blocking engine's at the same
+     chunk, exactly; both runs' launches are held exactly to what their
+     slices or chunks (B2 2 x 28, the insert kernel 32, kv_decode 32 x
+     ceil(c / 8), B3 0 each), their cached-prefix suffix prefills and
+     their replays imply, with each replay's counts held to its graph's
+     kernel nodes; the share of tokens equal to the monolithic blocking
+     path is printed, not gated. Telemetry on against off on the int8 path:
+     the same tokens, launches and replays. TTFT and ITL (p50, p99, the
+     worst gap) of the blocking and the interleaved int8 engine on a
+     Poisson workload (16 requests, 0.5 a step, prompts of {16, 48, 100,
+     128}, 16 new tokens), gated on structure only (prefill_slice spans and
+     no prefill_wave interleaved, the reverse blocking, the slice histogram
+     = the slices > 0, every request's 16 tokens). The HTTP front door
+     (localhost, port 0) over an interleaved int8 engine: three concurrent
+     SSE streams equal a direct engine's tokens, an over-long prompt gets
+     400, close() leaves no thread of its own. The launcher as a user runs
+     it (a subprocess: --kv-cache int8 --interleave --scheduler slo with
+     --metrics-out, --trace-out and --torch-profile): exit 0, the metrics
+     parse, the trace holds prefill_slice spans, the profile is written;
   7. xnor: the XNOR-popcount GEMM against its plain version, exactly, at
      the MNIST net's hidden layers (M = 1, 128, 256, 512; N = K = 1024),
      ragged K (40, 100, 384) and the spec draft's shapes (gate / up 8 x
@@ -161,6 +187,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -318,6 +345,11 @@ INT8_CASES = [  # (name, M, N, K)
     ("decode M 16 bin_out", 16, 2560, 6912),
     ("spec verify bin_in M 32", 32, 6912, 2560),
     ("spec verify bin_out M 32", 32, 2560, 6912),
+    # an interleaved prefill slice: 8 rows x chunk 8, 4 rows x chunk 32
+    ("slice bin_in M 64", 64, 6912, 2560),
+    ("slice bin_out M 64", 64, 2560, 6912),
+    ("slice bin_in M 128", 128, 6912, 2560),
+    ("slice bin_out M 128", 128, 2560, 6912),
 ]
 # activations drawn from all of [-128, 127]: the kernel is exact for any
 # int8, and so are the plain f32 version and the yardsticks (|sum| < 2**24)
@@ -494,10 +526,13 @@ KV_PATHS = [("int8", dict(kv_cache="int8"), False),
                                                prefix_cache=True), True)]
 
 
-def _serve_once(api, params, prompts, staged=False, **kw):
+def _serve_once(api, params, prompts, staged=False, setup=None, **kw):
     """Serve ``prompts`` through a fresh engine; ``staged``, the first
-    request runs to its end before the others arrive."""
+    request runs to its end before the others arrive; ``setup`` is called
+    with the engine before any request."""
     eng = ServeEngine(api, params, max_batch=8, max_len=256, **kw)
+    if setup is not None:
+        setup(eng)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rids = [eng.add_request(p, max_new=MAX_NEW) for p in prompts[:1]]
@@ -859,7 +894,8 @@ def phase_serve(dev, card: str) -> dict:
     log("profile", card=card, **prof)
     log("profile_eager", card=card, **prof_eager)
     spec = phase_spec(api, params, cfg, prompts, shared, plain, n_binary, card)
-    return {**row, "paths": paths, "spec": spec}
+    interleave = phase_interleave(api, params, cfg, prompts, shared, plain, n_binary, card)
+    return {**row, "paths": paths, "spec": spec, "interleave": interleave}
 
 
 # ---------------------------------------------------------------------------
@@ -1021,6 +1057,392 @@ def phase_spec(api, params, cfg, prompts, shared, plain, n_binary, card) -> dict
     errs = _verify_vs_decode(params, cfg, dev)
     log("spec_verify", card=card, verify_vs_sequential_decode=errs)
     return {"paths": rows, "plain_sampled": s_row, "verify_vs_decode": errs}
+
+
+# ---------------------------------------------------------------------------
+# phase 6c: interleaved and chunked prefill, telemetry, the front door
+# ---------------------------------------------------------------------------
+
+# (label, ServeEngine options, header prompts, chunk, the monolithic path
+# whose tokens are compared, not gated); int8 and binary interleave at the
+# default slice (the smallest bucket, 8), the paged run at prefill_chunk 32
+INTERLEAVE_PATHS = [("interleave int8", dict(kv_cache="int8"), False, 8, "int8"),
+                    ("interleave binary", dict(kv_cache="binary"), False, 8, "binary"),
+                    ("interleave paged int8 + prefix cache",
+                     dict(kv_cache="int8", kv_block_size=16, prefix_cache=True), True, 32,
+                     "paged int8 + prefix cache")]
+POISSON_N, POISSON_RATE = 16, 0.5          # requests, arrivals per decode step
+
+
+def _prefill_calls(eng, calls: dict) -> None:
+    """Count the engine's prefill work into ``calls``: chunks (of chunked
+    prefills and slices) and their kv_decode launches per layer (one per 8
+    query rows, G = 1), suffix prefills against a cached prefix, and
+    monolithic prefills (the flash kernel)."""
+    api = eng.api
+
+    def chunked(p, b, chunk, **kw):
+        s = b["tokens"].shape[1]
+        c = min(chunk, s)
+        calls["chunks"] += s // c
+        calls["decode_rows"] += (s // c) * -(-c // kvd.MAX_ROWS)
+        return api.prefill_chunked(p, b, chunk=chunk, **kw)
+
+    def sliced(p, c, tok, h, sl, pos):
+        calls["chunks"] += 1
+        calls["decode_rows"] += -(-tok.shape[1] // kvd.MAX_ROWS)
+        return api.prefill_slice(p, c, tok, h, sl, pos)
+
+    def counted(name, fn):
+        def call(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return call
+    eng.api = api._replace(prefill_chunked=chunked, prefill_slice=sliced,
+                           prefill_ctx=counted("ctx", api.prefill_ctx),
+                           prefill=counted("monolithic", api.prefill))
+
+
+def _check_prefill_path(label, launches, eng, cfg, n_binary, kv, calls) -> None:
+    """Every kernel's launches on a chunked or interleaved path: per chunk
+    or slice B2 2 x binary blocks, the insert kernel 32 (its span mode into
+    the transient cache), kv_decode 32 x ceil(c / 8), B3 0; per suffix
+    prefill on a cached prefix B2, the insert kernel and the dequantizer's
+    2 x 32 (its context); per monolithic prefill B3 32; per decode step (a
+    replay) B2, the insert kernel and kv_decode as on the plain paths."""
+    steps, L = eng.stats["decode_steps"], cfg.n_layers
+    waves = calls["chunks"] + calls["ctx"] + calls["monolithic"]
+    want = {k: 0 for k in KERNELS}
+    want["int8_matmul"] = 2 * n_binary * (waves + steps)
+    want["flash_attention"] = L * calls["monolithic"]
+    want[f"kv_quant_{kv}"] = L * (waves + steps)
+    want[f"kv_decode_{kv}"] = L * (calls["decode_rows"] + steps)
+    want[f"kv_dequant_{kv}"] = 2 * L * calls["ctx"]
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, want {want} for {calls} and "
+                             f"{steps} decode steps")
+    _check_replays(label, eng)
+
+
+def _drive_poisson(eng, workload) -> list:
+    """Feed (arrival step, prompt, max_new) requests into the engine by its
+    step clock, skipping idle gaps; -> each request's tokens."""
+    pending, base, rids = sorted(workload, key=lambda w: w[0]), eng.step_count, []
+    while pending or eng.queue or any(r is not None for r in eng.slots) or eng._jobs:
+        while pending and pending[0][0] <= eng.step_count - base:
+            _, prompt, max_new = pending.pop(0)
+            rids.append(eng.add_request(prompt, max_new=max_new))
+        if not eng.step() and pending:
+            eng.step_count = max(eng.step_count + 1, base + pending[0][0])
+    torch.cuda.synchronize()
+    return [eng.results[r] for r in rids]
+
+
+def _latency(api, params, cfg, card) -> dict:
+    """TTFT and ITL of the blocking and the interleaved int8 engine, each
+    with telemetry, on one Poisson workload (warmed on every bucket first,
+    then the registry reset). Gated on structure only: the interleaved run
+    books prefill_slice spans and no prefill_wave, the blocking run the
+    reverse, the slice histogram counts every slice, every request gets its
+    tokens. Speed is printed, not gated."""
+    from repro_torch.serving.scheduler import poisson_workload
+    from repro_torch.serving.telemetry import ENGINE_PID, Telemetry
+    wl = poisson_workload(POISSON_N, rate=POISSON_RATE, prompt_lens=PROMPT_LENS,
+                          max_new=(MAX_NEW, MAX_NEW), vocab=cfg.vocab, seed=SEED)
+    rows = {}
+    for mode, kw in (("blocking", {}), ("interleaved", {"interleave": True})):
+        tm = Telemetry()
+        eng = ServeEngine(api, params, max_batch=8, max_len=256, kv_cache="int8",
+                          telemetry=tm, **kw)
+        for n in PROMPT_LENS:                                 # warm every bucket
+            eng.add_request(np.arange(n) % cfg.vocab, max_new=2)
+        eng.run()
+        tm.reset()
+        slices0, jobs0 = eng.stats["prefill_slices"], eng.stats["prefill_jobs"]
+        t0 = time.perf_counter()
+        out = _drive_poisson(eng, wl)
+        wall = time.perf_counter() - t0
+        if any(len(o) != MAX_NEW for o in out):
+            raise AssertionError(f"latency, {mode}: a request ended early: {out}")
+        spans = {e["name"] for e in tm.chrome_trace()["traceEvents"]
+                 if e["ph"] == "X" and e["pid"] == ENGINE_PID}
+        slices = eng.stats["prefill_slices"] - slices0
+        if mode == "interleaved":
+            ok = ("prefill_slice" in spans and "prefill_wave" not in spans
+                  and tm.prefill_slice_s.count == slices > 0)
+        else:
+            ok = "prefill_wave" in spans and "prefill_slice" not in spans and slices == 0
+        if not ok:
+            raise AssertionError(f"latency, {mode}: spans {spans}, {slices} slices, "
+                                 f"{tm.prefill_slice_s.count} slice observations")
+        rows[mode] = dict(requests=POISSON_N, rate=POISSON_RATE, wall_s=wall,
+                          tokens=sum(len(o) for o in out),
+                          ttft_p50_ms=tm.ttft.percentile(50) * 1e3,
+                          ttft_p99_ms=tm.ttft.percentile(99) * 1e3,
+                          itl_p50_ms=tm.itl.percentile(50) * 1e3,
+                          itl_p99_ms=tm.itl.percentile(99) * 1e3,
+                          itl_max_ms=max(tm.itl.samples) * 1e3,
+                          decode_tick_p50_ms=tm.decode_s.percentile(50) * 1e3,
+                          prefill_slice_p50_ms=tm.prefill_slice_s.percentile(50) * 1e3,
+                          prefill_wave_p50_ms=tm.prefill_s.percentile(50) * 1e3,
+                          prefill_slices=slices,
+                          prefill_jobs=eng.stats["prefill_jobs"] - jobs0,
+                          decode_steps=eng.stats["decode_steps"])
+    log("interleave_latency", card=card, **rows)
+    return rows
+
+
+def _sse(base: str, prompt, max_new: int) -> list[int]:
+    import urllib.request
+    req = urllib.request.Request(base + "/v1/generate", headers={"Content-Type":
+                                                                 "application/json"},
+                                 data=json.dumps({"prompt": [int(t) for t in prompt],
+                                                  "max_new": max_new,
+                                                  "stream": True}).encode())
+    toks, done = [], None
+    with urllib.request.urlopen(req, timeout=300) as r:
+        for line in r:
+            line = line.decode().strip()
+            if line.startswith("data: "):
+                ev = json.loads(line[len("data: "):])
+                if "token" in ev:
+                    toks.append(ev["token"])
+                else:
+                    done = ev
+    if done != {"done": True, "tokens": toks}:
+        raise AssertionError(f"front door: the stream ended with {done}")
+    return toks
+
+
+def _front_door(api, params, cfg) -> dict:
+    """A FrontDoor on port 0 (localhost) over a full-width interleaved int8
+    engine with telemetry, started as a user starts it (``start()``: the
+    listener and the engine thread): three SSE clients, started together,
+    each get the tokens a direct engine gives the same request. The three
+    prompts lie in three buckets (16, 64, 128), so each prefill job holds
+    one request however the HTTP threads happen to enqueue them, and every
+    decode tick replays one graph over all the slots: a request's tokens do
+    not depend on when its neighbours arrived. A prompt past max_len gets
+    400; /metrics counts the tokens; close() leaves no live thread of the
+    front door's."""
+    import threading
+    import urllib.error
+    import urllib.request
+    from repro_torch.launch.server import FrontDoor
+    from repro_torch.serving.telemetry import Telemetry
+    rng = np.random.default_rng(SEED + 2)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in (16, 48, 100)]
+    kw = dict(max_batch=8, max_len=256, kv_cache="int8", interleave=True)
+    direct = ServeEngine(api, params, **kw)
+    rids = [direct.add_request(p, max_new=MAX_NEW) for p in prompts]
+    res = direct.run()
+    want = [res[r] for r in rids]
+    fd = FrontDoor(ServeEngine(api, params, telemetry=Telemetry(), **kw), port=0,
+                   queue_limit=8).start()
+    base = f"http://{fd.host}:{fd.port}"
+    got, errs = [None] * 3, []
+
+    def client(i):
+        try:
+            got[i] = _sse(base, prompts[i], MAX_NEW)
+        except Exception as e:  # noqa: BLE001 - recorded and raised below
+            errs.append(e)
+    t0 = time.perf_counter()
+    try:
+        clients = [threading.Thread(target=client, args=(i,)) for i in range(3)]
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(timeout=600)
+        stream_s = time.perf_counter() - t0
+        try:
+            urllib.request.urlopen(urllib.request.Request(
+                base + "/v1/generate", data=json.dumps({"prompt": [1] * 300,
+                                                        "max_new": 4}).encode()), timeout=60)
+            status = 200
+        except urllib.error.HTTPError as e:
+            status, body = e.code, json.loads(e.read())
+        metrics = urllib.request.urlopen(base + "/metrics", timeout=60).read().decode()
+        health = json.loads(urllib.request.urlopen(base + "/healthz", timeout=60).read())
+    finally:
+        fd.close()
+    alive = [t.name for t in threading.enumerate() if t.name.startswith("frontdoor")]
+    if errs or got != want:
+        raise AssertionError(f"front door: streams {got}, direct {want}, errors {errs}")
+    if status != 400 or body["error"]["code"] != "prompt_too_long":
+        raise AssertionError(f"front door: an over-long prompt got {status}")
+    if f"serve_tokens_total {3 * MAX_NEW}" not in metrics.splitlines() or alive \
+            or health != {"ok": True}:
+        raise AssertionError(f"front door: metrics, health {health} or live threads {alive}")
+    return dict(clients=3, tokens=sum(len(o) for o in got), stream_s=stream_s,
+                overlong_status=status)
+
+
+def _http_launcher(card) -> dict:
+    """The launcher's ``--http`` mode as a user runs it, at full width on the
+    int8 pool (interleave on, its default there): it logs its port,
+    /healthz answers, one JSON request gets MAX_NEW tokens, and SIGINT ends
+    it with exit code 0 and a metrics file that counts those tokens."""
+    import queue
+    import re
+    import signal
+    import threading
+    import urllib.request
+    root = Path(__file__).resolve().parent
+    out = OUT_DIR / "launcher"
+    out.mkdir(parents=True, exist_ok=True)
+    metrics = out / "http_metrics.json"
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "stablelm-3b",
+           "--kv-cache", "int8", "--prompt-lens", "48", "--max-new", str(MAX_NEW),
+           "--http", "0", "--metrics-out", str(metrics)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True,
+                            env={**os.environ, "PYTHONPATH": str(root / "src")})
+    lines: queue.Queue = queue.Queue()
+    reader = threading.Thread(target=lambda: [lines.put(x) for x in proc.stderr], daemon=True)
+    reader.start()
+    err, base = [], None
+    try:
+        while base is None and time.perf_counter() - t0 < 300:
+            try:
+                line = lines.get(timeout=1.0)
+            except queue.Empty:
+                if proc.poll() is not None:
+                    break
+                continue
+            err.append(line)
+            m = re.search(r"serving on (http://[\d.]+:\d+)", line)
+            base = m.group(1) if m else None
+        if base is None:
+            raise AssertionError(f"--http: no port logged: {''.join(err)[-3000:]}")
+        up_s = time.perf_counter() - t0
+        health = json.loads(urllib.request.urlopen(base + "/healthz", timeout=60).read())
+        prompt = [int(t) for t in np.random.default_rng(SEED + 3).integers(0, 256, 48)]
+        r = json.loads(urllib.request.urlopen(urllib.request.Request(
+            base + "/v1/generate", headers={"Content-Type": "application/json"},
+            data=json.dumps({"prompt": prompt, "max_new": MAX_NEW}).encode()),
+            timeout=300).read())
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    reader.join(timeout=10)
+    while not lines.empty():
+        err.append(lines.get())
+    if rc != 0 or health != {"ok": True} or len(r["tokens"]) != MAX_NEW:
+        raise AssertionError(f"--http: rc {rc}, health {health}, answer {r}: "
+                             f"{''.join(err)[-3000:]}")
+    m = json.loads(metrics.read_text())
+    if m["counters"]["serve_tokens_total"] != MAX_NEW:
+        raise AssertionError(f"--http: metrics {m['counters']}")
+    return dict(seconds=time.perf_counter() - t0, up_s=up_s, rc=rc,
+                tokens=len(r["tokens"]),
+                interleave_warned=any("--http turns --interleave on" in x for x in err))
+
+
+def _launcher(card) -> dict:
+    """The serving launcher as a user runs it, at full width, interleaved
+    on the int8 pool with the SLO scheduler, telemetry files and a
+    torch.profiler trace: it exits 0, the metrics JSON parses, the trace
+    holds prefill_slice spans, the profile directory is not empty."""
+    root = Path(__file__).resolve().parent
+    out = OUT_DIR / "launcher"
+    out.mkdir(parents=True, exist_ok=True)
+    metrics, trace, prof = out / "metrics.json", out / "trace.json", out / "profile"
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "stablelm-3b",
+           "--requests", str(N_REQUESTS), "--prompt-lens", ",".join(map(str, PROMPT_LENS)),
+           "--max-new", str(MAX_NEW), "--kv-cache", "int8", "--interleave", "--scheduler",
+           "slo", "--metrics-out", str(metrics), "--trace-out", str(trace),
+           "--torch-profile", str(prof)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600,
+                          env={**os.environ, "PYTHONPATH": str(root / "src")})
+    if proc.returncode != 0:
+        raise AssertionError(f"launcher exited {proc.returncode}: {proc.stderr[-3000:]}")
+    m = json.loads(metrics.read_text())
+    spans = {e["name"] for e in json.loads(trace.read_text())["traceEvents"] if e["ph"] == "X"}
+    if "prefill_slice" not in spans or not any(prof.iterdir()) or \
+            m["counters"]["serve_tokens_total"] != N_REQUESTS * MAX_NEW:
+        raise AssertionError(f"launcher: spans {spans}, profile {list(prof.iterdir())}, "
+                             f"metrics {m['counters']}")
+    return dict(seconds=time.perf_counter() - t0, spans=sorted(spans),
+                tokens=m["counters"]["serve_tokens_total"],
+                ttft_p50_ms=m["histograms"]["serve_ttft_seconds"]["p50"] * 1e3,
+                itl_p50_ms=m["histograms"]["serve_itl_seconds"]["p50"] * 1e3,
+                profile_files=sorted(f.name for f in prof.iterdir()))
+
+
+def phase_interleave(api, params, cfg, prompts, shared, plain, n_binary, card) -> dict:
+    """Full-width stablelm-3b with interleaved prefill: on each path of
+    INTERLEAVE_PATHS the interleaved engine's tokens equal the chunked
+    blocking engine's at the same chunk exactly, and the launches of both
+    runs equal what their slices, chunks, suffix prefills and replays
+    imply; the share of tokens equal to the monolithic blocking path is
+    printed, not gated. Then telemetry on against off (int8: the same
+    tokens, launches and replays), TTFT and ITL on a Poisson workload, the
+    front door, and the launcher in its batch and its --http mode."""
+    from repro_torch.serving.telemetry import Telemetry
+    rows, launches = [], []
+    for label, kw, on_header, chunk, base in INTERLEAVE_PATHS:
+        batch = shared if on_header else prompts
+        kv = kw["kv_cache"]
+        runs = {}
+        for mode, extra in (("chunked", dict(prefill_chunk=chunk)),
+                            ("interleaved", dict(interleave=True,
+                                                 **({"prefill_chunk": chunk}
+                                                    if chunk != 8 else {})))):
+            calls = dict.fromkeys(("chunks", "decode_rows", "ctx", "monolithic"), 0)
+            out, wall, eng, n, _ = _counted_run(
+                f"{label}, {mode}", api, params, batch, staged=on_header,
+                setup=lambda e, c=calls: _prefill_calls(e, c), **kw, **extra)
+            _check_outputs(f"{label}, {mode}", out, cfg.vocab)
+            _check_prefill_path(f"{label}, {mode}", n, eng, cfg, n_binary, kv, calls)
+            runs[mode] = (out, wall, eng, n, calls)
+            launches.append(n)
+        (c_out, c_wall, c_eng, _, c_calls), (out, wall, eng, n, calls) = \
+            runs["chunked"], runs["interleaved"]
+        if out != c_out:
+            raise AssertionError(f"{label}: interleaved tokens differ from chunked blocking")
+        if not (eng.stats["prefill_slices"] == calls["chunks"] > 0
+                and eng.stats["prefill_jobs"] > 0 and calls["monolithic"] == 0):
+            raise AssertionError(f"{label}: stats {eng.stats}, calls {calls}")
+        if kw.get("prefix_cache") and not (eng.pool.stats["hits"] > 0 and calls["ctx"] > 0):
+            raise AssertionError(f"{label}: no prefix hits {eng.pool.stats}")
+        n_tok = sum(len(o) for o in out)
+        row = dict(path=label, chunk=chunk, tokens=n_tok, launches=n, calls=calls,
+                   chunked_calls=c_calls, prefill_jobs=eng.stats["prefill_jobs"],
+                   prefill_slices=eng.stats["prefill_slices"], prefills=eng.stats["prefills"],
+                   decode_steps=eng.stats["decode_steps"], graph_replays=eng.graph.replays,
+                   chunked_decode_steps=c_eng.stats["decode_steps"],
+                   tokens_as_chunked=1.0,
+                   tokens_as_monolithic=sum(a == b for o, w in zip(out, plain[base])
+                                            for a, b in zip(o, w)) / n_tok,
+                   wall_s_first=wall, wall_s_chunked_first=c_wall,
+                   tok_per_s_first=n_tok / wall, tok_per_s_chunked_first=n_tok / c_wall)
+        if label == "interleave int8":
+            # telemetry on: the same tokens, launches per wrapper and replays
+            t_out, _, t_eng, t_n, _ = _counted_run(f"{label}, telemetry", api, params, batch,
+                                                   telemetry=Telemetry(), interleave=True, **kw)
+            if (t_out, t_n, t_eng.graph.replays) != (out, n, eng.graph.replays):
+                raise AssertionError(f"{label}: telemetry on changed the run: {t_n} vs {n}, "
+                                     f"{t_eng.graph.replays} vs {eng.graph.replays} replays")
+            launches.append(t_n)
+            row["telemetry_on_equal"] = True
+        log("interleave", **row)
+        rows.append(row)
+    latency = _latency(api, params, cfg, card)
+    front = _front_door(api, params, cfg)
+    log("interleave_front_door", card=card, **front)
+    torch.cuda.empty_cache()
+    launcher = _launcher(card)
+    log("interleave_launcher", card=card, **launcher)
+    http = _http_launcher(card)
+    log("interleave_http_launcher", card=card, **http)
+    return {"paths": rows, "latency": latency, "front_door": front, "launcher": launcher,
+            "http_launcher": http, "launches": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -1468,30 +1890,37 @@ def phase_kv_decode(dev, gen, timer) -> dict[str, list]:
             if not _same_bits(outs["contiguous"], outs["paged"]):
                 raise AssertionError(f"kv_decode: paged differs from contiguous at {kv}, {name}")
     for kv in ("int8", "binary"):
-        rows[f"kv_decode_{kv}"] += _decode_q_lens(kv, dev, gen, timer)
+        for s in (SPAN_S, *SLICE_S):
+            rows[f"kv_decode_{kv}"] += _decode_q_lens(kv, dev, gen, timer, s)
     return rows
 
 
-def _decode_q_lens(kv, dev, gen, timer) -> list[dict]:
-    """kv_decode with the verify's per-query lengths at the serving shape
-    (B 8, S 4, 32 heads of 80, bf16 q; query j of slot b below min(lens[b]
-    + j + 1, T), so the free slot's queries see its first positions) on the
-    contiguous and the paged pool: within 2e-2 of the plain version, the
-    same bits on a second call and on both pools, one launch (G S = 4 rows);
-    timed beside the plain recurrence, the byte bound and, as context, SDPA
-    over a bf16 cache with the same per-query masks."""
+SLICE_S = (8, 16)     # an interleaved prefill slice's queries (chunk 8 and 16, G 1)
+
+
+def _decode_q_lens(kv, dev, gen, timer, s: int) -> list[dict]:
+    """kv_decode with per-query lengths at the serving shape (B 8, 32 heads
+    of 80, bf16 q; query j of slot b below min(lens[b] + j + 1, T), so the
+    free slot's queries see its first positions): S 4 is the verify's, S 8
+    and 16 an interleaved prefill slice's. On the contiguous and the paged
+    pool: within 2e-2 of the plain version, the same bits on a second call
+    and on both pools, one launch per MAX_ROWS query rows (G S = 4 and 8:
+    one; 16: two, each query keeping its own length); timed beside the
+    plain recurrence, the byte bound and, as context, SDPA over a bf16
+    cache with the same per-query masks."""
     hq = hkv = INSERT_H
     d = INSERT_D
     lens_t = torch.tensor(DECODE_LENS, dtype=torch.int32, device=dev)
-    q_lens = torch.clamp(lens_t[:, None] + torch.arange(1, SPAN_S + 1, device=dev)[None],
+    q_lens = torch.clamp(lens_t[:, None] + torch.arange(1, s + 1, device=dev)[None],
                          max=DECODE_T).to(torch.int32)
-    q = torch.randn(DECODE_B, SPAN_S, hq, d, generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn(DECODE_B, s, hq, d, generator=gen, device=dev).to(torch.bfloat16)
     wrapper = getattr(kvd, f"kv_decode_{kv}")
     plain = getattr(kvd, f"kv_decode_{kv}_plain")
     extra = () if kv == "int8" else (d,)
-    visible = [min(n + SPAN_S, DECODE_T) for n in DECODE_LENS]
+    n_launch = len(kvd.query_chunks(s, hq // hkv))
+    visible = [min(n + s, DECODE_T) for n in DECODE_LENS]
     cont, paged, table = _decode_pools(kv, hkv, d, visible, dev, gen)
-    sdpa_q = torch.randn(DECODE_B, hq, SPAN_S, d, generator=gen, device=dev).to(torch.bfloat16)
+    sdpa_q = torch.randn(DECODE_B, hq, s, d, generator=gen, device=dev).to(torch.bfloat16)
     sdpa_k, sdpa_v = (torch.randn(DECODE_B, hkv, DECODE_T, d, generator=gen, device=dev)
                       .to(torch.bfloat16) for _ in range(2))
     cols = torch.arange(DECODE_T, device=dev)
@@ -1500,13 +1929,13 @@ def _decode_q_lens(kv, dev, gen, timer) -> list[dict]:
                                                           attn_mask=mask))
     out, outs = [], {}
     for pool, leaves, tab in (("contiguous", cont, None), ("paged", paged, table)):
-        label = f"{kv}, {pool}, verify (8, {SPAN_S}, 32, 80), bf16 q, q_lens"
+        label = f"{kv}, {pool}, (8, {s}, 32, 80), bf16 q, q_lens"
         before = wrapper.launches
         call = lambda: wrapper(q, *leaves, lens_t, *extra, table=tab, q_lens=q_lens)  # noqa: E731
         got, again = call(), call()
         want = plain(q, *leaves, lens_t, *extra, table=tab, q_lens=q_lens)
         torch.cuda.synchronize()
-        if wrapper.launches != before + 2:
+        if wrapper.launches != before + 2 * n_launch:
             raise AssertionError(f"kv_decode with q_lens: {wrapper.launches - before} "
                                  f"launches for 2 calls at {label}")
         if not _same_bits(got, again):
@@ -1520,12 +1949,13 @@ def _decode_q_lens(kv, dev, gen, timer) -> list[dict]:
                          reps=10)
         row_b = d + 2 if kv == "int8" else 4 * packed_len(d) + 2
         nbytes = (2 * sum(visible) * hkv * row_b + 2 * q.numel() * q.element_size()
-                  + 4 * DECODE_B * (1 + SPAN_S)
+                  + 4 * DECODE_B * (1 + s)
                   + (4 * sum(-(-n // PAGE) for n in visible) if tab is not None else 0))
         flops = 4.0 * hq * d * int(q_lens.sum())
         b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
-        row = dict(case=f"{pool}, verify S {SPAN_S} with q_lens, bf16 q", codec=kv, pool=pool,
-                   B=DECODE_B, S=SPAN_S, T=DECODE_T, Hq=hq, Hkv=hkv, D=d, q_dtype="bfloat16",
+        what = "verify" if s == SPAN_S else "prefill slice"
+        row = dict(case=f"{pool}, {what} S {s} with q_lens, bf16 q", codec=kv, pool=pool,
+                   B=DECODE_B, S=s, T=DECODE_T, launches_per_call=n_launch, Hq=hq, Hkv=hkv, D=d, q_dtype="bfloat16",
                    lens=DECODE_LENS, page=PAGE if tab is not None else None,
                    max_abs_err=err, tol=DECODE_TOL[torch.bfloat16], ms=ms, plain_ms=plain_ms,
                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -1983,7 +2413,8 @@ def main() -> int:
     path_launches = [serve["launches"], mnist["launches"],
                      *(p["launches"] for p in serve["paths"]),
                      serve["spec"]["plain_sampled"]["launches"],
-                     *(p["launches"] for p in serve["spec"]["paths"])]
+                     *(p["launches"] for p in serve["spec"]["paths"]),
+                     *serve["interleave"]["launches"]]
 
     def entry(kname, source, replaces, rows):
         # the headline case is the first: decode bin_in, full-length flash,

@@ -10,6 +10,11 @@
     logits, caches = api.prefill_ctx(params, {"tokens": t}, ctx, ctx_lens,
                                      max_len=, seq_lens=)
     logits, caches = api.verify(params, caches, tokens)     # (B, S) -> (B, S, Vp)
+    logits, caches = api.prefill_chunked(params, {"tokens": t}, max_len=, seq_lens=,
+                                         chunk=)
+    caches, h_last = api.prefill_slice_init(batch_size, max_len, device=)
+    h_last, caches = api.prefill_slice(params, caches, tokens, h_last, seq_lens, pos)
+    logits, caches = api.prefill_slice_finish(params, caches, h_last, seq_lens)
 
 The port serves ``family="dense"`` with GQA attention. MLA and the other
 families raise NotImplementedError (ROADMAP A8); training (``loss``)
@@ -40,6 +45,19 @@ class ModelApi(NamedTuple):
     # (B, S)) scores S tokens in one pass, their K/V appended to the caches;
     # None for a model whose cache decodes one token at a time (MLA)
     verify: Callable | None = None
+    # blockwise prefill: prefill_chunked(params, batch, max_len=, seq_lens=,
+    # chunk=) runs token chunks through the verify path; the same (logits,
+    # caches) contract as prefill
+    prefill_chunked: Callable | None = None
+    # interleaved prefill (one slice per serving tick): prefill_slice_init(
+    # batch, max_len, device=) -> (caches, h_last); prefill_slice(params,
+    # caches, tokens, h_last, seq_lens, pos) appends one chunk's K/V and
+    # takes the rows' last hidden states (pos a host int);
+    # prefill_slice_finish(params, caches, h_last, seq_lens) -> (logits,
+    # caches) runs the head once and seals the lengths
+    prefill_slice_init: Callable | None = None
+    prefill_slice: Callable | None = None
+    prefill_slice_finish: Callable | None = None
 
 
 def get_model(cfg: ModelConfig) -> ModelApi:
@@ -65,4 +83,10 @@ def get_model(cfg: ModelConfig) -> ModelApi:
         prefill_ctx=lambda p, b, ctx, cl, **kw: t.lm_prefill_ctx(p, cfg, b["tokens"], ctx,
                                                                  cl, **kw),
         verify=lambda p, c, tok: t.lm_verify(p, cfg, c, tok),
+        prefill_chunked=lambda p, b, **kw: t.lm_prefill_chunked(p, cfg, b["tokens"], **kw),
+        prefill_slice_init=lambda bs, ml, device: t.lm_prefill_slice_init(cfg, bs, ml,
+                                                                         device=device),
+        prefill_slice=lambda p, c, tok, h, sl, pos: t.lm_prefill_slice(p, cfg, c, tok, h, sl,
+                                                                        pos),
+        prefill_slice_finish=lambda p, c, h, sl: t.lm_prefill_slice_finish(p, cfg, c, h, sl),
     )

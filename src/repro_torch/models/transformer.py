@@ -1,6 +1,7 @@
 """Decoder LM for the dense GQA archs (port of repro/models/transformer.py,
-serving half: init, prefill, suffix prefill against a cached prefix,
-decode, the speculative verify, contiguous and paged caches)."""
+serving half: init, prefill, chunked and interleaved (sliced) prefill,
+suffix prefill against a cached prefix, decode, the speculative verify,
+contiguous and paged caches)."""
 
 from __future__ import annotations
 
@@ -66,6 +67,74 @@ def lm_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         rows = torch.arange(b, device=tokens.device)
         h_last = h[rows, seq_lens.to(torch.int64) - 1][:, None, :]
         caches = lc.set_cache_lengths(caches, seq_lens)
+    return _logits(params, cfg, h_last)[:, 0], caches
+
+
+def lm_prefill_chunked(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+                       max_len: int | None = None, seq_lens=None, chunk: int = 64):
+    """Blockwise prefill: the prompt runs as chunks of ``chunk`` tokens
+    through the verify path, each chunk's K/V appended at cache positions
+    len .. len + c - 1 and its queries attending causally to everything
+    cached so far (the decode attend with per-query lengths), so live
+    activations are O(B * chunk), not O(B * S). The head runs once on the
+    last real token's hidden state: the same (logits, caches) contract as
+    lm_prefill. ``chunk`` must divide the padded length S (power-of-two
+    buckets and chunks do). The lowering an interleaved prefill runs a
+    slice per tick: its tokens equal this one's bit for bit."""
+    if cfg.use_mla:
+        raise ValueError("chunked prefill requires GQA blocks (the verify path); MLA's "
+                         "absorbed cache decodes one token at a time")
+    b, s = tokens.shape
+    max_len = max_len or s
+    c = min(int(chunk), s)
+    if c < 1 or s % c:
+        raise ValueError(f"chunk ({chunk}) must divide the padded prefill length ({s})")
+    caches, h_last = lm_prefill_slice_init(cfg, b, max_len, device=tokens.device)
+    lens = torch.full((b,), s, dtype=torch.int32, device=tokens.device) \
+        if seq_lens is None else \
+        torch.as_tensor(seq_lens, dtype=torch.int32, device=tokens.device)
+    for pos in range(0, s, c):
+        h_last, caches = lm_prefill_slice(params, cfg, caches, tokens[:, pos:pos + c],
+                                          h_last, lens, pos)
+    return lm_prefill_slice_finish(params, cfg, caches, h_last, lens)
+
+
+def lm_prefill_slice_init(cfg: ModelConfig, batch: int, max_len: int, *, device):
+    """Empty state of an interleaved (slice-at-a-time) prefill: transient
+    decode caches at the serving pool's length, in its codec, and a zero
+    h_last buffer (B, 1, d) the slices write each row's last real hidden
+    state into."""
+    caches = lc.init_segment_caches(cfg, batch, max_len, dtype=lc.cdt(cfg), device=device)
+    h_last = torch.zeros((batch, 1, cfg.d_model), dtype=lc.cdt(cfg), device=device)
+    return caches, h_last
+
+
+def lm_prefill_slice(params: dict, cfg: ModelConfig, caches: list, tokens: torch.Tensor,
+                     h_last: torch.Tensor, seq_lens: torch.Tensor, pos: int):
+    """One slice of an interleaved prefill: tokens (B, C) are prompt
+    positions pos .. pos + C - 1 (right-padded rows included); their K/V go
+    to cache positions len .. len + C - 1 through the verify path (caches
+    updated in place), and a row whose last real token (seq_lens - 1) falls
+    in this slice has its hidden state taken into h_last (B, 1, d) on the
+    device (``torch.where``: no host sync). No head runs here:
+    lm_prefill_slice_finish applies it once. ``pos`` is a host int."""
+    c = tokens.shape[1]
+    x = _embed(params, cfg, tokens)
+    h, caches = lc.segments_verify(params["blocks"], x, cfg, caches)
+    last = seq_lens.to(torch.int64) - 1
+    idx = torch.clamp(last - pos, 0, c - 1)
+    row = torch.gather(h, 1, idx[:, None, None].expand(-1, 1, h.shape[-1]))
+    hit = (last >= pos) & (last < pos + c)
+    return torch.where(hit[:, None, None], row, h_last), caches
+
+
+def lm_prefill_slice_finish(params: dict, cfg: ModelConfig, caches: list,
+                            h_last: torch.Tensor, seq_lens: torch.Tensor):
+    """Close an interleaved prefill: the head on the taken last-token
+    hidden states, and every layer's length reset to the rows' true lengths
+    (pad positions past seq_lens become invisible, as after lm_prefill)."""
+    seq_lens = torch.as_tensor(seq_lens, dtype=torch.int32, device=h_last.device)
+    caches = lc.set_cache_lengths(caches, seq_lens)
     return _logits(params, cfg, h_last)[:, 0], caches
 
 

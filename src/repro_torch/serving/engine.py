@@ -1,6 +1,7 @@
-"""Continuous-batching slot engine (port of repro/serving/engine.py: greedy
-decoding, the FIFO scheduler, the KV codecs on the contiguous and the paged
-pool, and the radix prefix cache).
+"""Continuous-batching slot engine (port of repro/serving/engine.py: greedy,
+sampled and speculative decoding, the FIFO and SLO schedulers, blocking,
+chunked and interleaved prefill, the KV codecs on the contiguous and the
+paged pool, the radix prefix cache, and telemetry).
 
 A fixed pool of ``max_batch`` decode slots. Every tick decodes the whole
 pool in one batched step, and requests flow through three states:
@@ -55,13 +56,40 @@ Two pool layouts (``kv_block_size``):
                 share its physical blocks and prefill only their un-cached
                 suffix.
 
-Not ported yet, and refused with the ROADMAP item that ports them:
-interleaved prefill, the SLO scheduler and telemetry (A6), and meshes (A9).
+Prefill. A blocking wave prefills a whole admission group before the
+tick's decode, in one call (``prefill_chunk=0``: the flash kernel) or as
+chunks of ``prefill_chunk`` tokens through the verify path
+(``api.prefill_chunked``). With ``interleave=True`` an admitted group
+becomes a prefill job: its slots are committed at once and assigned at
+install, and each tick runs ``slices_per_tick`` slices of
+``prefill_chunk`` (else the smallest bucket) tokens beside the decode
+batch, each into the job's own transient cache at the pool's length and in
+its codec (``api.prefill_slice``). The last slice's finish runs the head,
+then the install shared with the blocking wave samples the first tokens and
+writes the job's cache into the pool's tensors in place, so interleaved
+tokens equal the chunked blocking engine's. A group with a cached prefix
+(paged, prefix cache on) runs as one blocking suffix prefill, still
+scheduled as a job. On a card a slice runs eagerly between two replays,
+its tokens and lengths already on the device: no host sync inside a slice.
+The decode tick and the speculative wave stay one replay each.
+
+``scheduler="slo"`` admits by (SLO class, arrival) with a hard
+``starvation_limit`` (serving/scheduler.py). ``telemetry=`` (a
+serving/telemetry.Telemetry) records request spans, per-phase tick
+histograms, queue wait, TTFT and ITL from host clocks and host integers
+only: telemetry on and off launch the same kernels and replay the same
+graphs, and TTFT / ITL are stamped after the tick's existing token read.
+``add_request(stream=)`` delivers each token, then None at the finish, to
+a callback (the HTTP front door's seam, launch/server.py).
+
+Not ported yet, and refused with the ROADMAP item that ports them: meshes
+(A9).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 
 import numpy as np
 import torch
@@ -72,31 +100,34 @@ from repro_torch.serving import sampling
 from repro_torch.serving.graphs import StepGraph
 from repro_torch.serving.prefix import PrefixPool
 from repro_torch.serving.scheduler import (AdmissionError, FifoScheduler, Request,
-                                           accept_wave, bucket_len, make_buckets,
-                                           pad_group, slo_rank)
+                                           SloScheduler, accept_wave, bucket_len,
+                                           make_buckets, pad_group, slo_rank)
 
-# every ServeEngine.stats key and what it counts
+log = logging.getLogger("repro_torch.serving.engine")
+
+# every ServeEngine.stats key, its type, and what it counts (repro's keys)
 STATS_SCHEMA = {
-    "decode_steps": "engine ticks (decode steps or spec waves)",
-    "occupied_slot_steps": "sum over ticks of occupied slots",
-    "prefills": "prefill waves (one per admitted group)",
-    "admitted": "requests admitted into a slot",
-    "evictions": "requests finished and evicted",
-    "generated_tokens": "tokens emitted across all requests",
-    "prefilled_tokens": "tokens run through prefill attention",
-    "cached_prompt_tokens": "prompt tokens served from the radix prefix cache "
-                            "instead of prefill",
-    "spec_waves": "speculative draft / verify waves run",
-    "spec_drafted": "draft tokens proposed",
-    "spec_accepted": "draft tokens accepted by verify",
-    "spec_draft_launches": "device launches spent drafting: one per wave (a graph "
-                           "replay on a card)",
-    "kv_bytes": "resident bytes of the preallocated KV pool",
+    "decode_steps": (int, "engine ticks (decode steps or spec waves)"),
+    "occupied_slot_steps": (int, "sum over ticks of occupied slots"),
+    "prefills": (int, "admission prefill installs (blocking waves or completed "
+                      "interleaved jobs)"),
+    "prefill_jobs": (int, "interleaved prefill jobs started (0 with interleave off)"),
+    "prefill_slices": (int, "interleaved prefill slices run alongside decode ticks"),
+    "admitted": (int, "requests admitted into a slot"),
+    "evictions": (int, "requests finished and evicted"),
+    "generated_tokens": (int, "tokens emitted across all requests"),
+    "prefilled_tokens": (int, "tokens run through prefill attention"),
+    "cached_prompt_tokens": (int, "prompt tokens served from the radix prefix cache "
+                                  "instead of prefill"),
+    "spec_waves": (int, "speculative draft / verify waves run"),
+    "spec_drafted": (int, "draft tokens proposed"),
+    "spec_accepted": (int, "draft tokens accepted by verify"),
+    "spec_draft_launches": (int, "device launches spent drafting: one per wave (a "
+                                 "graph replay on a card)"),
+    "kv_bytes": (int, "resident bytes of the preallocated KV pool"),
+    "kv_bytes_per_device": (int, "per-device shard of kv_bytes (== kv_bytes on one "
+                                 "device)"),
 }
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 @dataclasses.dataclass
@@ -108,25 +139,48 @@ class _PagedSlot:
     private: list                # physical blocks owned by this request
 
 
+@dataclasses.dataclass
+class _PrefillJob:
+    """One admitted group prefilling a slice per tick (interleave mode).
+
+    Its slots are committed (counted against free capacity) when the job
+    starts but assigned at install, after the last slice; until then the
+    prompts' K/V accumulate in a transient cache the size of one prefill
+    batch, so decoding slots never see a partial prefill."""
+    admitted: list               # [(Request, chain, blocks)]; contiguous: empty
+    #                              chain and blocks
+    toks: np.ndarray             # (gp, blen) right-padded suffix tokens
+    lens: np.ndarray             # (gp,) true suffix lengths
+    blen: int                    # padded bucket length
+    gp: int                      # padded group size
+    monolithic: bool             # one blocking call at its turn (a cached
+    #                              prefix: its attention reads gathered context)
+    arrays: dict | None          # paged group arrays (_paged_arrays)
+    todo: int = 0                # slice coverage target (ceil(max lens / c) * c)
+    pos: int = 0                 # prompt tokens already sliced
+    caches: list | None = None   # transient prefill cache (allocated at the first
+    #                              slice, dropped at install)
+    h_last: torch.Tensor | None = None   # (gp, 1, d) taken last hidden states
+    toks_dev: torch.Tensor | None = None  # toks and lens on the device: a slice
+    lens_dev: torch.Tensor | None = None  # copies nothing from the host
+    arrival: int = 0             # min member arrival (job aging)
+    rank: int = 0                # min member SLO rank (job priority)
+    t_start: float = 0.0         # admission-decision clock (telemetry)
+
+
 class ServeEngine:
     def __init__(self, api, params, *, max_batch: int = 8, max_len: int = 512,
-                 temperature: float = 0.0, seed: int = 0, attn_impl: str | None = None,
-                 kv_cache: str | None = None, kv_block_size: int = 0,
-                 prefix_cache: bool = False, n_blocks: int | None = None,
-                 spec_k: int = 0, spec_draft: str = "binary",
-                 spec_draft_impl: str | None = None, mesh=None,
-                 telemetry=None, interleave: bool = False,
-                 scheduler: str = "fifo", cuda_graphs: bool = True):
-        if interleave:
-            _not_ported("interleaved prefill", "A6")
-        if telemetry is not None:
-            _not_ported("serving telemetry", "A6")
-        if scheduler == "slo":
-            _not_ported("the SLO scheduler", "A6")
-        if scheduler != "fifo":
-            raise ValueError(f"unknown scheduler {scheduler!r}")
+                 temperature: float = 0.0, seed: int = 0, min_bucket: int = 8,
+                 attn_impl: str | None = None, kv_cache: str | None = None,
+                 kv_block_size: int = 0, prefix_cache: bool = False,
+                 n_blocks: int | None = None, spec_k: int = 0, spec_draft: str = "binary",
+                 spec_draft_impl: str | None = None, mesh=None, prefill_chunk: int = 0,
+                 telemetry=None, interleave: bool = False, slices_per_tick: int = 1,
+                 scheduler: str = "fifo", starvation_limit: int = 64,
+                 cuda_graphs: bool = True):
         if mesh is not None:
-            _not_ported("tensor-parallel serving (mesh)", "A9")
+            raise NotImplementedError("tensor-parallel serving (mesh) is not ported yet "
+                                      "(ROADMAP A9)")
         if spec_draft_impl is not None and spec_draft_impl not in SPEC_DRAFT_IMPLS:
             raise ValueError(f"unknown spec_draft_impl {spec_draft_impl!r}: "
                              f"expected one of {SPEC_DRAFT_IMPLS}")
@@ -150,14 +204,42 @@ class ServeEngine:
             raise ValueError(f"model {api.cfg.name!r} has no multi-token verify step "
                              "(MLA/SSM caches decode one token at a time); speculative "
                              "decoding requires a GQA KV pool (spec_k=0)")
+        self.prefill_chunk = int(prefill_chunk)
+        if self.prefill_chunk < 0 or self.prefill_chunk & (self.prefill_chunk - 1):
+            raise ValueError(f"prefill_chunk must be 0 or a power of two (buckets are "
+                             f"powers of two), got {prefill_chunk}")
+        if self.prefill_chunk and api.prefill_chunked is None:
+            raise ValueError(f"model {api.cfg.name!r} has no chunked prefill (GQA "
+                             "families only); use prefill_chunk=0")
+        self.interleave = bool(interleave)
+        self.slices_per_tick = int(slices_per_tick)
+        if self.interleave and self.slices_per_tick < 1:
+            raise ValueError(f"slices_per_tick must be >= 1, got {slices_per_tick}")
+        if self.interleave and api.prefill_slice is None:
+            raise ValueError(f"model {api.cfg.name!r} has no prefill slice step (GQA "
+                             "families only — the verify path); use interleave=False")
+        if scheduler not in ("fifo", "slo"):
+            raise ValueError(f"unknown scheduler {scheduler!r}: expected 'fifo' or 'slo'")
         self.api, self.params = api, params
         self.device = params["embed"]["table"].device
         self.max_batch, self.max_len = max_batch, max_len
         self._next_rid = 0
         self.queue: list[Request] = []
         self.results: dict[int, list[int]] = {}
-        self.buckets = make_buckets(max_len)
-        self.sched = FifoScheduler(self.buckets)
+        # host-side observer; None = no telemetry (on and off give the same
+        # tokens and the same device work)
+        self.tm = telemetry
+        reg = telemetry.registry if telemetry is not None else None
+        self.buckets = make_buckets(max_len, min_bucket=min_bucket)
+        self.sched = (SloScheduler(self.buckets, metrics=reg, starvation_limit=starvation_limit)
+                      if scheduler == "slo" else FifoScheduler(self.buckets, metrics=reg))
+        # interleaved prefill: jobs in flight and the slots promised to them
+        # (so two jobs never target the same future vacancy)
+        self._jobs: list[_PrefillJob] = []
+        self._committed = 0
+        # the slice width: prefill_chunk when set, else the smallest bucket;
+        # both powers of two, so slices tile every padded bucket
+        self.slice_chunk = self.prefill_chunk or self.buckets[0]
         self.slots: list[Request | None] = [None] * max_batch
         self.next_tok = np.zeros((max_batch, 1), np.int32)
         self.block_size = int(kv_block_size)
@@ -173,15 +255,24 @@ class ServeEngine:
             self.n_blocks = n_blocks if n_blocks is not None else max_batch * self.n_pages
             self.caches = api.init_paged_cache(self.n_blocks, bs, max_batch, self.n_pages,
                                                device=self.device)
-            self.pool = PrefixPool(self.n_blocks, bs)
+            self.pool = PrefixPool(self.n_blocks, bs, metrics=reg)
             self._pstate: dict[int, _PagedSlot] = {}
             self._codec = kvc.get_codec(api.cfg.kv_cache)
             self._hole_row = np.full((self.n_pages,), self.n_blocks, np.int32)
         else:
+            self.pool_len = max_len
             self.caches = api.init_cache(max_batch, max_len, self.device)
         self.step_count = 0
         self.stats = {k: 0 for k in STATS_SCHEMA}
         self.stats["kv_bytes"] = kvc.kv_pool_bytes(self.caches)
+        # one device until ROADMAP A9 shards the pool
+        self.stats["kv_bytes_per_device"] = self.stats["kv_bytes"]
+        if self.tm is not None:
+            self.tm.engine_started(kv_bytes=self.stats["kv_bytes"],
+                                   kv_bytes_per_device=self.stats["kv_bytes_per_device"],
+                                   max_batch=max_batch,
+                                   n_blocks=self.n_blocks if self.paged else None,
+                                   byte_breakdown=kvc.kv_pool_byte_breakdown(self.caches))
         self.temperature = float(temperature)
         self._seed_key = sampling.prng_key(seed, device=self.device)
         self.spec_k = int(spec_k)
@@ -236,14 +327,19 @@ class ServeEngine:
                 spec_k=int(self.spec_k), max_len=int(self.max_len))
 
     def add_request(self, prompt, max_new: int = 16, stop_tokens=(),
-                    slo: str = "standard") -> int:
+                    slo: str = "standard", stream=None) -> int:
+        """Queue one request; ``stream``, if given, is called with each
+        generated token and then with None at the finish (on the engine's
+        thread: it should only hand the token on)."""
         prompt = np.asarray(prompt, np.int32)
         self.check_request(len(prompt), max_new, slo)
         rid = self._next_rid
         self._next_rid += 1
         self.queue.append(Request(rid, prompt, max_new,
                                   stop_tokens=frozenset(int(t) for t in stop_tokens),
-                                  slo=slo, arrival=self.step_count))
+                                  slo=slo, arrival=self.step_count, stream=stream))
+        if self.tm is not None:
+            self.tm.request_added(rid, len(prompt))
         return rid
 
     def _stream_arrays(self, reqs) -> tuple[np.ndarray, np.ndarray]:
@@ -285,11 +381,28 @@ class ServeEngine:
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
 
+    def _notify(self, r: Request, tok):
+        """Deliver one stream event (a token id, or None: finished) to the
+        request's observer; an observer's failure never reaches the tick
+        loop (a broken client is that client's problem)."""
+        if r.stream is None:
+            return
+        try:
+            r.stream(tok)
+        except Exception:  # noqa: BLE001 - observer code is untrusted
+            log.exception("stream callback failed for rid %d", r.rid)
+            r.stream = None
+
     def _finish(self, slot: int):
         r = self.slots[slot]
         self.results[r.rid] = r.out
         self.slots[slot] = None
         self.stats["evictions"] += 1
+        self._notify(r, None)
+        if self.tm is not None:
+            reason = ("stop" if r.out and r.out[-1] in r.stop_tokens
+                      and len(r.out) < r.max_new else "max_new")
+            self.tm.request_finished(r.rid, reason)
         if self.paged:
             st = self._pstate.pop(slot)
             self.pool.release(st.chain)
@@ -308,6 +421,7 @@ class ServeEngine:
         r.out.append(tok)
         self.next_tok[slot, 0] = tok
         self.stats["generated_tokens"] += 1
+        self._notify(r, tok)
         if len(r.out) >= r.max_new or tok in r.stop_tokens:
             self._finish(slot)
             return True
@@ -324,9 +438,13 @@ class ServeEngine:
             lens[j] = len(r.prompt)
         return toks, lens, blen, gp
 
-    def _install_contig(self, group, gp, logits, new):
+    def _install_contig(self, group, blen, gp, logits, new, *, wave_t0=None,
+                        t_admit=0.0):
         """Sample first tokens and scatter one prefilled group's caches into
-        free slots."""
+        free slots, in place: the install the blocking wave and the
+        interleaved job share, so their tokens match. ``wave_t0`` set: a
+        blocking wave ran (its prefill_wave span); ``t_admit`` ends the
+        requests' queue wait (the admission decision)."""
         free = [i for i, r in enumerate(self.slots) if r is None]
         nxt = self._sample(logits, list(group) + [None] * (gp - len(group)))
         # dummy rows aim past the pool and are dropped by the scatter
@@ -335,12 +453,32 @@ class ServeEngine:
         self.caches = self.api.cache_insert(
             self.caches, new, torch.as_tensor(idx, device=self.device))
         self.stats["prefills"] += 1
+        now = 0.0
+        if self.tm is not None:
+            now = self.tm.clock()
+            if wave_t0 is not None:
+                self.tm.prefill_wave(wave_t0, n_reqs=len(group), bucket=blen, now=now)
         for j, r in enumerate(group):
             slot = int(idx[j])
             self.slots[slot] = r
             self.stats["admitted"] += 1
             self.stats["prefilled_tokens"] += len(r.prompt)
+            if self.tm is not None:
+                self.tm.request_admitted(r.rid, slot=slot, prefilled_tokens=len(r.prompt),
+                                         now=t_admit)
+                self.tm.tokens_emitted(r.rid, 1, now=now)
             self._append_token(slot, int(nxt[j]))
+
+    def _prefill(self, toks: np.ndarray, lens: np.ndarray):
+        """One blocking prefill of a padded group at the pool's length:
+        monolithic, or in chunks of ``prefill_chunk`` through the verify
+        path."""
+        batch = {"tokens": self._tensor(toks)}
+        kw = dict(max_len=self.pool_len, seq_lens=self._tensor(lens))
+        if self.prefill_chunk:
+            return self.api.prefill_chunked(self.params, batch, chunk=self.prefill_chunk,
+                                            **kw)
+        return self.api.prefill(self.params, batch, **kw)
 
     def _admit(self):
         """Prefill queued requests into free slots (one group per bucket)."""
@@ -349,17 +487,15 @@ class ServeEngine:
             return
         free = [i for i, r in enumerate(self.slots) if r is None]
         while free and self.queue:
-            group = self.sched.select(self.queue, len(free))
+            group = self.sched.select(self.queue, len(free), clock=self.step_count)
             if not group:
                 break
             for r in group:
                 self.queue.remove(r)
             toks, lens, blen, gp = self._group_arrays(group)
-            logits, new = self.api.prefill(
-                self.params, {"tokens": torch.as_tensor(toks, device=self.device)},
-                max_len=self.max_len,
-                seq_lens=torch.as_tensor(lens, device=self.device))
-            self._install_contig(group, gp, logits, new)
+            t0 = self.tm.clock() if self.tm is not None else 0.0
+            logits, new = self._prefill(toks, lens)
+            self._install_contig(group, blen, gp, logits, new, wave_t0=t0, t_admit=t0)
             free = [i for i, r in enumerate(self.slots) if r is None]
 
     # -- paged admission (radix prefix cache) ---------------------------------
@@ -374,7 +510,8 @@ class ServeEngine:
         chains = {r.rid: self.pool.match(r.prompt, clock=self.step_count)
                   if self.prefix_on else [] for r in self.queue}
         group = self.sched.select(self.queue, n_free,
-                                  length_of=lambda r: len(r.prompt) - len(chains[r.rid]) * bs)
+                                  length_of=lambda r: len(r.prompt) - len(chains[r.rid]) * bs,
+                                  clock=self.step_count)
         if not group:
             return []
         # pin every candidate's chain before any allocation: eviction only
@@ -406,8 +543,9 @@ class ServeEngine:
             if not admitted:
                 break
             a = self._paged_arrays(admitted)
+            t0 = self.tm.clock() if self.tm is not None else 0.0
             logits, new = self._paged_prefill_call(a)
-            self._install_paged(admitted, a, logits, new)
+            self._install_paged(admitted, a, logits, new, wave_t0=t0, t_admit=t0)
             free = [i for i, r in enumerate(self.slots) if r is None]
 
     def _paged_arrays(self, admitted) -> dict:
@@ -438,24 +576,25 @@ class ServeEngine:
         for j, (_, chain, _) in enumerate(admitted):
             ctx_tab[j, :len(chain)] = [n.block for n in chain]
         return {"toks": toks, "lens": lens, "plens": plens, "ctx_lens": ctx_lens,
-                "rows": rows, "dest": dest, "gp": gp, "max_ctx_pages": max_ctx_pages,
-                "ctx_tab": ctx_tab}
+                "rows": rows, "dest": dest, "blen": blen, "gp": gp,
+                "max_ctx_pages": max_ctx_pages, "ctx_tab": ctx_tab}
 
     def _paged_prefill_call(self, a: dict):
-        """One suffix prefill: plain, or against the gathered cached prefix."""
-        batch = {"tokens": self._tensor(a["toks"])}
-        lens = self._tensor(a["lens"])
+        """One blocking suffix prefill: plain (or chunked), or against the
+        gathered cached prefix."""
         if a["max_ctx_pages"] == 0:
-            return self.api.prefill(self.params, batch, max_len=self.pool_len,
-                                    seq_lens=lens)
+            return self._prefill(a["toks"], a["lens"])
         ctx = kvc.gather_prefix_context(self.caches, self._tensor(a["ctx_tab"]),
                                         self._codec, self.api.cfg.kv_head_dim())
-        return self.api.prefill_ctx(self.params, batch, ctx, self._tensor(a["ctx_lens"]),
-                                    max_len=self.pool_len, seq_lens=lens)
+        return self.api.prefill_ctx(self.params, {"tokens": self._tensor(a["toks"])}, ctx,
+                                    self._tensor(a["ctx_lens"]), max_len=self.pool_len,
+                                    seq_lens=self._tensor(a["lens"]))
 
-    def _install_paged(self, admitted, a: dict, logits, new):
+    def _install_paged(self, admitted, a: dict, logits, new, *, wave_t0=None, t_admit=0.0):
         """Scatter one prefilled paged group into its blocks and free slots,
-        then publish its prompts' full blocks."""
+        in place, then publish its prompts' full blocks: shared by the
+        blocking wave and the interleaved job (``wave_t0``, ``t_admit`` as
+        in _install_contig)."""
         bs = self.block_size
         free = [i for i, r in enumerate(self.slots) if r is None]
         slots = free[:len(admitted)]
@@ -469,6 +608,11 @@ class ServeEngine:
                                              self._tensor(a["plens"]),
                                              self._tensor(slot_idx))
         self.stats["prefills"] += 1
+        now = 0.0
+        if self.tm is not None:
+            now = self.tm.clock()
+            if wave_t0 is not None:
+                self.tm.prefill_wave(wave_t0, n_reqs=len(admitted), bucket=a["blen"], now=now)
         for j, (r, chain, blocks) in enumerate(admitted):
             slot = slots[j]
             self.slots[slot] = r
@@ -478,6 +622,10 @@ class ServeEngine:
             self.stats["admitted"] += 1
             self.stats["prefilled_tokens"] += int(a["lens"][j])
             self.stats["cached_prompt_tokens"] += int(a["ctx_lens"][j])
+            if self.tm is not None:
+                self.tm.request_admitted(r.rid, slot=slot, prefilled_tokens=int(a["lens"][j]),
+                                         cached_tokens=int(a["ctx_lens"][j]), now=t_admit)
+                self.tm.tokens_emitted(r.rid, 1, now=now)
             self.pool.record_hit(chain)
             if self.prefix_on:
                 # publish the prompt's full blocks past the matched prefix:
@@ -499,18 +647,128 @@ class ServeEngine:
             st.private.remove(int(st.row[pi]))
         st.chain.append(node)
 
+    # -- interleaved prefill (slices beside the decode ticks) -----------------
+
+    def _start_jobs(self):
+        """Dequeue admissible work into new prefill jobs. Slots are committed
+        (deducted from capacity) here, so two jobs never target the same
+        future vacancy, but assigned only at install."""
+        free = sum(1 for r in self.slots if r is None) - self._committed
+        while free > 0 and self.queue:
+            if self.paged:
+                admitted = self._select_paged(free)
+                if not admitted:
+                    break
+                a = self._paged_arrays(admitted)
+                # a cached-prefix group cannot slice (its attention reads
+                # gathered context): one blocking call at its turn
+                job = _PrefillJob(admitted=admitted, toks=a["toks"], lens=a["lens"],
+                                  blen=a["blen"], gp=a["gp"],
+                                  monolithic=a["max_ctx_pages"] > 0, arrays=a)
+            else:
+                group = self.sched.select(self.queue, free, clock=self.step_count)
+                if not group:
+                    break
+                for r in group:
+                    self.queue.remove(r)
+                toks, lens, blen, gp = self._group_arrays(group)
+                job = _PrefillJob(admitted=[(r, [], []) for r in group], toks=toks,
+                                  lens=lens, blen=blen, gp=gp, monolithic=False,
+                                  arrays=None)
+            if not job.monolithic:
+                # copied to the device here, once: a slice copies nothing
+                # from the host (and so never waits for the device)
+                job.toks_dev, job.lens_dev = self._tensor(job.toks), self._tensor(job.lens)
+            reqs = [r for r, _, _ in job.admitted]
+            c = min(self.slice_chunk, job.blen)
+            job.todo = -(-int(job.lens.max()) // c) * c
+            job.rank = min(slo_rank(r.slo) for r in reqs)
+            job.arrival = min(r.arrival for r in reqs)
+            job.t_start = self.tm.clock() if self.tm is not None else 0.0
+            self._jobs.append(job)
+            self._committed += len(reqs)
+            self.stats["prefill_jobs"] += 1
+            free = sum(1 for r in self.slots if r is None) - self._committed
+
+    def _job_key(self, job: _PrefillJob):
+        """Job service order: starved first, then (SLO rank, arrival)."""
+        limit = getattr(self.sched, "starvation_limit", None)
+        starved = limit is not None and self.step_count - job.arrival > limit
+        return (0 if starved else 1, job.rank, job.arrival)
+
+    def _advance_job(self, job: _PrefillJob) -> bool:
+        """One unit of prefill work; True: the job finished and installed."""
+        if job.monolithic:
+            logits, new = self._paged_prefill_call(job.arrays)
+            self._install_paged(job.admitted, job.arrays, logits, new, t_admit=job.t_start)
+            return True
+        t0 = self.tm.clock() if self.tm is not None else 0.0
+        if job.caches is None:
+            # the job's transient cache: zeros on the pool's device
+            job.caches, job.h_last = self.api.prefill_slice_init(job.gp, self.pool_len,
+                                                                 device=self.device)
+        c = min(self.slice_chunk, job.blen)
+        job.h_last, job.caches = self.api.prefill_slice(
+            self.params, job.caches, job.toks_dev[:, job.pos:job.pos + c], job.h_last,
+            job.lens_dev, job.pos)
+        job.pos += c
+        self.stats["prefill_slices"] += 1
+        if self.tm is not None:
+            self.tm.prefill_slice(t0, n_reqs=len(job.admitted), tokens=c * job.gp,
+                                  bucket=job.blen)
+        if job.pos < job.todo:
+            return False
+        logits, new = self.api.prefill_slice_finish(self.params, job.caches, job.h_last,
+                                                    job.lens_dev)
+        job.caches = job.h_last = None
+        if self.paged:
+            self._install_paged(job.admitted, job.arrays, logits, new, t_admit=job.t_start)
+        else:
+            self._install_contig([r for r, _, _ in job.admitted], job.blen, job.gp, logits,
+                                 new, t_admit=job.t_start)
+        return True
+
+    def _prefill_tick(self):
+        """Interleave-mode admission: start jobs for queued work, then run up
+        to ``slices_per_tick`` units of prefill beside this tick's decode
+        batch. With no slot decoding there is nothing to starve, so the
+        backlog drains freely until an install re-arms the decode loop."""
+        self._start_jobs()
+        idle = all(r is None for r in self.slots)
+        n = self.slices_per_tick
+        while self._jobs and (n > 0 or idle):
+            job = min(self._jobs, key=self._job_key)
+            n -= 1
+            if self._advance_job(job):
+                self._jobs.remove(job)
+                self._committed -= len(job.admitted)
+                # an install can finish at once (max_new = 1) and free its
+                # slots again: let newly admissible work start now
+                self._start_jobs()
+                idle = all(r is None for r in self.slots)
+
+    def _admit_tick(self) -> bool:
+        """A tick's admission (blocking waves, or interleaved jobs); True if
+        a slot is left to decode. With jobs still in flight and no slot
+        decoding, the clock moves on and the tick reports busy."""
+        if self.interleave:
+            self._prefill_tick()
+        else:
+            self._admit()
+        return any(r is not None for r in self.slots)
+
     # -- engine ticks -------------------------------------------------------
 
     def step(self) -> bool:
         """One tick: admit into free slots, then one batched decode step over
         the full pool (or one draft / verify wave with spec_k > 0). Returns
-        False once no slot is occupied (idle)."""
+        False once no slot is occupied and no prefill job is in flight."""
         if self.spec_k:
             return self._step_spec()
-        self._admit()
+        if not self._admit_tick():
+            return self._idle_tick()
         active = [i for i, r in enumerate(self.slots) if r is not None]
-        if not active:
-            return False
+        t0 = self.tm.clock() if self.tm is not None else 0.0
         self._fill(tok=self.next_tok)
         if self.temperature > 0:
             rids, steps = self._stream_arrays(self.slots)
@@ -520,16 +778,33 @@ class ServeEngine:
         self.step_count += 1
         self.stats["decode_steps"] += 1
         self.stats["occupied_slot_steps"] += len(active)
+        now = 0.0
+        if self.tm is not None:
+            now = self.tm.clock()
+            self.tm.decode_tick(t0, n_active=len(active), now=now)
         for i in active:
+            r = self.slots[i]
             if self.prefix_on:
                 # the decode wrote K/V at position plen + len(out) - 1: publish
                 # the block it completed, if any
-                st, r = self._pstate[i], self.slots[i]
+                st = self._pstate[i]
                 cur = st.plen + len(r.out)       # cache length after this tick
                 if cur % self.block_size == 0:
                     self._publish_block(st, cur // self.block_size - 1, r)
+            if self.tm is not None:
+                self.tm.tokens_emitted(r.rid, 1, now=now)
             self._append_token(i, int(nxt[i]))
+        if self.tm is not None:
+            self.tm.update_gauges(self._telemetry_gauges())
         return True
+
+    def _idle_tick(self) -> bool:
+        """No slot to decode: busy (the clock moves on) while prefill jobs
+        are in flight, idle otherwise."""
+        if self._jobs:
+            self.step_count += 1
+            return True
+        return False
 
     def _step_spec(self) -> bool:
         """One speculative wave: admit, draft spec_k tokens through the
@@ -539,10 +814,9 @@ class ServeEngine:
         token is drawn from the target's logits on the request's own (rid,
         step) stream, so the tokens equal the plain engine's; the draft only
         decides how many a wave banks (1 .. spec_k + 1 a slot)."""
-        self._admit()
+        if not self._admit_tick():
+            return self._idle_tick()
         active = [i for i, r in enumerate(self.slots) if r is not None]
-        if not active:
-            return False
         k = self.spec_k
         # the pre-wave cache length per slot (plen + len(out) - 1: next_tok's
         # K/V is not in yet); free slots pin to 0, so their scratch writes
@@ -551,6 +825,7 @@ class ServeEngine:
         for i in active:
             r = self.slots[i]
             base_len[i] = len(r.prompt) + len(r.out) - 1
+        t0 = self.tm.clock() if self.tm is not None else 0.0
         rids, steps = self._stream_arrays(self.slots)
         self._fill(tok=self.next_tok, rids=rids, steps=steps, base_lens=base_len)
         toks, cand = self._step_fn()
@@ -573,8 +848,22 @@ class ServeEngine:
         self.stats["decode_steps"] += 1
         self.stats["spec_waves"] += 1
         self.stats["occupied_slot_steps"] += len(active)
+        now = 0.0
+        if self.tm is not None:
+            now = self.tm.clock()
+            self.tm.spec_wave(t0, n_active=len(active), k=k,
+                              accepted=sum(len(w) - 1 for w in wave.values()), now=now)
         for i in active:
             r = self.slots[i]
+            if self.tm is not None:
+                # the tokens this wave emits: the accept rule's, cut at
+                # max_new or the first stop token, as the loop below cuts
+                n_emit, room = 0, r.max_new - len(r.out)
+                for tok in wave[i]:
+                    n_emit += 1
+                    if n_emit >= room or int(tok) in r.stop_tokens:
+                        break
+                self.tm.tokens_emitted(r.rid, n_emit, now=now)
             for tok in wave[i]:
                 if self.prefix_on:
                     # as in the plain tick: the verify completed the block
@@ -587,7 +876,33 @@ class ServeEngine:
                     # finished (max_new or a stop token): the rest of the
                     # wave is neither emitted nor counted
                     break
+        if self.tm is not None:
+            self.tm.update_gauges(self._telemetry_gauges())
         return True
+
+    def _telemetry_gauges(self) -> dict:
+        """Instantaneous occupancy and cache-pressure values, all host-side
+        (the slot table, the queue, the paged pool's free list, never a
+        tensor); every ratio reads 0.0 before the first tick."""
+        occ = sum(1 for s in self.slots if s is not None)
+        g = {"serve_slots_occupied": occ,
+             "serve_queue_depth": len(self.queue),
+             "serve_slot_occupancy": occ / self.max_batch if self.max_batch else 0.0}
+        if self.interleave:
+            g["serve_prefill_jobs"] = len(self._jobs)
+        if self.paged:
+            free = len(self.pool.free)
+            g["kv_blocks_free"] = free
+            g["kv_pool_occupancy"] = 1.0 - free / self.n_blocks if self.n_blocks else 0.0
+        else:
+            g["kv_pool_occupancy"] = g["serve_slot_occupancy"]
+        if self.prefix_on:
+            hit = self.stats["cached_prompt_tokens"]
+            tot = hit + self.stats["prefilled_tokens"]
+            g["serve_prefix_hit_rate"] = hit / tot if tot else 0.0
+        if self.spec_k:
+            g["serve_spec_acceptance"] = self.acceptance_rate()
+        return g
 
     def acceptance_rate(self) -> float:
         """Fraction of draft tokens the verify pass accepted."""

@@ -1,7 +1,7 @@
 """Radix prefix cache over the paged KV pool (a copy of
 repro/serving/prefix.py, so that this package imports nothing from repro —
 importing ``repro.serving.prefix`` would run ``repro/serving/__init__.py``,
-which imports the JAX engine; the telemetry counters come with ROADMAP A6).
+which imports the JAX engine).
 
 Host-side bookkeeping for serving/kvcache.py's paged pool: a radix tree
 over token-block keys plus a free list of physical blocks. The engine asks
@@ -58,13 +58,33 @@ class RadixNode:
 class PrefixPool:
     """Block allocator + radix tree over ``n_blocks`` physical blocks."""
 
-    def __init__(self, n_blocks: int, block_size: int):
+    def __init__(self, n_blocks: int, block_size: int, metrics=None):
         self.n_blocks = n_blocks
         self.block_size = block_size
         self.free: list[int] = list(range(n_blocks))
         self.root = RadixNode((), -1, None)      # sentinel, never evicted
         self.stats = {"hits": 0, "hit_tokens": 0, "evicted_blocks": 0,
                       "published_blocks": 0}
+        # optional telemetry registry: the stats dict above stays the
+        # cheap always-on source of truth; the registry mirrors it into
+        # scrapeable counters (match hits, tokens served from the tree,
+        # publishes, evictions) when the engine runs with telemetry
+        self._m = None
+        if metrics is not None:
+            self._m = {
+                "hits": metrics.counter(
+                    "prefix_hits_total",
+                    "admitted requests matching a cached prefix chain"),
+                "hit_tokens": metrics.counter(
+                    "prefix_hit_tokens_total",
+                    "prompt tokens served from the radix tree"),
+                "published": metrics.counter(
+                    "prefix_published_total",
+                    "blocks published onto the radix tree"),
+                "evicted": metrics.counter(
+                    "prefix_evicted_total",
+                    "refcount-0 LRU blocks evicted under pressure"),
+            }
 
     # -- queries ------------------------------------------------------------
 
@@ -105,7 +125,11 @@ class PrefixPool:
         request whose matched chain is non-empty)."""
         if nodes:
             self.stats["hits"] += 1
-            self.stats["hit_tokens"] += sum(len(n.tokens) for n in nodes)
+            hit_tokens = sum(len(n.tokens) for n in nodes)
+            self.stats["hit_tokens"] += hit_tokens
+            if self._m is not None:
+                self._m["hits"].inc()
+                self._m["hit_tokens"].inc(hit_tokens)
 
     # -- allocation / eviction ---------------------------------------------
 
@@ -158,6 +182,8 @@ class PrefixPool:
         node.last_use = clock
         parent.children[key] = node
         self.stats["published_blocks"] += 1
+        if self._m is not None:
+            self._m["published"].inc()
         return node, True
 
     # -- internals ----------------------------------------------------------
@@ -173,6 +199,8 @@ class PrefixPool:
         del node.parent.children[node.tokens]
         self.free.append(node.block)
         self.stats["evicted_blocks"] += 1
+        if self._m is not None:
+            self._m["evicted"].inc()
 
     def tree_blocks(self) -> int:
         return sum(1 for _ in self._walk())

@@ -14,13 +14,17 @@ jax/_src/random.py) with its default ``jax_threefry_partitionable=True``:
   prng_key       a seed -> the key (0, seed) (threefry_seed, 64-bit seeds
                  split into (high, low) words)
   fold_in        key, data -> threefry2x32(key, (0, data))
+  split          key -> num keys, key i = threefry2x32(key, (0, i))
+                 (_threefry_split_foldlike: the same words as fold_in(key, i))
   random_bits    32 bits per element: the hash of the 64-bit counter iota
                  split into (high, low) words, the two output words XORed
                  (8 bits: the low byte of that, for bf16)
   uniform        the top mantissa bits under the exponent of 1.0, minus 1,
                  scaled into [minval, maxval)
   gumbel         -log(-log(uniform(tiny, 1)))  (mode "low", JAX's default)
-  categorical    argmax(gumbel + logits), the first maximum
+  categorical    argmax(gumbel + logits), the first maximum; one key per
+                 row, or (``categorical_shared``) one key for a whole batch,
+                 as the bucket engine draws (serving/bucket.py)
 
 Words are int64 tensors holding 32-bit values (torch on the CPU has no
 uint32 right shift; ROADMAP C), masked after each add and shift. Every
@@ -75,6 +79,14 @@ def fold_in(key: torch.Tensor, data: torch.Tensor | int) -> torch.Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """jax.random.split in the partitionable layout: key (2,) -> (num, 2),
+    key i the hash of the counter (0, i) (i < 2**32)."""
+    counts = torch.arange(num, dtype=torch.int64, device=key.device)
+    y0, y1 = threefry2x32(key.expand(num, 2), torch.zeros_like(counts), counts)
+    return torch.stack([y0, y1], dim=-1)
+
+
 def random_bits(key: torch.Tensor, shape: tuple[int, ...], bit_width: int = 32) -> torch.Tensor:
     """jax.random.bits in the partitionable layout: element i of ``shape``
     (row-major) hashes the counter (i >> 32, i & MASK); the result is the
@@ -123,6 +135,14 @@ def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     """jax.random.categorical over the last axis: keys (..., 2) and logits
     (..., V) -> (...,) int64, the first maximum of gumbel + logits."""
     g = gumbel(key, (logits.shape[-1],), logits.dtype)
+    return torch.argmax(g + logits, dim=-1)
+
+
+def categorical_shared(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """jax.random.categorical(key, logits) for one key (2,) and logits
+    (..., V): the gumbel noise of the whole array from that key, row-major
+    (..., V); -> (...,) int64."""
+    g = gumbel(key, tuple(logits.shape), logits.dtype)
     return torch.argmax(g + logits, dim=-1)
 
 

@@ -1036,3 +1036,89 @@ def test_short_quantized_and_paged_serve_on_card(dev, kv):
     res = eng.run()
     assert eng.stats["cached_prompt_tokens"] == 3 * 16 and all(len(res[r]) == 5 for r in rids)
     assert dequant.launches - d_before == 2 * cfg.n_layers * (eng.stats["prefills"] - 1)
+
+
+@pytest.mark.parametrize("pool", ["contiguous", "paged"])
+@pytest.mark.parametrize("kv", ["bf16", "int8", "binary"])
+def test_interleave_equals_blocking_on_card(dev, markov_lm, kv, pool):
+    """Interleaved prefill (chunk 4) of the trained LM on the card, each
+    decode tick a graph replay: the tokens equal the chunked blocking
+    engine's (the same kernels on the same shapes) and, for bf16 and int8,
+    the monolithic blocking engine's (flash prefill), as on the CPU; binary
+    K/V of earlier chunks change what a later chunk attends to, so its
+    monolithic tokens are not held. Per wrapper, the interleaved run
+    launches what the chunked one does."""
+    cfg, api, params = markov_lm
+    params = _to(params, dev)
+    prompts = [_markov(3 + i, 7 + (i % 4) * 3, cfg.vocab) for i in range(5)]
+    kw = dict(kv_cache=kv)
+    if pool == "paged":
+        kw.update(kv_block_size=8, prefix_cache=True)
+    outs, launches = [], []
+    for extra in ({}, {"prefill_chunk": 4}, {"prefill_chunk": 4, "interleave": True}):
+        eng = ServeEngine(api, params, max_batch=2, max_len=64, **kw, **extra)
+        before = {w.__name__: w.launches for w in GRAPH_COUNTED}
+        rids = [eng.add_request(p, max_new=8) for p in prompts]
+        res = eng.run()
+        outs.append([res[r] for r in rids])
+        launches.append({w.__name__: w.launches - before[w.__name__] for w in GRAPH_COUNTED})
+    mono, chunked, inter = outs
+    assert inter == chunked and all(len(o) == 8 for o in inter)
+    if kv != "binary":
+        assert inter == mono
+    assert eng.stats["prefill_slices"] > 0 and eng.graph.replays == eng.stats["decode_steps"]
+    if eng.stats["decode_steps"] == 0 or launches[1]["flash_attention"] or \
+            launches[2]["flash_attention"]:
+        raise AssertionError(f"chunked prefill ran the flash kernel: {launches}")
+
+
+def test_prefill_slice_needs_no_host_sync(dev):
+    """A non-final slice of an interleaved job (tokens and lengths already
+    on the device, its transient cache allocated) runs under
+    torch.cuda.set_sync_debug_mode("error"): nothing in it waits for the
+    device."""
+    cfg = smoke_config("stablelm-3b")
+    api = get_model(cfg)
+    params = _to(api.init(0, device="cpu"), dev)
+    for kv in ("bf16", "int8", "binary"):
+        eng = ServeEngine(api, params, max_batch=2, max_len=64, kv_cache=kv, interleave=True,
+                          prefill_chunk=8)
+        eng.add_request(np.arange(20) % cfg.vocab, max_new=2)
+        eng.run()                                  # builds the kernels, warms the shapes
+        eng.add_request(np.arange(30) % cfg.vocab, max_new=2)
+        eng._start_jobs()
+        (job,) = eng._jobs
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            assert eng._advance_job(job) is False and eng._advance_job(job) is False
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert job.pos == 16 < job.todo
+        eng.run()
+
+
+@pytest.mark.parametrize("kw", [dict(kv_cache="int8", interleave=True, prefill_chunk=4),
+                                dict(kv_cache="int8", kv_block_size=8, prefix_cache=True,
+                                     spec_k=2, interleave=True)],
+                         ids=["int8-interleave", "int8-paged-spec-interleave"])
+def test_telemetry_on_off_same_launches_on_card(dev, kw):
+    """Telemetry on and off, each tick a graph replay: the same tokens, the
+    same launches per wrapper and the same replays."""
+    from repro_torch.serving.telemetry import Telemetry
+    cfg = smoke_config("stablelm-3b").replace(compute_dtype="float32", param_dtype="float32")
+    api = get_model(cfg)
+    params = _to(api.init(0, device="cpu"), dev)
+    prompts = [np.arange(4 + 3 * i) % cfg.vocab for i in range(5)]
+    runs = []
+    for tm in (None, Telemetry()):
+        eng = ServeEngine(api, params, max_batch=2, max_len=64, telemetry=tm, **kw)
+        before = {w.__name__: w.launches for w in GRAPH_COUNTED}
+        rids = [eng.add_request(p, max_new=6) for p in prompts]
+        res = eng.run()
+        runs.append(([res[r] for r in rids],
+                     {w.__name__: w.launches - before[w.__name__] for w in GRAPH_COUNTED},
+                     eng.graph.replays, dict(eng.stats)))
+    assert runs[0] == runs[1]
+    assert runs[1][2] == runs[1][3]["decode_steps"] > 0
+    assert tm.prefill_slice_s.count == runs[1][3]["prefill_slices"] > 0

@@ -62,7 +62,8 @@ def test_port_imports_no_jax_and_refuses_missing_card():
                 "kernels.hybrid_dense", "kernels.bf16_matmul", "optim.bnn",
                 "data.synthetic", "examples.quickstart", "kernels.kv_quant",
                 "kernels.kv_decode", "serving.kvcache", "serving.prefix", "serving.spec",
-                "serving.sampling", "serving.graphs"):
+                "serving.sampling", "serving.graphs", "serving.telemetry", "serving.bucket",
+                "launch.server", "examples.serve_lm"):
         assert "repro_torch." + mod in out["modules"]
     assert out["leaked"] == []
     assert set(out["raised"]) == {"init", "serve", "mlp_init", "quickstart"}

@@ -134,12 +134,20 @@ def test_bad_requests_raise_admission_error(engines, prompt, max_new, code):
 
 
 def test_unported_engine_options_raise(engines):
-    make, _ = engines
+    """Only a mesh is refused now (ROADMAP A9); interleaved and chunked
+    prefill, the SLO scheduler and telemetry (A6), sampling and speculation
+    (A5) construct and serve."""
+    from repro_torch.serving.telemetry import Telemetry
+    make, vocab = engines
     _, teng = make(max_batch=2, max_len=32)
-    for kw, item in [({"interleave": True}, "A6"),
-                     ({"scheduler": "slo"}, "A6"), ({"mesh": object()}, "A9")]:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            ServeEngine(teng.api, teng.params, max_batch=2, max_len=32, **kw)
-    # sampled and speculative decoding are ported (A5)
-    for kw in ({"temperature": 0.5}, {"spec_k": 2}):
-        ServeEngine(teng.api, teng.params, max_batch=2, max_len=32, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        ServeEngine(teng.api, teng.params, max_batch=2, max_len=32, mesh=object())
+    want = _drive(teng, [(_markov(3, 9, vocab), 4, {})])
+    for kw in ({"interleave": True}, {"interleave": True, "prefill_chunk": 4},
+               {"scheduler": "slo"}, {"telemetry": Telemetry()},
+               {"temperature": 0.5}, {"spec_k": 2}):
+        eng = ServeEngine(teng.api, teng.params, max_batch=2, max_len=32, **kw)
+        got = _drive(eng, [(_markov(3, 9, vocab), 4, {})])
+        assert len(got[0]) == 4
+        if "temperature" not in kw:
+            assert got == want, kw
