@@ -168,13 +168,32 @@ Phases, one output line each (or a few), every failure raising:
      beat 0.6 test accuracy; packed logits through B1, through B2 and with
      latents are bitwise equal; packed inferences per second at batch 1
      and 256 (the paper's Table I protocol), warm, without an L2 flush;
- 11. a JSON line of the nine kernels and the two kv_decode wrappers:
+ 11. train: stablelm-3b at full width (bf16, remat "block", 28 binary
+     FFNs) through the training launcher (``repro_torch.launch.train``, 6
+     steps of batch 8 x 128 tokens from the synthetic stream), with the
+     counts zeroed just before and read just after: exactly 112 B2 and 64
+     B3 a step (the forward and remat's recompute; the backward runs the
+     STE's f32 products and B3's plain recompute), none of the rest; every
+     loss and grad norm finite, the grad norm > 0. Then the launcher's
+     first step again: every block's wq / wk / wv / wo gets a finite,
+     nonzero gradient; one step under the profiler (device events = the
+     counts; device ms by kernel family, busy share of the unprofiled
+     step); every latent in [-1, 1] after it; the step time (median of
+     steps 2-6) and the peak memory. B3's backward at the training shape
+     within 3e-2 of autograd through its plain version. The smoke config
+     60 steps (lr 3e-3, checkpoints every 30) with a falling loss
+     (tests/test_system.py's bar), a resume for 3 steps (step 63, the data
+     stream's position restored), the serve launcher with --ckpt-dir
+     giving the tokens of an engine on the restored params; then
+     examples/binary_llm (float and hybrid, 120 steps), both losses
+     falling; every run's launches exact;
+ 12. a JSON line of the nine kernels and the two kv_decode wrappers:
      launches summed over the paths (B2, B3, B4a-d and kv_decode on the
-     serving paths, B1 on the spec and the MNIST paths, B5 and B6 on
-     none; each serving and spec path's replayed counts held to its graph's
-     kernel nodes, the bf16 and int8 paths' to the device's kernel events
-     of the same run), largest
-     error, times and bounds;
+     serving paths, B2 and B3 on the training paths, B1 on the spec and
+     the MNIST paths, B5 and B6 on none; each serving and spec path's
+     replayed counts held to its graph's kernel nodes, the bf16 and int8
+     paths' and the profiled train step's to the device's kernel events
+     of the same run), largest error, times and bounds;
 
 and last, ``{"ok": true, "device": {...}}``. Without a GPU it exits non-zero
 and prints no result. Kernel times are CUDA-event medians of the device's
@@ -200,7 +219,7 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, smoke_config  # noqa: E402
 from repro_torch.core import hybrid_mlp as H  # noqa: E402
 from repro_torch.core.binarize import pack_bits, pack_signs_int8, packed_len, unpack_bits  # noqa: E402
 from repro_torch.data.synthetic import SyntheticMnist  # noqa: E402
@@ -233,6 +252,7 @@ INT8_OPS = 1979e12
 BF16_FLOPS = 989e12
 BF16_TOL = 3e-2          # tests/test_attention.py TOLS[bfloat16]
 GEMM_TOL = 2e-2          # tests/test_kernels.py, bf16_matmul
+TRAIN_TOL = {"grad": 1e-4, "param": 1e-3}   # tests/test_torch_cuda.py TRAIN_TOL
 SEED = 0
 OUT_DIR = Path(__file__).resolve().parent / "build"     # listed in .gitignore
 RECORD: dict[str, list] = {}
@@ -2295,6 +2315,251 @@ def phase_mnist(dev, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: train stablelm-3b (the port's LM trainer)
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 6
+TRAIN_ARGV = ["--arch", "stablelm-3b", "--steps", str(TRAIN_STEPS), "--batch", "8",
+              "--seq", "128"]
+SMOKE_TRAIN = ["--arch", "stablelm-3b", "--smoke", "--batch", "8", "--seq", "32",
+               "--lr", "3e-3"]
+BINARY_LLM_STEPS = 120
+
+
+def _binary_blocks(cfg) -> int:
+    return sum(cfg.policy.block_is_binary(i, cfg.n_layers) for i in range(cfg.n_layers))
+
+
+def _train_launches(cfg, steps: int) -> dict[str, int]:
+    """A train step's launches: each binary dense's B2 and each block's B3
+    once in the forward and, under remat "block" / "full", again in the
+    recompute; none in the backward (the STE's f32 products, B3's plain
+    recompute); every other kernel 0."""
+    k = 2 if cfg.remat in ("block", "full") else 1
+    return {**{name: 0 for name in KERNELS}, "int8_matmul": 2 * _binary_blocks(cfg) * k * steps,
+            "flash_attention": cfg.n_layers * k * steps}
+
+
+def _falling(losses) -> bool:
+    """tests/test_system.py's bar: the mean of the last 5 losses below 0.7 x
+    the mean of the first 5."""
+    return bool(np.mean(losses[-5:]) < 0.7 * np.mean(losses[:5]))
+
+
+def _step_vs_cpu(dev) -> dict:
+    """One train step of the smoke config in f32 on the card (B2, B3, the
+    STE's and B3's backwards, AdamW) against the same step on the CPU
+    (their plain versions), on the same params and batch. -> for the
+    gradients and for the updated params, the largest error of a leaf
+    relative to that leaf's max-abs, and the leaf it is in."""
+    from repro_torch.data.synthetic import SyntheticTokens
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.step import loss_and_grads, make_train_step
+    from repro_torch.tree import tree_leaves_with_path, tree_map
+
+    cfg = smoke_config("stablelm-3b").replace(compute_dtype="float32", param_dtype="float32")
+    api = get_model(cfg)
+    cpu = api.init(SEED, device="cpu", packed=False)
+    batch = {k: torch.from_numpy(v)
+             for k, v in next(SyntheticTokens(cfg.vocab, 32, 8, seed=SEED)).items()}
+    to_dev = lambda t: tree_map(lambda x: x.to(dev), t)  # noqa: E731
+    step = make_train_step(api, cfg, peak_lr=1e-3, warmup=1, total=10)
+    got, want = {}, {}
+    for out, tree, b in ((got, to_dev(cpu), to_dev(batch)), (want, cpu, batch)):
+        out["grad"] = loss_and_grads(api, tree, b)[2]
+        out["param"] = step(tree, adamw_init(tree), b)[0]
+    errs = {}
+    for what in ("grad", "param"):
+        for (path, a), (_, w) in zip(tree_leaves_with_path(got[what]),
+                                     tree_leaves_with_path(want[what])):
+            err = float((a.float().cpu() - w.float()).abs().max()) / \
+                max(float(w.abs().max()), 1e-30)
+            if err >= errs.get(what, (-1.0,))[0]:
+                errs[what] = (err, path)
+    return errs
+
+
+def _check_step_vs_cpu(dev) -> dict:
+    """_step_vs_cpu within TRAIN_TOL, and, to show that the check can
+    fail, outside it with TF32 products switched on for one run."""
+    errs = _step_vs_cpu(dev)
+    for what, (err, path) in errs.items():
+        if not err <= TRAIN_TOL[what]:
+            raise AssertionError(f"train step card vs CPU: {what} {path} {err}")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = _step_vs_cpu(dev)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    if not all(tf32[what][0] > TRAIN_TOL[what] for what in TRAIN_TOL):
+        raise AssertionError(f"the card-vs-CPU check passes TF32 products: {tf32}")
+    return {"f32": errs, "tf32_on": tf32}
+
+
+def phase_train(dev, card: str) -> dict:
+    """The trainer at full width through launch/train.py (the main path),
+    then one step's gradients and profile; one smoke-config step's
+    gradients and params on the card against the CPU; the smoke config's
+    checkpoint, resume and serve round trip; examples/binary_llm."""
+    import gc
+    import shutil
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.binary_dense import pack_tree
+    from repro_torch.data.synthetic import SyntheticTokens
+    from repro_torch.examples import binary_llm
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import checkpoint as C
+    from repro_torch.train.step import loss_and_grads, make_train_step
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the STE's products must run in exact f32")
+    cfg = get_config("stablelm-3b")
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mem0 = torch.cuda.memory_allocated(dev)
+
+    # the main path, with the launch counts zeroed just before it and read
+    # just after: the launcher trains 6 steps at full width
+    zero_counts()
+    t0 = time.perf_counter()
+    hist = train_cli.main(TRAIN_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    peak_gib = (torch.cuda.max_memory_allocated(dev) - mem0) / 2 ** 30
+    if launches != _train_launches(cfg, TRAIN_STEPS):
+        raise AssertionError(f"train launches {launches}, want "
+                             f"{_train_launches(cfg, TRAIN_STEPS)}")
+    if len(hist) != TRAIN_STEPS or not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+                                           and h["grad_norm"] > 0 for h in hist):
+        raise AssertionError(f"train history {hist}")
+    step_s = statistics.median(h["step_s"] for h in hist[1:])
+
+    # the launcher's first step again (its params, its first batch): every
+    # block's attention weights get a finite, nonzero gradient (through
+    # B3's Function), then one step under the profiler
+    api = get_model(cfg)
+    params = api.init(0, device=dev, packed=False)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in next(SyntheticTokens(cfg.vocab, 128, 8, seed=0)).items()}
+    loss, _, grads = loss_and_grads(api, params, batch)
+    attn_grad_min = min(float(blk["attn"][n]["w"].abs().max()) for blk in grads["blocks"]
+                        for n in ("wq", "wk", "wv", "wo"))
+    finite = all(bool(torch.isfinite(blk["attn"][n]["w"]).all()) for blk in grads["blocks"]
+                 for n in ("wq", "wk", "wv", "wo"))
+    if not (finite and attn_grad_min > 0):
+        raise AssertionError(f"attention grads: finite {finite}, smallest max-abs "
+                             f"{attn_grad_min}")
+    latent_grad_min = min(float(blk["ffn"][n]["w_latent"].abs().max()) for blk in grads["blocks"]
+                          if "bin_in" in blk["ffn"] for n in ("bin_in", "bin_out"))
+    del grads
+    step = make_train_step(api, cfg, peak_lr=3e-4, warmup=1, total=TRAIN_STEPS)
+    opt = adamw_init(params)
+    zero_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    one = counts()
+    if one != _train_launches(cfg, 1) or _device_launches(prof) != _by_family(one):
+        raise AssertionError(f"profiled step: launches {one}, device events "
+                             f"{_device_launches(prof)}")
+    prof_row = _profile_summary(prof, prof_wall, step_s)
+    for fam in ("int8_matmul (ours)", "flash_attention (ours)"):
+        if not prof_row["device_ms_by_family"].get(fam, 0.0) > 0.0:
+            raise AssertionError(f"the train step's profile shows no device time for {fam}")
+    latent_max = max(float(blk["ffn"][n]["w_latent"].abs().max()) for blk in params["blocks"]
+                     if "bin_in" in blk["ffn"] for n in ("bin_in", "bin_out"))
+    if not latent_max <= 1.0:
+        raise AssertionError(f"a latent left [-1, 1]: {latent_max}")
+    del params, opt, m, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_vs_cpu = _check_step_vs_cpu(dev)
+    row = dict(card=card, arch=cfg.name, argv=TRAIN_ARGV, remat=cfg.remat,
+               binary_blocks=_binary_blocks(cfg), launches=launches,
+               launches_per_step=_train_launches(cfg, 1), losses=[h["loss"] for h in hist],
+               grad_norms=[h["grad_norm"] for h in hist], step_s=[h["step_s"] for h in hist],
+               step_ms_median_2_6=step_s * 1e3, tokens_per_s=8 * 128 / step_s, wall_s=wall,
+               peak_mem_gib=peak_gib, first_loss_again=float(loss),
+               attn_grad_min_maxabs=attn_grad_min, latent_grad_min_maxabs=latent_grad_min,
+               latent_max_after_step=latent_max, smoke_step_vs_cpu_max_rel=step_vs_cpu,
+               profile=prof_row)
+    log("train", **row)
+
+    # the smoke config: 60 steps with checkpoints, a resume, and the serve
+    # launcher on the checkpoint against an engine on the restored params
+    scfg = smoke_config("stablelm-3b")
+    ck = OUT_DIR / "train_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    runs = []
+    for argv, n in ((["--steps", "60", "--ckpt-dir", str(ck), "--ckpt-every", "30"], 60),
+                    (["--steps", "3", "--ckpt-dir", str(ck), "--resume"], 3)):
+        zero_counts()
+        h = train_cli.main(SMOKE_TRAIN + argv)
+        runs.append(counts())
+        if runs[-1] != _train_launches(scfg, n) or len(h) != n or \
+                not all(np.isfinite(x["loss"]) for x in h):
+            raise AssertionError(f"smoke train {argv}: launches {runs[-1]}, {len(h)} steps")
+        if n == 60:
+            smoke_losses = [x["loss"] for x in h]
+            smoke_step_ms = 1e3 * statistics.median(x["step_s"] for x in h[1:])
+            if not _falling(smoke_losses):
+                raise AssertionError(f"smoke losses do not fall: {smoke_losses}")
+    _, meta = C.restore(str(ck), 63, {})
+    if C.latest_step(str(ck)) != 63 or meta["data_state"]["step"] != 63:
+        raise AssertionError(f"resume: latest step {C.latest_step(str(ck))}, meta {meta}")
+    sargs = ["--smoke", "--ckpt-dir", str(ck), "--requests", "4", "--prompt-lens", "8,16",
+             "--max-new", "8"]
+    zero_counts()
+    served = serve_cli.main(sargs)
+    runs.append(counts())
+    sapi = get_model(scfg)
+    restored, _ = C.restore(str(ck), 63, {"params": sapi.init(0, device=dev, packed=False)})
+    eng = ServeEngine(sapi, pack_tree(restored["params"]), max_batch=8, max_len=16 + 8 + 8)
+    rng = np.random.default_rng(0)
+    for _ in range(4):
+        eng.add_request(rng.integers(0, scfg.vocab, int(rng.choice([8, 16]))), max_new=8)
+    eng.run()
+    if served != dict(eng.results) or not all(len(v) == 8 for v in served.values()):
+        raise AssertionError(f"serve --ckpt-dir {served}, engine {dict(eng.results)}")
+
+    # examples/binary_llm: the float baseline and the hybrid LM
+    zero_counts()
+    bl = binary_llm.main(["--steps", str(BINARY_LLM_STEPS),
+                          "--ckpt-dir", str(OUT_DIR / "binary_llm_ckpt")])
+    runs.append(counts())
+    want = {name: 0 for name in KERNELS}
+    for binary in (False, True):
+        for k, n in _train_launches(binary_llm.make_cfg(binary), BINARY_LLM_STEPS).items():
+            want[k] += n
+    if runs[-1] != want:
+        raise AssertionError(f"binary_llm launches {runs[-1]}, want {want}")
+    for tag, out in bl.items():
+        if not _falling([h["loss"] for h in out["history"]]):
+            raise AssertionError(f"binary_llm {tag}: losses do not fall")
+    smoke_row = dict(card=card, smoke_losses_first_last=[smoke_losses[0], smoke_losses[-1]],
+                     smoke_step_ms_median=smoke_step_ms, resume_latest_step=63,
+                     served_tokens=sum(len(v) for v in served.values()), launches=runs,
+                     binary_llm={tag: dict(params=out["params"],
+                                           deployed_bytes=out["deployed_bytes"],
+                                           loss_first=out["history"][0]["loss"],
+                                           loss_last=out["history"][-1]["loss"],
+                                           step_ms_median=1e3 * statistics.median(
+                                               h["step_s"] for h in out["history"][1:]))
+                                 for tag, out in bl.items()})
+    log("train_smoke", **smoke_row)
+    return {**row, "smoke": smoke_row, "all_launches": [launches, *runs]}
+
+
+# ---------------------------------------------------------------------------
 # phase 2b: what ptxas and the SASS say about each kernel function
 # ---------------------------------------------------------------------------
 
@@ -2406,6 +2671,7 @@ def main() -> int:
     phase_bf16_splits(dev, gen, timer)
     del timer
     mnist = phase_mnist(dev, smi)
+    train = phase_train(dev, smi)
 
     # launches on every path: the serving paths (bf16, int8, binary, paged
     # int8 with the prefix cache, int8 sampled), the speculative paths and
@@ -2414,7 +2680,7 @@ def main() -> int:
                      *(p["launches"] for p in serve["paths"]),
                      serve["spec"]["plain_sampled"]["launches"],
                      *(p["launches"] for p in serve["spec"]["paths"]),
-                     *serve["interleave"]["launches"]]
+                     *serve["interleave"]["launches"], *train["all_launches"]]
 
     def entry(kname, source, replaces, rows):
         # the headline case is the first: decode bin_in, full-length flash,

@@ -10,7 +10,12 @@ A per-output ``scale`` (init 1/sqrt(K)) maps the integer dot back to unit
 variance; the paper's MLP relies on its BatchNorm instead (scale=False).
 
 The LM serving path keeps both: ``with_packed`` adds ``w_packed`` once, when
-the model is created or loaded, and serving reads only that copy.
+the model is created or loaded, and serving reads only that copy. An
+optimizer step changes the latent and leaves that copy stale, so the
+trainer holds latent-only params, and ``pack_tree`` adds the copies where
+trained params go to serving. ``binary_dense_apply_any`` dispatches on
+what a dict holds: the packed words, else the latent (training), else the
++-1 int8 weights that models/deploy.py writes for int8 mode.
 """
 
 from __future__ import annotations
@@ -19,8 +24,9 @@ import math
 
 import torch
 
-from repro_torch.core.binarize import pack_bits, packed_len
+from repro_torch.core.binarize import pack_bits, pack_signs_int8, packed_len
 from repro_torch.kernels import ops
+from repro_torch.tree import map_binary_denses
 
 
 def binary_dense_init(in_dim: int, out_dim: int, *, generator: torch.Generator,
@@ -59,6 +65,12 @@ def with_packed(p: dict) -> dict:
     return {**p, **pack_for_inference(p)}
 
 
+def pack_tree(tree):
+    """``with_packed`` on every binary dense (a dict with a ``w_latent``) of
+    a param tree of dicts and lists; the other leaves are shared."""
+    return map_binary_denses(with_packed, tree)
+
+
 def binary_dense_apply_packed(q: dict, x: torch.Tensor, *, k: int | None = None,
                               mode: str = "xnor") -> torch.Tensor:
     """Packed-weight path. The integer dot comes in x's dtype, before the
@@ -69,6 +81,36 @@ def binary_dense_apply_packed(q: dict, x: torch.Tensor, *, k: int | None = None,
     if "scale" in q:
         y = y * q["scale"]
     return y.to(x.dtype)
+
+
+def binary_dense_apply_any(p: dict, x: torch.Tensor, *, mode: str = "xnor") -> torch.Tensor:
+    """Dispatch on representation (repro/core/binary_dense.py:61-79): the
+    packed sign words (deployed xnor, or the serving copy; through
+    ``mode``'s kernel), else the latent (training, STE backward), else
+    ``w_int8`` (N, K) +-1 int8 (deployed int8).
+
+    repro reads the latent first. Here the packed copy comes first, so
+    that a serving tree, which holds both, skips re-packing the latent at
+    every call: the two give the same integer dot. A training tree holds
+    no packed copy (train/step.py refuses one), so the loss reads the
+    latent through the STE.
+
+    The reference lowers ``w_int8`` to an XLA int8 dot, not a Pallas
+    kernel, so here it is the plain product in f32, which is exact: every
+    partial sum of +-1 terms is an integer below 2**24. The dot then
+    scales in f32, as the reference's does."""
+    if "w_packed" in p:
+        return binary_dense_apply_packed(p, x, mode=mode)
+    if "w_latent" in p:
+        return binary_dense_apply(p, x, mode=mode)
+    if "w_int8" in p:
+        lead = x.shape[:-1]
+        a = pack_signs_int8(x.reshape(-1, x.shape[-1])).to(torch.float32)
+        y = a @ p["w_int8"].to(torch.float32).T
+        if "scale" in p:
+            y = y * p["scale"]
+        return y.reshape(*lead, -1).to(x.dtype)
+    raise KeyError(f"no binary weight in {list(p)}")
 
 
 def binary_dense_bytes(in_dim: int, out_dim: int) -> int:

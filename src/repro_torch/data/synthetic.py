@@ -1,15 +1,56 @@
-"""SyntheticMnist: a 10-class 28x28 image set standing in for MNIST offline
-(class-conditional fixed patterns + deformation noise). The paper's
-float-vs-hybrid accuracy protocol runs on it.
+"""Deterministic synthetic data (a copy of repro/data/synthetic.py's numpy
+half, so that this package imports nothing from repro: the same seed gives
+the same batches in both packages).
 
-A copy of repro/data/synthetic.py's numpy half, so that this package
-imports nothing from repro: the same seed gives the same images and the
-same batches in both packages.
+* SyntheticTokens — an affine-Markov token stream (next = a*tok + b mod V
+  with seeded noise): cheap, host-shardable and learnable, so a trainer
+  can be checked for a falling loss. Stateful and checkpointable: state()
+  returns a dict that restore() accepts (train/checkpoint.py's meta).
+* SyntheticMnist — a 10-class 28x28 image set standing in for MNIST
+  offline (class-conditional fixed patterns + deformation noise). The
+  paper's float-vs-hybrid accuracy protocol runs on it.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+class SyntheticTokens:
+    def __init__(self, vocab: int, seq_len: int, batch: int, *, seed: int = 0,
+                 host_id: int = 0, n_hosts: int = 1, noise: float = 0.05):
+        assert batch % n_hosts == 0
+        self.vocab, self.seq_len = vocab, seq_len
+        self.batch_local = batch // n_hosts
+        self.seed, self.host_id, self.n_hosts = seed, host_id, n_hosts
+        self.noise = noise
+        self.step = 0
+        # fixed affine map (the learnable structure)
+        self.a = 7 % vocab or 1
+        self.b = 13 % vocab
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        rng = np.random.default_rng((self.seed, self.host_id, self.step))
+        b, s, v = self.batch_local, self.seq_len, self.vocab
+        toks = np.empty((b, s + 1), np.int32)
+        toks[:, 0] = rng.integers(0, v, size=b)
+        for t in range(s):
+            nxt = (toks[:, t] * self.a + self.b) % v
+            flip = rng.random(b) < self.noise
+            nxt = np.where(flip, rng.integers(0, v, size=b), nxt)
+            toks[:, t + 1] = nxt
+        self.step += 1
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def state(self) -> dict:
+        return {"step": self.step, "seed": self.seed}
+
+    def restore(self, st: dict) -> None:
+        self.step = int(st["step"])
+        self.seed = int(st["seed"])
 
 
 class SyntheticMnist:

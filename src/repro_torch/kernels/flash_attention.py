@@ -18,8 +18,16 @@ the finite -1e9, f32 running statistics, output in v's dtype.
 ``flash_attention`` runs the kernel for CUDA tensors and the plain
 version, ``flash_attention_plain`` (a port of ``blockwise_attention_xla``),
 for CPU tensors; for CUDA tensors it launches the kernel or raises.
-``flash_attention.launches`` counts kernel launches. The backward pass
-(the TPU path recomputes through the blockwise twin) comes with training.
+``flash_attention.launches`` counts kernel launches.
+
+It is differentiable: a ``torch.autograd.Function`` whose forward is the
+kernel (or, on the CPU, the plain version) and whose backward recomputes
+the attention through ``flash_attention_plain`` under autograd and pulls
+the output's gradient back through it, as the TPU path does through its
+blockwise twin (repro/kernels/flash_attention.py:165-191: a pallas_call
+has no autodiff rule). The kernel writes its output through a raw
+pointer, so without the Function the output would carry no ``grad_fn``
+and wq, wk and wv would get no gradient through attention, silently.
 """
 
 from __future__ import annotations
@@ -114,16 +122,48 @@ def _lib():
     return fn
 
 
+class _FlashAttention(torch.autograd.Function):
+    """The forward on the card (or its plain version on the CPU); the
+    backward, repro's recompute: autograd through flash_attention_plain at
+    the blocks the reference's backward uses (its bq, bk of 128)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kvlen, causal, scale, q_offset):
+        ctx.save_for_backward(q, k, v, kvlen)
+        ctx.opts = dict(causal=causal, scale=scale, q_offset=q_offset)
+        if q.device.type == "cpu":
+            return flash_attention_plain(q, k, v, kv_len=kvlen, **ctx.opts)
+        return _launch(q, k, v, kvlen, causal, scale, q_offset)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, kvlen = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = flash_attention_plain(*qkv, kv_len=kvlen, q_block=128, kv_block=128,
+                                        **ctx.opts)
+            dq, dk, dv = torch.autograd.grad(out, qkv, g.to(v.dtype))
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool, kv_len=None,
                     scale: float | None = None, q_offset: int = 0):
-    """Online-softmax attention -> (B, S, Hq, D) in v's dtype."""
+    """Online-softmax attention -> (B, S, Hq, D) in v's dtype;
+    differentiable in q, k and v."""
     b, s, hq, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     if hq % hkv:
         raise ValueError(f"query heads {hq} not a multiple of kv heads {hkv}")
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len,
-                                     scale=scale, q_offset=q_offset)
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    kvlen = _kv_len(kv_len, b, t, q.device)
+    return _FlashAttention.apply(q, k, v, kvlen, causal, scale, q_offset)
+
+
+def _launch(q, k, v, kvlen, causal: bool, scale: float, q_offset: int):
+    """One launch of the kernel on CUDA tensors, after checking what it
+    takes."""
+    b, s, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     if v.shape[-1] != d:
@@ -146,8 +186,6 @@ def flash_attention(q, k, v, *, causal: bool, kv_len=None,
                          "16-byte aligned")
     if q_offset < 0:
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    kvlen = _kv_len(kv_len, b, t, q.device)
     out = torch.empty((b, s, hq, d), dtype=v.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     from repro_torch.kernels.build import check

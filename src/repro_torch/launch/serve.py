@@ -39,6 +39,10 @@ them behind, and Ctrl-C exits 0.
 
 ``--http PORT`` serves over HTTP/SSE (launch/server.py) until Ctrl-C: POST
 /v1/generate, GET /healthz, GET /metrics.
+
+``--ckpt-dir DIR`` serves the params of the latest step that the trainer
+(launch/train.py) checkpointed in DIR, with the packed copy of each binary
+dense added at load.
 """
 
 from __future__ import annotations
@@ -52,11 +56,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCHS, get_config, smoke_config
+from repro_torch.core.binary_dense import pack_tree
 from repro_torch.kernels.ops import SPEC_DRAFT_IMPLS
 from repro_torch.models import get_model
 from repro_torch.nn.attention import ATTN_IMPLS
 from repro_torch.serving.bucket import BucketEngine
 from repro_torch.serving.engine import ServeEngine
+from repro_torch.train import checkpoint as C
 
 log = logging.getLogger("repro_torch.serve")
 
@@ -121,7 +127,8 @@ def main(argv=None):
     ap.add_argument("--arch", choices=ARCHS, default="stablelm-3b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--ckpt-dir", default="",
-                    help="load params from a checkpoint (not ported: ROADMAP A7)")
+                    help="serve the params of the latest step checkpointed here by "
+                         "launch/train.py (else random weights from --init-seed)")
     ap.add_argument("--engine", choices=["slot", "bucket"], default="slot")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-lens", default="16",
@@ -187,15 +194,22 @@ def main(argv=None):
                          "submissions, POSTs answer 429 + Retry-After")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    if args.ckpt_dir:
-        raise NotImplementedError("--ckpt-dir: checkpoints are not ported yet (ROADMAP A7)")
     if args.mesh:
         raise NotImplementedError("--mesh: tensor-parallel serving is not ported yet "
                                   "(ROADMAP A9)")
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     api = get_model(cfg)
-    params = api.init(args.init_seed, device=args.device)
+    params = api.init(args.init_seed, device=args.device, packed=not args.ckpt_dir)
+    if args.ckpt_dir:
+        # the trainer's latent-only params; serving reads the packed copy
+        # of each binary dense, added here once
+        last = C.latest_step(args.ckpt_dir)
+        if last is not None:
+            state, _ = C.restore(args.ckpt_dir, last, {"params": params})
+            params = state["params"]
+            log.info("loaded checkpoint step %d", last)
+        params = pack_tree(params)
     plens = [int(x) for x in args.prompt_lens.split(",")]
     max_len = max(plens) + args.max_new + 8 + args.spec_decode
     stop = frozenset(int(x) for x in args.stop_tokens.split(",") if x)

@@ -15,10 +15,15 @@
     caches, h_last = api.prefill_slice_init(batch_size, max_len, device=)
     h_last, caches = api.prefill_slice(params, caches, tokens, h_last, seq_lens, pos)
     logits, caches = api.prefill_slice_finish(params, caches, h_last, seq_lens)
+    loss, metrics = api.loss(params, batch)      # batch: tokens, labels (B, S)
+    dparams = api.init_deployed(seed, device=)   # latents dropped (models/deploy.py)
 
-The port serves ``family="dense"`` with GQA attention. MLA and the other
-families raise NotImplementedError (ROADMAP A8); training (``loss``)
-comes with ROADMAP A7.
+``api.init(seed, device=, packed=True)`` adds each binary dense's packed
+serving copy; the trainer asks for latent-only params (``packed=False``),
+which ``loss`` differentiates (its binary FFNs read the latents).
+
+The port trains and serves ``family="dense"`` with GQA attention. MLA and
+the other families raise NotImplementedError (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -58,6 +63,13 @@ class ModelApi(NamedTuple):
     prefill_slice_init: Callable | None = None
     prefill_slice: Callable | None = None
     prefill_slice_finish: Callable | None = None
+    # the training loss: loss(params, {"tokens", "labels"}) -> (loss, metrics)
+    loss: Callable | None = None
+
+    def init_deployed(self, seed: int, device="cuda"):
+        """Random params with the latents dropped for quantized weights."""
+        from repro_torch.models.deploy import deploy_params
+        return deploy_params(self.init(seed, device=device, packed=False), self.cfg)
 
 
 def get_model(cfg: ModelConfig) -> ModelApi:
@@ -73,7 +85,8 @@ def get_model(cfg: ModelConfig) -> ModelApi:
     from repro_torch.models import transformer as t
     return ModelApi(
         cfg=cfg,
-        init=lambda seed, device="cuda": t.lm_init(cfg, seed, device=device),
+        init=lambda seed, device="cuda", packed=True: t.lm_init(cfg, seed, device=device,
+                                                                packed=packed),
         prefill=lambda p, b, **kw: t.lm_prefill(p, cfg, b["tokens"], **kw),
         decode=lambda p, c, tok: t.lm_decode(p, cfg, c, tok),
         init_cache=lambda bs, ml, device: t.lm_init_cache(cfg, bs, ml, device=device),
@@ -89,4 +102,5 @@ def get_model(cfg: ModelConfig) -> ModelApi:
         prefill_slice=lambda p, c, tok, h, sl, pos: t.lm_prefill_slice(p, cfg, c, tok, h, sl,
                                                                         pos),
         prefill_slice_finish=lambda p, c, h, sl: t.lm_prefill_slice_finish(p, cfg, c, h, sl),
+        loss=lambda p, b: t.lm_loss(p, cfg, b),
     )

@@ -8,7 +8,9 @@ side: this package imports no jax) and returns the port's params:
     the port's per-layer dicts, following ``build_segments``;
   * bf16 arrays (numpy's ml_dtypes bfloat16) are reinterpreted bit for bit;
   * each binary dense gets its packed sign words (``w_packed``) from its
-    latent weight, as the port's own init does.
+    latent weight, as the port's own init does; with ``packed=False`` it
+    keeps its latent only, as the trainer holds it (so repro's params,
+    grads and AdamW moments all come across as one tree shape).
 
 ``caches_from_jax(tree, cfg)`` takes a repro KV cache pytree (contiguous or
 paged, any codec; numpy leaves) and returns the port's list of per-layer
@@ -27,9 +29,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.binary_dense import with_packed
+from repro_torch.core.binary_dense import pack_tree
 from repro_torch.device import resolve_device
 from repro_torch.models import lm_common as lc
+from repro_torch.tree import tree_map
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -43,29 +46,17 @@ def _tensor(a, device) -> torch.Tensor:
     return t.to(device)
 
 
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    return fn(tree)
-
-
-def _packed(tree: dict) -> dict:
-    """Add w_packed to every binary dense (a dict with a w_latent)."""
-    if "w_latent" in tree:
-        return with_packed(tree)
-    return {k: _packed(v) if isinstance(v, dict) else v for k, v in tree.items()}
-
-
-def params_from_jax(tree: dict, cfg: ModelConfig, *, device="cuda") -> dict:
+def params_from_jax(tree: dict, cfg: ModelConfig, *, device="cuda",
+                    packed: bool = True) -> dict:
     device = resolve_device(device)
-    out = {k: _map(v, lambda a: _tensor(a, device))
+    out = {k: tree_map(lambda a: _tensor(a, device), v)
            for k, v in tree.items() if k != "blocks"}
     blocks = []
     for si, (sig, start, count) in enumerate(lc.build_segments(cfg)):
         seg = tree["blocks"][f"seg{si}"]
         for i in range(count):
-            blocks.append(_packed(_map(seg, lambda a, i=i: _tensor(a[i], device))))
-    out["blocks"] = blocks
+            blocks.append(tree_map(lambda a, i=i: _tensor(a[i], device), seg))
+    out["blocks"] = pack_tree(blocks) if packed else blocks
     return out
 
 
@@ -81,4 +72,4 @@ def caches_from_jax(tree: dict, cfg: ModelConfig, *, device="cuda") -> list:
 
 def mlp_params_from_jax(tree: dict, *, device="cuda") -> dict:
     device = resolve_device(device)
-    return _map(tree, lambda a: _tensor(a, device))
+    return tree_map(lambda a: _tensor(a, device), tree)

@@ -1,0 +1,39 @@
+"""Deploy-time parameter transform: drop binary latents for quantized
+weights (port of repro/models/deploy.py; paper Table II generalized to the
+LM).
+
+Representation per lowering mode, with the reference's keys:
+  xnor -> ``w_packed``, the packed sign words (N, K/32) int32, 16x smaller
+          than bf16 (the XNOR-popcount kernel, B1)
+  int8 -> ``w_int8``, +-1 int8 (N, K), 2x smaller than bf16 (the plain int8
+          product, core/binary_dense.binary_dense_apply_any)
+
+The walk is structural: any dict with a ``w_latent`` leaf becomes a
+quantized dict (its ``scale`` kept), through dicts and the per-layer list.
+The MoE expert stacks come with the other families (ROADMAP A8).
+core/binary_dense.binary_dense_apply_any reads either, so the same model
+code runs training and deployed params.
+"""
+
+from __future__ import annotations
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.binarize import pack_bits, pack_signs_int8
+from repro_torch.tree import map_binary_denses
+
+
+def _quantize_dense(p: dict, mode: str) -> dict:
+    w = p["w_latent"].T                            # (N, K): packing runs along K
+    q = {"w_packed": pack_bits(w)} if mode == "xnor" else {"w_int8": pack_signs_int8(w)}
+    if "scale" in p:
+        q["scale"] = p["scale"]
+    return q
+
+
+def deploy_params(params, cfg: ModelConfig):
+    """Training params -> deployed params (latents, and any serving copy of
+    the packed words beside them, dropped)."""
+    mode = cfg.policy.binary_mode
+    if mode == "bf16" or not cfg.policy.binary_ffn:
+        return params
+    return map_binary_denses(lambda p: _quantize_dense(p, mode), params)

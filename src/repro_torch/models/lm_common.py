@@ -9,6 +9,11 @@ repro groups identical blocks into segments and scans over their stacked
 weights; the port keeps one param dict and one cache dict per layer and
 loops over them. ``build_segments`` stays, to map repro's stacked params
 (models/convert.py).
+
+Training (``segments_apply``, ``block_apply``, ``softmax_xent``) reads each
+binary FFN's latent weight through the straight-through estimator, since
+the trainer's params hold no packed copy; serving reads the packed copy
+that ``ffn_init`` / ``pack_tree`` add.
 """
 
 from __future__ import annotations
@@ -18,8 +23,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.binary_dense import (binary_dense_apply_packed, binary_dense_init,
-                                           with_packed)
+from repro_torch.core.binary_dense import binary_dense_apply_any, binary_dense_init, with_packed
 from repro_torch.nn import attention as attn_lib
 from repro_torch.nn import layers as nn
 from repro_torch.serving import kvcache as kvc
@@ -51,22 +55,27 @@ def pdt(cfg: ModelConfig) -> torch.dtype:   # param dtype
 # hybrid FFN
 # ---------------------------------------------------------------------------
 
-def ffn_init(cfg: ModelConfig, *, binary: bool, generator, device) -> dict:
-    """Binary FFNs are identified structurally (keys 'bin_in' / 'bin_out')."""
+def ffn_init(cfg: ModelConfig, *, binary: bool, generator, device,
+             packed: bool = True) -> dict:
+    """Binary FFNs are identified structurally (keys 'bin_in' / 'bin_out').
+    ``packed``: add the serving copy of the sign words (the trainer, whose
+    steps would leave it stale, holds latents only)."""
     kw = dict(generator=generator, device=device, dtype=pdt(cfg))
     if binary:
-        # serving reads the sign words packed here, once
-        return {"bin_in": with_packed(binary_dense_init(cfg.d_model, cfg.d_ff, **kw)),
-                "bin_out": with_packed(binary_dense_init(cfg.d_ff, cfg.d_model, **kw))}
+        add = with_packed if packed else (lambda p: p)
+        return {"bin_in": add(binary_dense_init(cfg.d_model, cfg.d_ff, **kw)),
+                "bin_out": add(binary_dense_init(cfg.d_ff, cfg.d_model, **kw))}
     return nn.swiglu_init(cfg.d_model, cfg.d_ff, **kw)
 
 
 def ffn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if "bin_in" in p:
-        # the normed residual feeds sign() inside the binary dense
+        # the normed residual feeds sign() inside the binary dense; it reads
+        # the packed copy where the tree holds one (serving), else the
+        # latent through the STE (training)
         mode = cfg.policy.binary_mode
-        h = binary_dense_apply_packed(p["bin_in"], x, mode=mode)
-        return binary_dense_apply_packed(p["bin_out"], h, mode=mode).to(x.dtype)
+        h = binary_dense_apply_any(p["bin_in"], x, mode=mode)
+        return binary_dense_apply_any(p["bin_out"], h, mode=mode).to(x.dtype)
     # binary_impl matters only where these denses are the self-draft's
     # packed ones (serving/spec.binarize_draft_params)
     return nn.swiglu_apply(p, x, compute_dtype=cdt(cfg), binary_impl=cfg.spec_draft_impl)
@@ -179,13 +188,25 @@ def _check_sig(sig: BlockSig) -> None:
         raise NotImplementedError(f"block {sig}: MLA and MoE blocks are ROADMAP A8")
 
 
-def block_init(cfg: ModelConfig, sig: BlockSig, *, generator, device) -> dict:
+def block_init(cfg: ModelConfig, sig: BlockSig, *, generator, device,
+               packed: bool = True) -> dict:
     _check_sig(sig)
     kw = dict(generator=generator, device=device)
     return {"attn": gqa_init(cfg, **kw),
-            "ffn": ffn_init(cfg, binary=sig.ffn == "binary", **kw),
+            "ffn": ffn_init(cfg, binary=sig.ffn == "binary", packed=packed, **kw),
             "ln1": nn.rmsnorm_init(cfg.d_model, device=device),
             "ln2": nn.rmsnorm_init(cfg.d_model, device=device)}
+
+
+def block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, sig: BlockSig, *,
+                positions) -> tuple[torch.Tensor, torch.Tensor]:
+    """The training forward of one block -> (x, aux); aux is the MoE balance
+    loss, 0.0 for a dense block (repro/models/lm_common.py:335)."""
+    _check_sig(sig)
+    h = nn.rmsnorm_apply(p["ln1"], x)
+    x = x + gqa_apply(p["attn"], h, cfg, positions=positions)
+    h = nn.rmsnorm_apply(p["ln2"], x)
+    return x + ffn_apply(p["ffn"], h, cfg), x.new_zeros((), dtype=torch.float32)
 
 
 def block_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig, sig: BlockSig, *,
@@ -263,6 +284,39 @@ def build_segments(cfg: ModelConfig) -> list[tuple[BlockSig, int, int]]:
     return segs
 
 
+REMAT_MODES = ("none", "block", "full", "dots")
+
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    """repro's _maybe_remat (lm_common.py:517-523): "none" keeps every
+    activation; "block" and "full" keep each block's input and recompute
+    the block in the backward (torch.utils.checkpoint, non-reentrant: on
+    the card the recompute launches the block's kernels again). JAX's
+    "dots" policy (keep the products' outputs) is not mapped."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat in ("block", "full"):
+        from torch.utils.checkpoint import checkpoint
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+    if cfg.remat == "dots":
+        raise NotImplementedError('remat="dots" (save the products\' outputs) has no '
+                                  'counterpart here; use "block" or "none"')
+    raise ValueError(f"unknown remat {cfg.remat!r}; known: {REMAT_MODES}")
+
+
+def segments_apply(blocks: list, x: torch.Tensor, cfg: ModelConfig, *,
+                   positions) -> tuple[torch.Tensor, torch.Tensor]:
+    """The training forward: every block in turn under ``cfg.remat`` ->
+    (x, total aux)."""
+    total_aux = x.new_zeros((), dtype=torch.float32)
+    for i, p in enumerate(blocks):
+        one = _maybe_remat(lambda x, p, sig=block_sig(cfg, i): block_apply(
+            p, x, cfg, sig, positions=positions), cfg)
+        x, aux = one(x, p)
+        total_aux = total_aux + aux
+    return x, total_aux
+
+
 def segments_prefill(blocks: list, x: torch.Tensor, cfg: ModelConfig, *,
                      positions, max_len: int, seq_lens=None, ctx=None, ctx_len=None):
     """Every block in turn; returns (x, one cache per layer). ctx, for a
@@ -318,3 +372,20 @@ def init_paged_segment_caches(cfg: ModelConfig, n_blocks: int, block_size: int,
     return [kvc.init_paged(codec, n_blocks, block_size, cfg.n_kv_heads, cfg.kv_head_dim(),
                            max_batch, n_pages, dtype, device=device)
             for _ in range(cfg.n_layers)]
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, *,
+                 z_loss: float = 1e-4) -> torch.Tensor:
+    """Mean token cross-entropy with z-loss (repro/models/lm_common.py:675):
+    logits (..., V) taken in f32, labels (...) integer."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.to(torch.int64)[..., None])[..., 0]
+    ce = lse - ll
+    if z_loss:
+        ce = ce + z_loss * lse ** 2
+    return ce.mean()

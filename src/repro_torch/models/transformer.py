@@ -1,7 +1,7 @@
-"""Decoder LM for the dense GQA archs (port of repro/models/transformer.py,
-serving half: init, prefill, chunked and interleaved (sliced) prefill,
-suffix prefill against a cached prefix, decode, the speculative verify,
-contiguous and paged caches)."""
+"""Decoder LM for the dense GQA archs (port of repro/models/transformer.py:
+the training loss, and serving's init, prefill, chunked and interleaved
+(sliced) prefill, suffix prefill against a cached prefix, decode, the
+speculative verify, contiguous and paged caches)."""
 
 from __future__ import annotations
 
@@ -13,10 +13,12 @@ from repro_torch.models import lm_common as lc
 from repro_torch.nn import layers as nn
 
 
-def lm_init(cfg: ModelConfig, seed: int, *, device="cuda") -> dict:
+def lm_init(cfg: ModelConfig, seed: int, *, device="cuda", packed: bool = True) -> dict:
     """Random params on ``device`` from a seeded torch.Generator, with
     repro's init distributions (not its numbers: the tests carry repro's
-    own params over with models/convert.py)."""
+    own params over with models/convert.py). ``packed``: add each binary
+    dense's serving copy of its sign words; the trainer asks for latents
+    only (packed=False)."""
     device = resolve_device(device)
     if cfg.use_mtp:
         raise NotImplementedError("multi-token prediction heads are ROADMAP A8")
@@ -25,7 +27,7 @@ def lm_init(cfg: ModelConfig, seed: int, *, device="cuda") -> dict:
     kw = dict(generator=gen, device=device)
     vp = lc.padded_vocab(cfg.vocab)
     p = {"embed": nn.embedding_init(vp, cfg.d_model, dtype=lc.pdt(cfg), **kw),
-         "blocks": [lc.block_init(cfg, lc.block_sig(cfg, i), **kw)
+         "blocks": [lc.block_init(cfg, lc.block_sig(cfg, i), packed=packed, **kw)
                     for i in range(cfg.n_layers)],
          "ln_f": nn.rmsnorm_init(cfg.d_model, device=device)}
     if not cfg.tie_embeddings:
@@ -44,6 +46,23 @@ def _logits(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def _embed(p: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     return nn.embedding_lookup(p["embed"], tokens, compute_dtype=lc.cdt(cfg))
+
+
+def lm_loss(params: dict, cfg: ModelConfig, batch: dict):
+    """The training loss (repro/models/transformer.py:87-112) -> (loss,
+    {"ce", "aux", "loss"}): mean token cross-entropy with z-loss plus 0.01
+    x the blocks' aux loss, over ``batch`` {"tokens", "labels"} (B, S).
+    Binary FFNs read their latents (the STE); attention runs the flash
+    kernel on the card, differentiable through its recompute."""
+    if cfg.use_mtp:
+        raise NotImplementedError("multi-token prediction heads are ROADMAP A8")
+    tokens, labels = batch["tokens"], batch["labels"]
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = _embed(params, cfg, tokens)
+    h, aux = lc.segments_apply(params["blocks"], x, cfg, positions=positions)
+    ce = lc.softmax_xent(_logits(params, cfg, h), labels)
+    loss = ce + 0.01 * aux
+    return loss, {"ce": ce, "aux": aux, "loss": loss}
 
 
 def lm_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,

@@ -8,11 +8,11 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.tree import map_binary_denses
+
 
 def clip_latent_weights(params):
-    """A copy of ``params`` (nested dicts of tensors) with every
+    """A copy of ``params`` (nested dicts and lists of tensors) with every
     ``w_latent`` clipped to [-1, 1]; other leaves are shared, not copied."""
-    if isinstance(params, dict):
-        return {k: torch.clamp(v, -1.0, 1.0) if k == "w_latent" else clip_latent_weights(v)
-                for k, v in params.items()}
-    return params
+    return map_binary_denses(
+        lambda p: {**p, "w_latent": torch.clamp(p["w_latent"], -1.0, 1.0)}, params)

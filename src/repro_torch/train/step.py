@@ -1,0 +1,83 @@
+"""Train step factory (port of repro/train/step.py): loss and gradients,
+global-norm clipping, AdamW under the cosine schedule and the BNN latent
+clip, with optional gradient accumulation over microbatches.
+
+The step is functional: it returns new params and a new optimizer state
+and changes none of the tensors it is given, so a step that fails halfway
+can be retried from the same inputs (train/fault_tolerance.py). It takes
+latent-only params (``api.init(..., packed=False)``): a binary dense's
+packed serving copy would go stale at the first update, so a tree that
+holds one is refused; ``core/binary_dense.pack_tree`` adds the copies
+where trained params go to serving.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.optim import (adamw_update, clip_by_global_norm, clip_latent_weights,
+                               cosine_schedule)
+from repro_torch.tree import tree_leaves_with_path, tree_map, tree_unflatten_like
+
+
+def loss_and_grads(api, params, batch: dict):
+    """-> (loss, metrics, grads): the gradient of ``api.loss`` for every
+    leaf of ``params``, in the leaf's dtype, as jax.value_and_grad gives
+    it; loss and metrics detached."""
+    leaves = tree_leaves_with_path(params)
+    fixed = [path for path, t in leaves if not t.is_floating_point()]
+    if fixed:
+        raise ValueError(f"the trainer takes latent-only params; {fixed[:3]} hold no "
+                         "gradient (a packed copy would go stale at the first step: "
+                         "init with packed=False)")
+    live = [t.detach().requires_grad_() for _, t in leaves]
+    with torch.enable_grad():
+        loss, metrics = api.loss(tree_unflatten_like(params, live), batch)
+        grads = torch.autograd.grad(loss, live)
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            tree_unflatten_like(params, list(grads)))
+
+
+def accumulated_loss_and_grads(api, params, batch: dict, grad_accum: int = 1):
+    """loss_and_grads, over ``grad_accum`` microbatches when it is > 1: the
+    batch leaves are then (accum, mb, ...), the f32 gradients are summed
+    and divided by their count, the loss and metrics averaged."""
+    if grad_accum == 1:
+        return loss_and_grads(api, params, batch)
+    acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+                   params)
+    losses, metricses = [], []
+    for i in range(grad_accum):
+        loss, metrics, grads = loss_and_grads(api, params, {k: v[i] for k, v in batch.items()})
+        acc = tree_map(torch.add, acc, grads)
+        losses.append(loss)
+        metricses.append(metrics)
+    metrics = {k: torch.stack([m[k] for m in metricses]).mean() for k in metricses[0]}
+    return torch.stack(losses).mean(), metrics, tree_map(lambda g: g / grad_accum, acc)
+
+
+def make_train_step(api, cfg, *, peak_lr: float = 3e-4, warmup: int = 100,
+                    total: int = 10000, grad_accum: int = 1, max_grad_norm: float = 1.0,
+                    weight_decay: float = 0.1):
+    """-> train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics), the gradients taken over ``grad_accum`` microbatches."""
+
+    def train_step(params, opt_state, batch):
+        _, metrics, grads = accumulated_loss_and_grads(api, params, batch, grad_accum)
+        with torch.no_grad():
+            grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+            lr = cosine_schedule(opt_state["step"], peak_lr=peak_lr, warmup=warmup,
+                                 total=total)
+            params, opt_state = adamw_update(params, grads, opt_state, lr=lr,
+                                             weight_decay=weight_decay)
+            params = clip_latent_weights(params)
+        return params, opt_state, {**metrics, "grad_norm": gnorm, "lr": lr}
+
+    return train_step
+
+
+def make_eval_step(api):
+    def eval_step(params, batch):
+        with torch.no_grad():
+            return api.loss(params, batch)[1]
+    return eval_step

@@ -17,7 +17,10 @@ attention matches the plain version within tests/test_attention.py's TOLS:
 (the kernel also rounds p to bf16 before p @ v, as the TPU kernel does).
 The model checks run f32 on both devices; their only differences come
 before sign() and are ~1e-6, so 1e-4 holds unless a value sits that close
-to 0.
+to 0. A train step's gradients differ by ~2e-6 of a leaf's max-abs, its
+updated params by up to ~1e-4 (AdamW's first step divides each gradient
+by its own size): TRAIN_TOL holds them to 1e-4 and 1e-3, where TF32
+products would give ~0.2 and ~0.02.
 """
 
 import numpy as np
@@ -48,6 +51,9 @@ torch.set_num_threads(2)
 pytestmark = pytest.mark.cuda
 
 TOLS = {"float32": 2e-5, "bfloat16": 3e-2}
+# a train step's gradients and updated params, card against CPU, relative
+# to each leaf's max-abs (f32; TF32 would give ~0.2 and ~0.02)
+TRAIN_TOL = {"grad": 1e-4, "param": 1e-3}
 
 
 @pytest.fixture
@@ -425,6 +431,93 @@ def test_smoke_model_on_card_matches_cpu(dev):
     want, _ = api.prefill(params, {"tokens": torch.from_numpy(toks)}, max_len=24,
                           seq_lens=torch.from_numpy(lens))
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# (B, S, T, Hq, Hkv, D, causal, kv_len, q_offset): the training shape of
+# stablelm-3b (B 8, S 128, 32 heads of 80), a ragged GQA case, a q_offset
+# block and a non-causal one
+FLASH_GRAD_CASES = [
+    (8, 128, 128, 32, 32, 80, True, None, 0),
+    (2, 40, 40, 8, 2, 64, True, [40, 17], 0),
+    (2, 24, 56, 4, 4, 16, True, [56, 41], 32),
+    (2, 24, 40, 4, 2, 128, False, [33, 7], 0),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,t,hq,hkv,d,causal,kv_len,q_offset", FLASH_GRAD_CASES)
+def test_flash_function_grads_on_card(dev, dtype, b, s, t, hq, hkv, d, causal, kv_len,
+                                      q_offset):
+    """B3's autograd Function on the card: one kernel launch forward, none
+    backward (the recompute runs the plain version), and q, k and v grads
+    equal to autograd through flash_attention_plain on the same inputs
+    (3e-2 in bf16, 1e-4 in f32)."""
+    gen = _gen(dev, b + s + t + d)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(b, n, h, d, generator=gen, device=dev).to(dt).requires_grad_()
+               for n, h in ((s, hq), (t, hkv), (t, hkv)))
+    g = torch.randn(b, s, hq, d, generator=gen, device=dev).to(dt)
+    kvl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, kv_len=kvl, q_offset=q_offset)
+    assert out.grad_fn is not None and flash_attention.launches == before + 1
+    got = torch.autograd.grad(out, (q, k, v), g)
+    assert flash_attention.launches == before + 1
+    ref = flash_attention_plain(q, k, v, causal=causal, kv_len=kvl, q_offset=q_offset)
+    want = torch.autograd.grad(ref, (q, k, v), g)
+    tol = {"float32": 1e-4, "bfloat16": 3e-2}[dtype]
+    for name, a, w in zip("qkv", got, want):
+        assert a.dtype == dt and bool(torch.isfinite(a.float()).all()), name
+        torch.testing.assert_close(a.float(), w.float(), rtol=tol, atol=tol, msg=name)
+
+
+def _leaf_errs(got, want) -> dict:
+    """{path: max |got - want| / max |want|} for each leaf of two trees of
+    one structure (got on any device, want on the CPU)."""
+    from repro_torch.tree import tree_leaves_with_path
+    out = {}
+    for (path, a), (_, w) in zip(tree_leaves_with_path(got), tree_leaves_with_path(want)):
+        w = w.float()
+        out[path] = float((a.float().cpu() - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+    return out
+
+
+def test_smoke_train_step_on_card_matches_cpu(dev):
+    """One train step of the smoke LM (f32, its int8 binary FFN kept, remat
+    "block") on the card, through B2 and B3, against the same step on the
+    CPU through their plain versions: the loss within 2e-2, every gradient
+    leaf within 1e-4 and every updated param within 1e-3 of the leaf's
+    max-abs,
+    and the launches of a step: each binary dense's B2 and each block's B3
+    twice (the forward and its recompute), none in the backward."""
+    from repro_torch.data.synthetic import SyntheticTokens
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.step import loss_and_grads, make_train_step
+    cfg = smoke_config("stablelm-3b").replace(compute_dtype="float32", param_dtype="float32")
+    assert cfg.remat == "block" and not torch.backends.cuda.matmul.allow_tf32
+    api = get_model(cfg)
+    params = api.init(0, device="cpu", packed=False)
+    batch = {k: torch.from_numpy(v) for k, v in
+             next(SyntheticTokens(cfg.vocab, 32, 4, seed=0)).items()}
+    step = make_train_step(api, cfg, peak_lr=1e-3, warmup=1, total=10)
+    n_binary = sum(cfg.policy.block_is_binary(i, cfg.n_layers) for i in range(cfg.n_layers))
+    before = {w.__name__: w.launches for w in GRAPH_COUNTED}
+    p_dev, _, m_dev = step(_to(params, dev), adamw_init(_to(params, dev)), _to(batch, dev))
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches - before[w.__name__] for w in GRAPH_COUNTED}
+    assert launches == {**{k: 0 for k in launches}, "int8_matmul": 2 * 2 * n_binary,
+                        "flash_attention": 2 * cfg.n_layers}
+    p_cpu, _, m_cpu = step(params, adamw_init(params), batch)
+    assert abs(float(m_dev["loss"]) - float(m_cpu["loss"])) <= 2e-2
+    assert float(m_dev["grad_norm"]) > 0
+    for blk in p_dev["blocks"]:
+        if "bin_in" in blk["ffn"]:
+            assert float(blk["ffn"]["bin_in"]["w_latent"].abs().max()) <= 1.0
+    _, _, g_dev = loss_and_grads(api, _to(params, dev), _to(batch, dev))
+    _, _, g_cpu = loss_and_grads(api, params, batch)
+    for what, errs in (("grad", _leaf_errs(g_dev, g_cpu)), ("param", _leaf_errs(p_dev, p_cpu))):
+        worst = max(errs, key=errs.get)
+        assert errs[worst] <= TRAIN_TOL[what], f"{what} {worst}: {errs[worst]}"
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:

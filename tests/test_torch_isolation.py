@@ -34,11 +34,14 @@ if not torch.cuda.is_available():
     from repro_torch.models import get_model
     from repro_torch.launch import serve
     from repro_torch.core.hybrid_mlp import mlp_init
-    from repro_torch.examples import quickstart
+    from repro_torch.examples import binary_llm, quickstart
+    from repro_torch.launch import train
     for what, fn in [("init", lambda: get_model(smoke_config("stablelm-3b")).init(0)),
                      ("serve", lambda: serve.main(["--smoke", "--requests", "1"])),
                      ("mlp_init", lambda: mlp_init(0, hybrid=True)),
-                     ("quickstart", lambda: quickstart.main([]))]:
+                     ("quickstart", lambda: quickstart.main([])),
+                     ("train", lambda: train.main(["--smoke", "--steps", "1"])),
+                     ("binary_llm", lambda: binary_llm.main(["--steps", "1"]))]:
         try:
             fn()
             raised[what] = None
@@ -63,9 +66,12 @@ def test_port_imports_no_jax_and_refuses_missing_card():
                 "data.synthetic", "examples.quickstart", "kernels.kv_quant",
                 "kernels.kv_decode", "serving.kvcache", "serving.prefix", "serving.spec",
                 "serving.sampling", "serving.graphs", "serving.telemetry", "serving.bucket",
-                "launch.server", "examples.serve_lm"):
+                "launch.server", "examples.serve_lm", "tree", "optim.adamw", "train.step",
+                "train.checkpoint", "train.fault_tolerance", "launch.train", "models.deploy",
+                "examples.binary_llm"):
         assert "repro_torch." + mod in out["modules"]
     assert out["leaked"] == []
-    assert set(out["raised"]) == {"init", "serve", "mlp_init", "quickstart"}
+    assert set(out["raised"]) == {"init", "serve", "mlp_init", "quickstart", "train",
+                                  "binary_llm"}
     for what, msg in out["raised"].items():
         assert msg is not None and "no CUDA device" in msg, what

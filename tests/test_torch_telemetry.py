@@ -319,6 +319,8 @@ def test_launcher_telemetry_files(tmp_path):
     assert json.loads(trace.read_text())["traceEvents"]
     serve.main(base + ["--metrics-out", str(tmp_path / "m.prom")])
     assert "serve_tokens_total 16" in (tmp_path / "m.prom").read_text().splitlines()
-    for flag, item in (("--mesh", "A9"), ("--ckpt-dir", "A7")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            serve.main(base + [flag, "2"])
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        serve.main(base + ["--mesh", "2"])
+    # --ckpt-dir (ported with the trainer): a directory with no checkpoint
+    # serves the random weights, as in the reference
+    assert serve.main(base + ["--ckpt-dir", str(tmp_path / "none")]) == res
