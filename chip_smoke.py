@@ -17,7 +17,9 @@ Phases, one output line each (or a few), every failure raising:
      serving path's shapes (decode M = 1, 8 and 16, the speculative
      verify's M = 8 x 4 = 32, prefill M = 8 x 128 and 8 x 256, an
      interleaved prefill slice's M = 64 and 128, bin_in
-     (N, K) = (6912, 2560) and bin_out (2560, 6912)),
+     (N, K) = (6912, 2560) and bin_out (2560, 6912); minicpm3-4b's
+     bin_in (6400, 2560) and bin_out (2560, 6400) at decode M = 8 and
+     prefill M = 1024),
      a ragged case and, with activations over all of [-128, 127], a
      decode and a prefill case, required to be exactly equal; times of the
      kernel, the plain version and one cuBLAS call on unpacked operands
@@ -31,7 +33,11 @@ Phases, one output line each (or a few), every failure raising:
      dims 64 and 128, within bf16's tolerance of 3e-2
      (tests/test_attention.py TOLS); times beside the bound and
      scaled_dot_product_attention's (with enable_gqa for the GQA case, on
-     torch >= 2.5);
+     torch >= 2.5); then MLA's head dims, q and k of width D, v of Dv:
+     minicpm3-4b's (8, 128, 40 heads, 96 / 64) causal and with ragged
+     kv_len, deepseek-v2's (8, 128, 128 heads, 192 / 128) causal, and the
+     smoke configs' (2, 32, 4 heads, 24 / 16) in bf16 and f32 (2e-5), SDPA
+     timed through the first backend that takes Dv != D (named);
   5. kv_quant: the insert kernel (B4a / B4c: K and V encoded and written
      into the pool in one launch) bit for bit against its plain version
      (the encode pair, then the pool's torch scatter) at the serving shape:
@@ -137,6 +143,22 @@ Phases, one output line each (or a few), every failure raising:
      it (a subprocess: --kv-cache int8 --interleave --scheduler slo with
      --metrics-out, --trace-out and --torch-profile): exit 0, the metrics
      parse, the trace holds prefill_slice spans, the profile is written;
+  6d. mla: the MLA families at full width through get_model and
+     ServeEngine (contiguous pool, max_batch 8, max_len 256, the serve
+     phase's 12 requests of 16 new tokens), random init from the seed:
+     minicpm3-4b (62 layers; 58 binary FFNs at K 2560 and 6400) and
+     deepseek-v2-236b cut to 5 layers (dense block 0, float MoE blocks 1, 3
+     and 4, the binary MoE block 2; 160 experts, top-6, its experts plain
+     torch). Each with its counts zeroed just before and read just after,
+     traced (device events = counts + the warm-up), each replay's counts =
+     its graph's kernel nodes: launches exactly B2 2 x 58 x (waves +
+     steps) for minicpm3 and 0 for deepseek, B3 one a layer a wave, the
+     codec kernels 0; kv_bytes exactly 73,138,176 and 11,796,480 (the
+     compressed cache: layers x 8 x 256 x (kv_lora + rope) x 2 bytes); the
+     same tokens on a second replayed run and eagerly; logits finite, layer
+     0's MLA prefill through B3 within 3e-2 of the plain attention. Warm
+     tok/s (replayed, eager), the busy share, device ms by family and the
+     peak memory are printed;
   7. xnor: the XNOR-popcount GEMM against its plain version, exactly, at
      the MNIST net's hidden layers (M = 1, 128, 256, 512; N = K = 1024),
      ragged K (40, 100, 384) and the spec draft's shapes (gate / up 8 x
@@ -205,6 +227,7 @@ Every phase's lines also go to build/chip_smoke.json.
 from __future__ import annotations
 
 import ctypes
+import gc
 import json
 import os
 import statistics
@@ -239,6 +262,7 @@ from repro_torch.nn import attention as attn_lib  # noqa: E402
 from repro_torch.nn.layers import embedding_lookup, rmsnorm_apply  # noqa: E402
 from repro_torch.serving import kvcache as kvc  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
 
 # name -> wrapper, every counted one; every launch count is zeroed before each path
 KERNELS = {w.__name__: w for w in COUNTED}
@@ -370,6 +394,11 @@ INT8_CASES = [  # (name, M, N, K)
     ("slice bin_out M 64", 64, 2560, 6912),
     ("slice bin_in M 128", 128, 6912, 2560),
     ("slice bin_out M 128", 128, 2560, 6912),
+    # minicpm3-4b's binary FFNs (d_ff 6400)
+    ("minicpm3 decode bin_in", 8, 6400, 2560),
+    ("minicpm3 decode bin_out", 8, 2560, 6400),
+    ("minicpm3 prefill bin_in", 1024, 6400, 2560),
+    ("minicpm3 prefill bin_out", 1024, 2560, 6400),
 ]
 # activations drawn from all of [-128, 127]: the kernel is exact for any
 # int8, and so are the plain f32 version and the yardsticks (|sum| < 2**24)
@@ -482,12 +511,51 @@ def _sdpa_mask(b, s, t, kvl, q_offset, dev):
     return (causal[None] & (cols[None, None, :] < lens[:, None, None]))[:, None]
 
 
+# MLA's prefill: q and k [nope | rope] of width D, v of width Dv, G 1
+MLA_FLASH_CASES = [  # (name, B, S, Hq, D, Dv, kv_len or None, dtype)
+    ("minicpm3 96/64", 8, 128, 40, 96, 64, None, torch.bfloat16),
+    ("minicpm3 96/64, ragged kv_len", 8, 128, 40, 96, 64, [128, 100, 1, 64, 17, 128, 90, 3],
+     torch.bfloat16),
+    ("deepseek-v2 192/128", 8, 128, 128, 192, 128, None, torch.bfloat16),
+    ("smoke 24/16 bf16", 2, 32, 4, 24, 16, None, torch.bfloat16),
+    ("smoke 24/16 f32", 2, 32, 4, 24, 16, None, torch.float32),
+]
+TOLS = {torch.bfloat16: BF16_TOL, torch.float32: 2e-5}   # tests/test_attention.py TOLS
+# both lists as (name, B, S, T, Hq, Hkv, D, Dv, q_offset, kv_len, dtype)
+ALL_FLASH_CASES = ([(name, b, s, t, hq, hkv, d, d, off, kvl, torch.bfloat16)
+                    for name, b, s, t, hq, hkv, d, off, kvl in FLASH_CASES]
+                   + [(name, b, s, s, hq, hq, d, dv, 0, kvl, dt)
+                      for name, b, s, hq, d, dv, kvl, dt in MLA_FLASH_CASES])
+
+
+def _sdpa_dv(qt, kt, vt, timer, **kw) -> tuple[float | None, str]:
+    """SDPA at Dv != D through the first backend that takes it -> (ms, the
+    call named with its backend), or (None, why) when none does."""
+    import warnings
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+               SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        def call(be=be):
+            with sdpa_kernel([be]):
+                return F.scaled_dot_product_attention(qt, kt, vt, **kw)
+        try:
+            with warnings.catch_warnings():      # each refusal warns why
+                warnings.simplefilter("ignore", UserWarning)
+                call()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        args = "is_causal=True" if "is_causal" in kw else "attn_mask=bool"
+        return timer(call), f"scaled_dot_product_attention({args}), {be.name} backend"
+    return None, "no SDPA backend takes Dv != D here"
+
+
 def phase_flash(dev, gen, timer) -> list[dict]:
     rows = []
-    for name, b, s, t, hq, hkv, d, off, kvl in FLASH_CASES:
-        q = torch.randn(b, s, hq, d, generator=gen, device=dev).to(torch.bfloat16)
-        k = torch.randn(b, t, hkv, d, generator=gen, device=dev).to(torch.bfloat16)
-        v = torch.randn(b, t, hkv, d, generator=gen, device=dev).to(torch.bfloat16)
+    for name, b, s, t, hq, hkv, d, dv, off, kvl, dt in ALL_FLASH_CASES:
+        q = torch.randn(b, s, hq, d, generator=gen, device=dev).to(dt)
+        k = torch.randn(b, t, hkv, d, generator=gen, device=dev).to(dt)
+        v = torch.randn(b, t, hkv, dv, generator=gen, device=dev).to(dt)
         lens = [t] * b if kvl is None else kvl
         kv = None if kvl is None else torch.tensor(kvl, dtype=torch.int32, device=dev)
         kw = dict(causal=True, kv_len=kv, q_offset=off)
@@ -495,32 +563,33 @@ def phase_flash(dev, gen, timer) -> list[dict]:
         want = flash_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
-        if not err <= BF16_TOL:
-            raise AssertionError(f"flash kernel vs plain at {name}: {err} > {BF16_TOL}")
+        if got.shape != (b, s, hq, dv) or not err <= TOLS[dt]:
+            raise AssertionError(f"flash kernel vs plain at {name}: {tuple(got.shape)}, "
+                                 f"{err} > {TOLS[dt]}")
         ms = timer(lambda: flash_attention(q, k, v, **kw))
         plain_ms = timer(lambda: flash_attention_plain(q, k, v, **kw), reps=10)
         # the yardstick: one SDPA call on the same inputs (heads-major views)
         lib_ms, lib_call = None, None
         gqa = {} if hq == hkv else {"enable_gqa": True}
-        if not gqa or SDPA_GQA:
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            if kvl is None and off == 0 and s == t:
-                lib_call = "scaled_dot_product_attention(is_causal=True)"
-                lib_ms = timer(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, **gqa))
-            else:
-                lib_call = "scaled_dot_product_attention(attn_mask=bool)"
-                mask = _sdpa_mask(b, s, t, lens, off, dev)
-                lib_ms = timer(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask, **gqa))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa_kw = ({"is_causal": True} if kvl is None and off == 0 and s == t
+                   else {"attn_mask": _sdpa_mask(b, s, t, lens, off, dev)})
+        if dv != d:
+            lib_ms, lib_call = _sdpa_dv(qt, kt, vt, timer, **sdpa_kw)
+        elif not gqa or SDPA_GQA:
+            lib_call = ("scaled_dot_product_attention(is_causal=True)" if "is_causal" in sdpa_kw
+                        else "scaled_dot_product_attention(attn_mask=bool)")
+            lib_ms = timer(lambda: F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw,
+                                                                  **gqa))
             if gqa:
                 lib_call = lib_call[:-1] + ", enable_gqa=True)"
-        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-        flops = 4.0 * hq * d * _visible_pairs(s, lens, off)
-        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
-        row = dict(case=name, B=b, S=s, T=t, Hq=hq, Hkv=hkv, D=d, q_offset=off,
-                   max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                   bound_by=b_by, library_ms=lib_ms, library_call=lib_call)
+        nbytes = q.element_size() * (q.numel() + k.numel() + v.numel() + b * s * hq * dv)
+        flops = 2.0 * hq * (d + dv) * _visible_pairs(s, lens, off)
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS)
+        row = dict(case=name, B=b, S=s, T=t, Hq=hq, Hkv=hkv, D=d, Dv=dv, q_offset=off,
+                   dtype=str(dt).replace("torch.", ""), max_abs_err=err, ms=ms,
+                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                   library_call=lib_call)
         log("flash", **row)
         rows.append(row)
     return rows
@@ -916,6 +985,101 @@ def phase_serve(dev, card: str) -> dict:
     spec = phase_spec(api, params, cfg, prompts, shared, plain, n_binary, card)
     interleave = phase_interleave(api, params, cfg, prompts, shared, plain, n_binary, card)
     return {**row, "paths": paths, "spec": spec, "interleave": interleave}
+
+
+# ---------------------------------------------------------------------------
+# phase 6d: the MLA families at full width
+# ---------------------------------------------------------------------------
+
+# (arch, the cut, exact pool bytes at max_batch 8, max_len 256: layers x 8
+# x 256 x (kv_lora + rope) x 2 bytes of the compressed bf16 cache)
+MLA_CONFIGS = [("minicpm3-4b", {}, 73_138_176),
+               ("deepseek-v2-236b", dict(n_layers=5), 11_796_480)]
+
+
+def _mla_layer0(params, cfg, prompts, dev) -> float:
+    """Layer 0's MLA prefill of a small right-padded batch through B3 (q and
+    k [nope | rope], v of Dv) against the plain attention (3e-2); the
+    logits finite and of the padded vocab."""
+    toks = torch.as_tensor(np.stack([np.resize(p, 48) for p in prompts[:2]]), device=dev)
+    lens = torch.tensor([48, 20], dtype=torch.int32, device=dev)
+    logits, _ = get_model(cfg).prefill(params, {"tokens": toks}, max_len=64, seq_lens=lens)
+    if tuple(logits.shape) != (2, lc.padded_vocab(cfg.vocab)) or \
+            not bool(torch.isfinite(logits[:, :cfg.vocab]).all()):
+        raise AssertionError(f"{cfg.name}: prefill logits not finite / of the wrong shape")
+    x = embedding_lookup(params["embed"], toks, compute_dtype=lc.cdt(cfg))
+    pos = torch.arange(48, device=dev)
+    outs = [lc.block_prefill(params["blocks"][0], x, cfg.replace(attn_impl=impl),
+                             lc.block_sig(cfg, 0), positions=pos, max_len=64,
+                             seq_lens=lens)[0] for impl in ("flash", "ref")]
+    err = float((outs[0].float() - outs[1].float()).abs().max())
+    if not torch.allclose(outs[0].float(), outs[1].float(), rtol=BF16_TOL, atol=BF16_TOL):
+        raise AssertionError(f"{cfg.name}: layer 0 flash vs plain MLA attention: {err}")
+    return err
+
+
+def phase_mla(dev, card: str) -> dict:
+    """minicpm3-4b and the 5-layer deepseek-v2-236b served at full width
+    (module note, 6d) -> {"rows", "launches"}."""
+    rows, all_launches = [], []
+    for arch, cut, kv_bytes in MLA_CONFIGS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        cfg = get_config(arch).replace(**cut)
+        sigs = [lc.block_sig(cfg, i) for i in range(cfg.n_layers)]
+        n_binary = sum(sg.ffn == "binary" and not sg.moe for sg in sigs)
+        if cfg.family == "moe" and not any(sg.ffn == "binary" and sg.moe for sg in sigs):
+            raise AssertionError(f"{arch}: the cut holds no binary MoE block: {sigs}")
+        api = get_model(cfg)
+        t0 = time.perf_counter()
+        params = api.init(SEED, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+        rng = np.random.default_rng(SEED)
+        prompts = [rng.integers(0, cfg.vocab, int(rng.choice(PROMPT_LENS)))
+                   for _ in range(N_REQUESTS)]
+        label = f"mla {arch}"
+        out, wall, eng, launches, prof = _counted_run(label, api, params, prompts,
+                                                      profiled=True)
+        waves, steps = eng.stats["prefills"], eng.stats["decode_steps"]
+        _check_outputs(label, out, cfg.vocab)
+        _check_replays(label, eng)
+        want = {k: 0 for k in KERNELS}
+        want["int8_matmul"] = 2 * n_binary * (waves + steps)
+        want["flash_attention"] = cfg.n_layers * waves
+        if launches != want:
+            raise AssertionError(f"{label}: launches {launches}, want {want} for {waves} "
+                                 f"prefill waves + {steps} decode steps")
+        per_tok = cfg.n_layers * (cfg.kv_lora_rank + cfg.qk_rope_dim) * 2
+        if not eng.stats["kv_bytes"] == kv_bytes == per_tok * 8 * 256:
+            raise AssertionError(f"{label}: kv_bytes {eng.stats['kv_bytes']}, want {kv_bytes}")
+        del eng
+        out2, wall2, _ = _serve_once(api, params, prompts)
+        if out2 != out:
+            raise AssertionError(f"{label}: a second run gave other tokens")
+        wall_eager = _eager_equal(label, out, api, params, prompts)
+        layer0_err = _mla_layer0(params, cfg, prompts, dev)
+        n_tok = sum(len(o) for o in out)
+        row = dict(card=card, arch=arch, cut=cut, n_layers=cfg.n_layers, d_model=cfg.d_model,
+                   heads=cfg.n_heads, head_dims=[cfg.qk_nope_dim + cfg.qk_rope_dim,
+                                                 cfg.v_head_dim],
+                   binary_dense_ffns=n_binary, param_bytes=param_bytes, init_s=init_s,
+                   requests=N_REQUESTS, tokens=n_tok, prefill_waves=waves,
+                   decode_steps=steps, launches=launches, kv_bytes=kv_bytes,
+                   wall_s_first=wall, wall_s=wall2, wall_s_eager=wall_eager,
+                   tok_per_s_first=n_tok / wall, tok_per_s=n_tok / wall2,
+                   tok_per_s_eager=n_tok / wall_eager, layer0_flash_vs_plain=layer0_err,
+                   peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                   profile=_profile_summary(prof, wall, wall2))
+        log("mla", **row)
+        rows.append(row)
+        all_launches.append(launches)
+        del params, api, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"rows": rows, "launches": all_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -2663,6 +2827,7 @@ def main() -> int:
     kv_rows = phase_kvquant(dev, gen, timer)
     decode_rows = phase_kv_decode(dev, gen, timer)
     serve = phase_serve(dev, smi)
+    mla = phase_mla(dev, smi)
     xnor_rows = phase_xnor(dev, gen, timer)
     phase_xnor_splits(dev, gen, timer)
     hybrid_rows = phase_hybrid(dev, gen, timer)
@@ -2674,9 +2839,9 @@ def main() -> int:
     train = phase_train(dev, smi)
 
     # launches on every path: the serving paths (bf16, int8, binary, paged
-    # int8 with the prefix cache, int8 sampled), the speculative paths and
-    # the MNIST net, each counted from 0
-    path_launches = [serve["launches"], mnist["launches"],
+    # int8 with the prefix cache, int8 sampled), the MLA serving paths, the
+    # speculative paths and the MNIST net, each counted from 0
+    path_launches = [serve["launches"], mnist["launches"], *mla["launches"],
                      *(p["launches"] for p in serve["paths"]),
                      serve["spec"]["plain_sampled"]["launches"],
                      *(p["launches"] for p in serve["spec"]["paths"]),

@@ -12,14 +12,15 @@ import importlib
 
 from repro_torch.configs.base import ModelConfig, PrecisionPolicy  # noqa: F401
 
-ARCHS = ["stablelm-3b"]
+ARCHS = ["stablelm-3b", "minicpm3-4b", "deepseek-v2-236b"]
 
-_MOD = {"stablelm-3b": "stablelm_3b", "beanna-mnist": "beanna_mnist"}
+_MOD = {"stablelm-3b": "stablelm_3b", "minicpm3-4b": "minicpm3_4b",
+        "deepseek-v2-236b": "deepseek_v2_236b", "beanna-mnist": "beanna_mnist"}
 
 # archs of the JAX package that this package does not serve yet
 _LATER = {name: "ROADMAP A8 (the other model families)" for name in (
-    "minicpm3-4b", "qwen3-8b", "qwen2-72b", "whisper-base", "llama-3.2-vision-11b",
-    "deepseek-v2-236b", "deepseek-v3-671b", "zamba2-2.7b", "rwkv6-3b")}
+    "qwen3-8b", "qwen2-72b", "whisper-base", "llama-3.2-vision-11b",
+    "deepseek-v3-671b", "zamba2-2.7b", "rwkv6-3b")}
 
 
 def _module(name: str):

@@ -2,12 +2,14 @@
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::_flash_call
 // (body _flash_kernel, reached through flash_attention_pallas), with the
-// same semantics: q (B, S, Hq, D), k and v (B, T, Hkv, D) in the layout the
-// model produces them, GQA query head h reading kv head h / (Hq / Hkv)
+// same semantics: q and k (B, S, Hq, D) / (B, T, Hkv, D), v (B, T, Hkv, Dv)
+// in the layout the model produces them (Dv != D for MLA's prefill, whose q
+// and k are [nope | rope]), GQA query head h reading kv head h / (Hq / Hkv)
 // without a repeat, causal masking against absolute positions
 // q_offset + s, per-batch-row kv_len (clamped to T by the caller), masked
 // scores set to the finite -1e9, running max / sum / accumulator in f32,
-// l == 0 taken as 1, and the output written once in the inputs' type.
+// l == 0 taken as 1, and the output (B, S, Hq, Dv) written once in the
+// inputs' type.
 // As in the TPU kernel, the probabilities are rounded to the inputs' type
 // before they multiply V, while the running sum adds them unrounded.
 // Tiles above the causal diagonal and tiles wholly past kv_len are not
@@ -34,10 +36,17 @@
 // Q and the K / V tiles (64 keys) are staged by cp.async in 16-byte chunks
 // (a row of D bf16 is 2 D bytes, 16-byte aligned at every head offset),
 // K / V double-buffered so the next tile loads while this one is used;
-// rows are padded to D + 8 elements (a multiple of 16 B whose 16-byte
-// units are odd, so the 8 rows an ldmatrix reads fall in 8 distinct bank
-// groups). Fragments come by ldmatrix (.trans for V). Keys past T and
-// query rows past S load as zeros (cp.async zero-fill).
+// rows are padded to W + 8 elements, W the row's width rounded up to 16
+// (W / 8 + 1 16-byte units, an odd count, so the 8 rows an ldmatrix reads
+// fall in 8 distinct bank groups; D + 8 itself would be even at D = 24).
+// Fragments come by ldmatrix (.trans for V). Keys past T and query rows
+// past S load as zeros (cp.async zero-fill), and so do the columns of Q
+// and K from D up to DP = D rounded up to 16, since Q K^T steps over k16
+// (D = 24 runs as 32, its last 8 columns zero on both sides).
+// Q K^T runs over DP, P V over Dv: MLA's (D, Dv) = (24, 16), (96, 64),
+// (192, 128) each have their own instance beside D = Dv = 16, 64, 80, 128.
+// At D = 192 the staged tiles take 111,616 B of shared memory, one block an
+// SM.
 //
 // Design, f32 (no serving path sends f32): the CUDA-core kernel of the
 // first port, kept for the f32 instantiation because TF32 products would
@@ -57,13 +66,13 @@ constexpr int BKV = 64;       // keys per tile
 constexpr int THREADS = 128;  // bf16: 4 warps of 16 query rows; f32: 2 threads a row
 constexpr float NEG_INF = -1e9f;
 
-template <int D>
+template <int D, int DV>
 constexpr size_t simt_smem_bytes() {
-  return sizeof(float) * (BQ * (D + 1) + BKV * (D + 1) + BKV * D + BQ * (BKV + 1));
+  return sizeof(float) * (BQ * (D + 1) + BKV * (D + 1) + BKV * DV + BQ * (BKV + 1));
 }
 
 // f32: the CUDA-core design (header note)
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const int32_t* __restrict__ kvlen,
@@ -72,8 +81,8 @@ flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
   extern __shared__ float smem[];
   float* Qs = smem;                    // BQ x (D + 1)
   float* Ks = Qs + BQ * (D + 1);       // BKV x (D + 1)
-  float* Vs = Ks + BKV * (D + 1);      // BKV x D
-  float* Ps = Vs + BKV * D;            // BQ x (BKV + 1)
+  float* Vs = Ks + BKV * (D + 1);      // BKV x DV
+  float* Ps = Vs + BKV * DV;           // BQ x (BKV + 1)
 
   const int tid = threadIdx.x;
   const int r = tid >> 1;              // query row of the tile
@@ -98,22 +107,19 @@ flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (len > 0) kv_end = min(kv_end, len);
 
   float m = NEG_INF, l = 0.f;
-  float acc[D / 2];
+  float acc[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
 
   for (int c0 = 0; c0 < kv_end; c0 += BKV) {
     __syncthreads();  // Q is staged; the previous tile is consumed
     for (int i = tid; i < BKV * D; i += THREADS) {
       const int cc = i / D, d = i % D, t = c0 + cc;
-      float kx = 0.f, vx = 0.f;
-      if (t < Tk) {
-        const size_t off = (((size_t)b * Tk + t) * Hkv + hk) * D + d;
-        kx = k[off];
-        vx = v[off];
-      }
-      Ks[cc * (D + 1) + d] = kx;
-      Vs[cc * D + d] = vx;
+      Ks[cc * (D + 1) + d] = t < Tk ? k[(((size_t)b * Tk + t) * Hkv + hk) * D + d] : 0.f;
+    }
+    for (int i = tid; i < BKV * DV; i += THREADS) {
+      const int cc = i / DV, d = i % DV, t = c0 + cc;
+      Vs[cc * DV + d] = t < Tk ? v[(((size_t)b * Tk + t) * Hkv + hk) * DV + d] : 0.f;
     }
     __syncthreads();
 
@@ -153,21 +159,21 @@ flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncwarp();  // the row's two threads share prow
 
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha;
+    for (int i = 0; i < DV / 2; ++i) acc[i] *= alpha;
     for (int cc = 0; cc < BKV; ++cc) {
       const float p = prow[cc];
-      const float* vrow = Vs + cc * D + par;
+      const float* vrow = Vs + cc * DV + par;
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] += p * vrow[2 * i];
+      for (int i = 0; i < DV / 2; ++i) acc[i] += p * vrow[2 * i];
     }
   }
 
   const int s = s0 + r;
   if (s < S) {
     const float denom = l == 0.f ? 1.f : l;
-    float* orow = o + (((size_t)b * S + s) * Hq + h) * D + par;
+    float* orow = o + (((size_t)b * S + s) * Hq + h) * DV + par;
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) orow[2 * i] = acc[i] / denom;
+    for (int i = 0; i < DV / 2; ++i) orow[2 * i] = acc[i] / denom;
   }
 }
 
@@ -220,29 +226,38 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // up to D = 80, four blocks an SM (at most 128 registers a thread): every
-// serving-shape block resident in one wave; D = 128 keeps its 168
+// serving-shape block resident in one wave; D = 96 and up keep what they use
 #define MMA_MIN_BLOCKS(D) ((D) <= 80 ? 4 : 1)
 
-template <int D>
-constexpr size_t mma_smem_bytes() {
-  return sizeof(bf16) * (BQ + 4 * BKV) * (D + PAD);  // Q, then K and V x 2 buffers
+__host__ __device__ constexpr int round16(int x) { return (x + 15) / 16 * 16; }
+
+template <int D, int DV>
+constexpr size_t mma_smem_bytes() {  // Q, then K x 2 buffers, then V x 2 buffers
+  return sizeof(bf16) * ((BQ + 2 * BKV) * (round16(D) + PAD) + 2 * BKV * (DV + PAD));
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(THREADS, MMA_MIN_BLOCKS(D))
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const int32_t* __restrict__ kvlen,
                      bf16* __restrict__ o, int S, int Tk, int Hq, int Hkv, float scale,
                      int causal, int q_offset) {
-  constexpr int LD = D + PAD;   // elements per staged row
-  constexpr int CH = D / 8;     // 16-byte chunks per row
-  constexpr int KD = D / 16;    // k16 steps over D (Q K^T), pairs of n8 tiles (P V)
-  constexpr int ND = D / 8;     // n8 tiles of O
-  constexpr int NK = BKV / 8;   // n8 tiles of S
+  static_assert(D % 8 == 0 && DV % 16 == 0, "16-byte rows; P V over pairs of n8 tiles");
+  constexpr int DP = round16(D);  // Q K^T's depth: D, zero-filled up to k16
+  constexpr int LD = DP + PAD;    // elements per staged Q / K row
+  constexpr int LDV = DV + PAD;   // elements per staged V row
+  constexpr int CH = D / 8;       // 16-byte chunks of a Q / K row in memory
+  constexpr int CHP = DP / 8;     // staged, the zero-filled ones included
+  constexpr int CHV = DV / 8;     // 16-byte chunks of a V row
+  constexpr int CKV = CHP > CHV ? CHP : CHV;  // chunks a K / V staging step covers
+  constexpr int KD = DP / 16;     // k16 steps of Q K^T
+  constexpr int KDV = DV / 16;    // pairs of n8 tiles of O (P V)
+  constexpr int ND = DV / 8;      // n8 tiles of O
+  constexpr int NK = BKV / 8;     // n8 tiles of S
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // BQ x LD
   bf16* Ks = Qs + BQ * LD;                       // 2 x BKV x LD
-  bf16* Vs = Ks + 2 * BKV * LD;                  // 2 x BKV x LD
+  bf16* Vs = Ks + 2 * BKV * LD;                  // 2 x BKV x LDV
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -251,20 +266,27 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
 
-  for (int i = tid; i < BQ * CH; i += THREADS) {
-    const int r = i / CH, c = i % CH, s = s0 + r;
-    const bool ok = s < S;
+  for (int i = tid; i < BQ * CHP; i += THREADS) {
+    const int r = i / CHP, c = i % CHP, s = s0 + r;
+    const bool ok = s < S && c < CH;
     const bf16* src = ok ? q + (((size_t)b * S + s) * Hq + h) * D + c * 8 : q;
     cp_async16(smem_u32(Qs + r * LD + c * 8), src, ok ? 16 : 0);
   }
   auto load_kv = [&](int tile, int buf) {
-    for (int i = tid; i < BKV * CH; i += THREADS) {
-      const int r = i / CH, c = i % CH, tt = tile * BKV + r;
-      const bool ok = tt < Tk;
-      const size_t off = ok ? (((size_t)b * Tk + tt) * Hkv + hk) * D + c * 8 : 0;
-      const int dst = (buf * BKV + r) * LD + c * 8;
-      cp_async16(smem_u32(Ks + dst), k + off, ok ? 16 : 0);
-      cp_async16(smem_u32(Vs + dst), v + off, ok ? 16 : 0);
+    // one loop over a row's chunks stages K (over DP) and V (over Dv); at
+    // D = Dv both tests below fold away (two loops read slower there)
+    for (int i = tid; i < BKV * CKV; i += THREADS) {
+      const int r = i / CKV, c = i % CKV, tt = tile * BKV + r;
+      const bool in = tt < Tk;
+      const size_t row = ((size_t)b * Tk + tt) * Hkv + hk;
+      if (c < CHP) {
+        const bool ok = in && c < CH;
+        cp_async16(smem_u32(Ks + (buf * BKV + r) * LD + c * 8), ok ? k + row * D + c * 8 : k,
+                   ok ? 16 : 0);
+      }
+      if (c < CHV)
+        cp_async16(smem_u32(Vs + (buf * BKV + r) * LDV + c * 8), in ? v + row * DV + c * 8 : v,
+                   in ? 16 : 0);
     }
   };
   load_kv(0, 0);  // every block visits tile 0: its loads go out before kv_len is read
@@ -299,7 +321,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                      (lane >> 4) * 8));
     }
     const bf16* Kb = Ks + (j & 1) * BKV * LD;
-    const bf16* Vb = Vs + (j & 1) * BKV * LD;
+    const bf16* Vb = Vs + (j & 1) * BKV * LDV;
 
     // S = Q K^T for this warp's 16 rows and the tile's 64 keys
     float sacc[NK][4];
@@ -372,9 +394,9 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                               pf[2 * kk + 1][1]};
       const int key = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
 #pragma unroll
-      for (int dp = 0; dp < KD; ++dp) {
+      for (int dp = 0; dp < KDV; ++dp) {
         uint32_t vb[4];
-        ldmatrix_x4_trans(vb, smem_u32(Vb + key * LD + dp * 16 + (lane >> 4) * 8));
+        ldmatrix_x4_trans(vb, smem_u32(Vb + key * LDV + dp * 16 + (lane >> 4) * 8));
         mma_bf16(oacc[2 * dp], pa, vb[0], vb[1]);
         mma_bf16(oacc[2 * dp + 1], pa, vb[2], vb[3]);
       }
@@ -388,7 +410,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int s = s0 + warp * 16 + g + 8 * i;
     if (s >= S) continue;
     const float denom = l_r[i] == 0.f ? 1.f : l_r[i];
-    bf16* orow = o + (((size_t)b * S + s) * Hq + h) * D + 2 * t;
+    bf16* orow = o + (((size_t)b * S + s) * Hq + h) * DV + 2 * t;
 #pragma unroll
     for (int dt = 0; dt < ND; ++dt)
       *reinterpret_cast<uint32_t*>(orow + dt * 8) =
@@ -396,26 +418,26 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, int DV>
 int launch(const void* q, const void* k, const void* v, const void* kvlen, void* o, int B,
            int S, int Tk, int Hq, int Hkv, float scale, int causal, int q_offset, int dtype,
            cudaStream_t stream) {
   const dim3 grid((S + BQ - 1) / BQ, Hq, B);
   const int32_t* kl = static_cast<const int32_t*>(kvlen);
   if (dtype == 0) {
-    constexpr size_t smem = mma_smem_bytes<D>();
+    constexpr size_t smem = mma_smem_bytes<D, DV>();
     static const cudaError_t attr = cudaFuncSetAttribute(
-        flash_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        flash_fwd_mma_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (attr != cudaSuccess) return (int)attr;
-    flash_fwd_mma_kernel<D><<<grid, THREADS, smem, stream>>>(
+    flash_fwd_mma_kernel<D, DV><<<grid, THREADS, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         kl, static_cast<bf16*>(o), S, Tk, Hq, Hkv, scale, causal, q_offset);
   } else {
-    constexpr size_t smem = simt_smem_bytes<D>();
+    constexpr size_t smem = simt_smem_bytes<D, DV>();
     static const cudaError_t attr = cudaFuncSetAttribute(
-        flash_fwd_simt_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        flash_fwd_simt_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (attr != cudaSuccess) return (int)attr;
-    flash_fwd_simt_kernel<D><<<grid, THREADS, smem, stream>>>(
+    flash_fwd_simt_kernel<D, DV><<<grid, THREADS, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), kl, static_cast<float*>(o), S, Tk, Hq, Hkv, scale,
         causal, q_offset);
@@ -425,32 +447,32 @@ int launch(const void* q, const void* k, const void* v, const void* kvlen, void*
 
 }  // namespace
 
-// q (B, S, Hq, D), k and v (B, Tk, Hkv, D), o (B, S, Hq, D), all contiguous
-// on the device in one type (dtype 0 = bf16, 1 = f32) and 16-byte aligned;
-// kvlen (B,) int32 with every entry <= Tk. D must be 16, 64, 80 or 128.
-// Launches on `stream` and returns cudaGetLastError() (0 = launched).
+// q (B, S, Hq, D), k (B, Tk, Hkv, D), v (B, Tk, Hkv, Dv), o (B, S, Hq, Dv),
+// all contiguous on the device in one type (dtype 0 = bf16, 1 = f32) and
+// 16-byte aligned; kvlen (B,) int32 with every entry <= Tk. (D, Dv) must be
+// (16, 16), (64, 64), (80, 80), (128, 128), or MLA's (24, 16), (96, 64),
+// (192, 128). Launches on `stream` and returns cudaGetLastError() (0 =
+// launched).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       const void* kvlen, void* o, int B, int S,
-                                      int Tk, int Hq, int Hkv, int D, float scale,
+                                      int Tk, int Hq, int Hkv, int D, int Dv, float scale,
                                       int causal, int q_offset, int dtype,
                                       void* stream) {
   if (B <= 0 || S <= 0 || Tk <= 0 || Hkv <= 0 || Hq % Hkv != 0 || q_offset < 0 ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (D) {
-    case 16:
-      return launch<16>(q, k, v, kvlen, o, B, S, Tk, Hq, Hkv, scale, causal, q_offset, dtype,
-                        st);
-    case 64:
-      return launch<64>(q, k, v, kvlen, o, B, S, Tk, Hq, Hkv, scale, causal, q_offset, dtype,
-                        st);
-    case 80:
-      return launch<80>(q, k, v, kvlen, o, B, S, Tk, Hq, Hkv, scale, causal, q_offset, dtype,
-                        st);
-    case 128:
-      return launch<128>(q, k, v, kvlen, o, B, S, Tk, Hq, Hkv, scale, causal, q_offset,
-                         dtype, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+#define FLASH_CASE(D_, DV_)                                                                  \
+  if (D == D_ && Dv == DV_)                                                                  \
+    return launch<D_, DV_>(q, k, v, kvlen, o, B, S, Tk, Hq, Hkv, scale, causal, q_offset,   \
+                           dtype, st);
+  FLASH_CASE(16, 16)
+  FLASH_CASE(64, 64)
+  FLASH_CASE(80, 80)
+  FLASH_CASE(128, 128)
+  FLASH_CASE(24, 16)
+  FLASH_CASE(96, 64)
+  FLASH_CASE(192, 128)
+#undef FLASH_CASE
+  return (int)cudaErrorInvalidValue;
 }

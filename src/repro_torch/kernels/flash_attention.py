@@ -9,8 +9,10 @@ cores (FA2-style ``mma.sync`` m16n8k16, each warp 16 query rows with S and
 O in registers, K / V tiles double-buffered by ``cp.async``); f32 inputs
 run the CUDA-core design, which holds f32's tolerance.
 
-Shapes follow the JAX package: q (B, S, Hq, D), k and v (B, T, Hkv, D),
-GQA groups G = Hq // Hkv (query head h reads kv head h // G), causal
+Shapes follow the JAX package: q and k (B, S, Hq, D) / (B, T, Hkv, D), v
+(B, T, Hkv, Dv), output (B, S, Hq, Dv); Dv differs from D in MLA's prefill
+(q and k are [nope | rope]: (D, Dv) = (24, 16) at the smoke configs, (96,
+64) for minicpm3-4b, (192, 128) for deepseek-v2). GQA groups G = Hq // Hkv (query head h reads kv head h // G), causal
 masking against absolute query positions ``q_offset + s``, ``kv_len`` (B,)
 or a scalar masking keys at and past it (clamped to T), masked scores at
 the finite -1e9, f32 running statistics, output in v's dtype.
@@ -40,7 +42,8 @@ import torch.nn.functional as F
 
 NEG_INF = -1e9   # finite, so a fully masked row averages instead of NaN
 
-HEAD_DIMS = (16, 64, 80, 128)      # head widths the CUDA kernel is built for
+# the (D, Dv) pairs the CUDA kernel is built for: the GQA head widths, then MLA's
+HEAD_DIMS = ((16, 16), (64, 64), (80, 80), (128, 128), (24, 16), (96, 64), (192, 128))
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 
 
@@ -115,7 +118,7 @@ def flash_attention_plain(q, k, v, *, causal: bool, kv_len=None,
 def _lib():
     from repro_torch.kernels import build
     fn = build.load("flash_attention").flash_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -148,7 +151,7 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, *, causal: bool, kv_len=None,
                     scale: float | None = None, q_offset: int = 0):
-    """Online-softmax attention -> (B, S, Hq, D) in v's dtype;
+    """Online-softmax attention -> (B, S, Hq, Dv) in v's dtype;
     differentiable in q, k and v."""
     b, s, hq, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
@@ -163,18 +166,16 @@ def _launch(q, k, v, kvlen, causal: bool, scale: float, q_offset: int):
     """One launch of the kernel on CUDA tensors, after checking what it
     takes."""
     b, s, hq, d = q.shape
-    t, hkv = k.shape[1], k.shape[2]
+    t, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
-    if v.shape[-1] != d:
-        raise ValueError(f"the CUDA kernel needs Dv == D, got {v.shape[-1]} != {d}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the CUDA kernel is built for head dims {HEAD_DIMS}, "
-                         f"not {d}")
+    if (d, dv) not in HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel is built for head dims (D, Dv) in "
+                         f"{HEAD_DIMS}, not {(d, dv)}")
     if not (q.dtype == k.dtype == v.dtype and q.dtype in _DTYPE_CODES):
         raise TypeError(f"the CUDA kernel takes one of {list(_DTYPE_CODES)} "
                         f"for q, k and v, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if k.shape[0] != b or v.shape[:3] != k.shape[:3]:
+    if k.shape[0] != b or k.shape[3] != d or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match "
                          f"q {tuple(q.shape)}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
@@ -186,11 +187,11 @@ def _launch(q, k, v, kvlen, causal: bool, scale: float, q_offset: int):
                          "16-byte aligned")
     if q_offset < 0:
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
-    out = torch.empty((b, s, hq, d), dtype=v.dtype, device=q.device)
+    out = torch.empty((b, s, hq, dv), dtype=v.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     from repro_torch.kernels.build import check
     check(_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), kvlen.data_ptr(),
-                 out.data_ptr(), b, s, t, hq, hkv, d, float(scale),
+                 out.data_ptr(), b, s, t, hq, hkv, d, dv, float(scale),
                  int(bool(causal)), int(q_offset), _DTYPE_CODES[q.dtype],
                  stream), "flash_attention")
     flash_attention.launches += 1

@@ -21,6 +21,19 @@ Two entry points, with repro's names:
                                      (repro's custom_vjp) as an
                                      autograd.Function
   binary_dense_packed(x, w_packed, k)  inference: weights packed once
+
+and their grouped forms for the MoE experts, (G, M, K) x (G, K, N), which
+the reference lowers to XLA batched dots, not Pallas, so plain torch here:
+
+  binary_dense_batched(x3, w3)                trainable, STE backward
+  binary_dense_batched_deployed(x3, wq)       int8 (G, K, N) or packed
+                                              (G, N, K/32) expert stacks
+
+Torch has no batched int8 product on a card, so the +-1 operands go to
+``torch.bmm`` in bf16 with an f32 output there (exact: the products are
++-1 and every partial sum an integer below 2**24); a bf16 output would
+round sums above 256. The CPU has no such overload, and multiplies the
+same operands in f32, as exact.
 """
 
 from __future__ import annotations
@@ -119,3 +132,63 @@ def binary_dense_packed(x: torch.Tensor, w_packed: torch.Tensor, k: int | None =
     lead = x.shape[:-1]
     y = _matmul_packed(x.reshape(-1, k), w_packed, k, mode)
     return y.to(x.dtype).reshape(*lead, -1)
+
+
+# ---------------------------------------------------------------------------
+# grouped (batched) binary dense: the MoE experts, (G, M, K) x (G, K, N)
+# ---------------------------------------------------------------------------
+
+def _sign_bmm(sx: torch.Tensor, sw: torch.Tensor) -> torch.Tensor:
+    """(G, M, K) x (G, K, N) of +-1 values -> their exact integer products
+    in f32 (module note)."""
+    if sx.device.type == "cuda":
+        return torch.bmm(sx.to(torch.bfloat16), sw.to(torch.bfloat16),
+                         out_dtype=torch.float32)
+    return torch.bmm(sx.to(torch.float32), sw.to(torch.float32))
+
+
+def _signs(x: torch.Tensor) -> torch.Tensor:
+    """+-1 (sign(0) = +1) in bf16, written in one pass: the expert stacks
+    are GBs, and an f32 intermediate would triple the traffic."""
+    one = torch.ones((), dtype=torch.bfloat16, device=x.device)
+    return torch.where(x >= 0, one, -one)
+
+
+class _BinaryDenseBatched(torch.autograd.Function):
+    """repro/kernels/ops.py:153-170: sign(x) @ sign(w) per group beside the
+    STE backward, the same for every mode (the modes' integers agree)."""
+
+    @staticmethod
+    def forward(ctx, x3, w3):
+        ctx.save_for_backward(x3, w3)
+        return _sign_bmm(_signs(x3), _signs(w3))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(torch.float32)
+        sw = torch.where(w >= 0, 1.0, -1.0).to(torch.float32)
+        sx = torch.where(x >= 0, 1.0, -1.0).to(torch.float32)
+        gx = torch.bmm(g, sw.transpose(1, 2)) * (x.abs() <= 1.0)
+        gw = torch.bmm(sx.transpose(1, 2), g) * (w.abs() <= 1.0)
+        return gx.to(x.dtype), gw.to(w.dtype)
+
+
+def binary_dense_batched(x3: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
+    """Grouped trainable binary dense: (G, M, K) x (G, K, N) -> (G, M, N) f32,
+    exact integers, the same for every binary mode. repro takes both operands
+    in f32 first; their signs and hardtanh windows are the same in any float
+    type, and the gradients come back in each operand's dtype, so the (large)
+    expert stacks are not cast."""
+    return _BinaryDenseBatched.apply(x3, w3)
+
+
+def binary_dense_batched_deployed(x3: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """Deployed grouped binary dense, forward only: wq (G, K, N) +-1 int8
+    (int8 mode), or (G, N, K/32) int32 packed sign words (xnor mode) ->
+    (G, M, N) f32, exact."""
+    if wq.dtype == torch.int32:
+        sw = unpack_bits(wq, x3.shape[-1], torch.bfloat16).transpose(1, 2)
+    else:
+        sw = wq
+    return _sign_bmm(_signs(x3), sw)

@@ -22,8 +22,12 @@
 serving copy; the trainer asks for latent-only params (``packed=False``),
 which ``loss`` differentiates (its binary FFNs read the latents).
 
-The port trains and serves ``family="dense"`` with GQA attention. MLA and
-the other families raise NotImplementedError (ROADMAP A8).
+The port trains and serves ``family="dense"`` and ``"moe"``, with GQA or
+MLA attention. An MLA model's hooks that need a paged or multi-token GQA
+cache (``init_paged_cache``, ``prefill_ctx``, ``verify``,
+``prefill_chunked``, ``prefill_slice*``) are None, as in repro, and the
+serving engine refuses those options with repro's errors. The other
+families raise NotImplementedError (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -43,9 +47,9 @@ class ModelApi(NamedTuple):
     # the paged pool's seams (radix prefix cache): init_paged_cache(n_blocks,
     # block_size, max_batch, n_pages, device=) and prefill_ctx(params, batch,
     # ctx, ctx_lens, max_len=, seq_lens=), a suffix prefill that attends to
-    # a cached prefix gathered from the pool
-    init_paged_cache: Callable
-    prefill_ctx: Callable
+    # a cached prefix gathered from the pool; None for MLA (not paged)
+    init_paged_cache: Callable | None
+    prefill_ctx: Callable | None
     # the speculative-decoding verify step: verify(params, caches, tokens
     # (B, S)) scores S tokens in one pass, their K/V appended to the caches;
     # None for a model whose cache decodes one token at a time (MLA)
@@ -78,11 +82,15 @@ def get_model(cfg: ModelConfig) -> ModelApi:
     resolve_kv_cache(cfg.kv_cache)
     if cfg.policy.binary_ffn:
         resolve_impl(cfg.policy.binary_mode)
-    if cfg.family != "dense" or cfg.use_mla:
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"family {cfg.family!r} (use_mla={cfg.use_mla}) is ROADMAP A8; the "
-            "port serves dense GQA transformers")
+            f"family {cfg.family!r} is ROADMAP A8; the port serves dense and MoE "
+            "transformers")
     from repro_torch.models import transformer as t
+    gqa = not cfg.use_mla     # MLA's compressed cache is neither paged nor multi-token
+
+    def only_gqa(fn):
+        return fn if gqa else None
     return ModelApi(
         cfg=cfg,
         init=lambda seed, device="cuda", packed=True: t.lm_init(cfg, seed, device=device,
@@ -91,16 +99,18 @@ def get_model(cfg: ModelConfig) -> ModelApi:
         decode=lambda p, c, tok: t.lm_decode(p, cfg, c, tok),
         init_cache=lambda bs, ml, device: t.lm_init_cache(cfg, bs, ml, device=device),
         cache_insert=t.lm_cache_insert,
-        init_paged_cache=lambda nb, bsz, mb, npg, device: t.lm_init_paged_cache(
-            cfg, nb, bsz, mb, npg, device=device),
-        prefill_ctx=lambda p, b, ctx, cl, **kw: t.lm_prefill_ctx(p, cfg, b["tokens"], ctx,
-                                                                 cl, **kw),
-        verify=lambda p, c, tok: t.lm_verify(p, cfg, c, tok),
-        prefill_chunked=lambda p, b, **kw: t.lm_prefill_chunked(p, cfg, b["tokens"], **kw),
-        prefill_slice_init=lambda bs, ml, device: t.lm_prefill_slice_init(cfg, bs, ml,
-                                                                         device=device),
-        prefill_slice=lambda p, c, tok, h, sl, pos: t.lm_prefill_slice(p, cfg, c, tok, h, sl,
-                                                                        pos),
-        prefill_slice_finish=lambda p, c, h, sl: t.lm_prefill_slice_finish(p, cfg, c, h, sl),
+        init_paged_cache=only_gqa(lambda nb, bsz, mb, npg, device: t.lm_init_paged_cache(
+            cfg, nb, bsz, mb, npg, device=device)),
+        prefill_ctx=only_gqa(lambda p, b, ctx, cl, **kw: t.lm_prefill_ctx(
+            p, cfg, b["tokens"], ctx, cl, **kw)),
+        verify=only_gqa(lambda p, c, tok: t.lm_verify(p, cfg, c, tok)),
+        prefill_chunked=only_gqa(lambda p, b, **kw: t.lm_prefill_chunked(
+            p, cfg, b["tokens"], **kw)),
+        prefill_slice_init=only_gqa(lambda bs, ml, device: t.lm_prefill_slice_init(
+            cfg, bs, ml, device=device)),
+        prefill_slice=only_gqa(lambda p, c, tok, h, sl, pos: t.lm_prefill_slice(
+            p, cfg, c, tok, h, sl, pos)),
+        prefill_slice_finish=only_gqa(lambda p, c, h, sl: t.lm_prefill_slice_finish(
+            p, cfg, c, h, sl)),
         loss=lambda p, b: t.lm_loss(p, cfg, b),
     )

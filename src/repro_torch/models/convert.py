@@ -10,7 +10,11 @@ side: this package imports no jax) and returns the port's params:
   * each binary dense gets its packed sign words (``w_packed``) from its
     latent weight, as the port's own init does; with ``packed=False`` it
     keeps its latent only, as the trainer holds it (so repro's params,
-    grads and AdamW moments all come across as one tree shape).
+    grads and AdamW moments all come across as one tree shape);
+  * an MoE layer's expert stacks (E, K, N) and its f32 router split per
+    layer like every other leaf and are not packed (``pack_tree`` packs
+    the ``w_latent`` denses only); deployed ``*_q`` stacks come across as
+    int8, or as int32 words with the bits of repro's uint32.
 
 ``caches_from_jax(tree, cfg)`` takes a repro KV cache pytree (contiguous or
 paged, any codec; numpy leaves) and returns the port's list of per-layer

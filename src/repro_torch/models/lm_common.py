@@ -1,5 +1,6 @@
-"""Shared LM machinery for dense GQA transformers (port of the GQA parts of
-repro/models/lm_common.py).
+"""Shared LM machinery (port of repro/models/lm_common.py): GQA and MLA
+attention blocks, hybrid FFNs and MoE layers, the layer loop, the loss and
+the decode caches.
 
 Precision policy (the paper's technique as a config): every FFN goes
 through ``ffn_init`` / ``ffn_apply``, a float SwiGLU or the BEANNA binary
@@ -13,7 +14,16 @@ loops over them. ``build_segments`` stays, to map repro's stacked params
 Training (``segments_apply``, ``block_apply``, ``softmax_xent``) reads each
 binary FFN's latent weight through the straight-through estimator, since
 the trainer's params hold no packed copy; serving reads the packed copy
-that ``ffn_init`` / ``pack_tree`` add.
+that ``ffn_init`` / ``pack_tree`` add. A binary MoE block's expert stacks
+stay latent in both (models/moe.py; models/deploy.py quantizes them).
+
+MLA (DeepSeek-V2/V3, MiniCPM3) prefills with expanded K/V through the
+flash kernel (q and k = [nope | rope]) and decodes matrix-absorbed against
+a compressed cache {"c": (B, T, kv_lora), "kr": (B, T, dr), "len"}, which
+stays dense in the compute dtype whatever ``kv_cache`` says (it is already
+the family's memory optimization) and has no paged layout, as in repro.
+The decode writes ``c``, ``kr`` and ``len`` in place, so that a decode tick
+replays as a CUDA graph.
 """
 
 from __future__ import annotations
@@ -24,6 +34,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.binary_dense import binary_dense_apply_any, binary_dense_init, with_packed
+from repro_torch.kernels.kv_quant import pad_time, write_span
+from repro_torch.models import moe
 from repro_torch.nn import attention as attn_lib
 from repro_torch.nn import layers as nn
 from repro_torch.serving import kvcache as kvc
@@ -166,6 +178,88 @@ def gqa_verify(p: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict):
 
 
 # ---------------------------------------------------------------------------
+# MLA attention (DeepSeek V2/V3, MiniCPM3)
+# ---------------------------------------------------------------------------
+
+def mla_init(cfg: ModelConfig, *, generator, device) -> dict:
+    d, h = cfg.d_model, cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    c, qc = cfg.kv_lora_rank, cfg.q_lora_rank
+    kw = dict(generator=generator, device=device, dtype=pdt(cfg))
+    p = {}
+    if qc:
+        p["w_dq"] = nn.dense_init(d, qc, **kw)
+        p["q_norm"] = nn.rmsnorm_init(qc, device=device)
+        p["w_uq"] = nn.dense_init(qc, h * (dn + dr), **kw)
+    else:
+        p["w_q"] = nn.dense_init(d, h * (dn + dr), **kw)
+    p["w_dkv"] = nn.dense_init(d, c + dr, **kw)
+    p["kv_norm"] = nn.rmsnorm_init(c, device=device)
+    p["w_uk"] = nn.dense_init(c, h * dn, **kw)
+    p["w_uv"] = nn.dense_init(c, h * dv, **kw)
+    p["wo"] = nn.dense_init(h * dv, d, **kw)
+    return p
+
+
+def _mla_q(p: dict, x: torch.Tensor, cfg: ModelConfig, positions):
+    b, s, _ = x.shape
+    h, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    if "w_dq" in p:
+        q = _dense(p["w_uq"], nn.rmsnorm_apply(p["q_norm"], _dense(p["w_dq"], x, cfg)), cfg)
+    else:
+        q = _dense(p["w_q"], x, cfg)
+    q = q.reshape(b, s, h, dn + dr)
+    return q[..., :dn], nn.apply_rope(q[..., dn:], positions, base=cfg.rope_base)
+
+
+def _mla_ckv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions):
+    c = cfg.kv_lora_rank
+    ckv = _dense(p["w_dkv"], x, cfg)
+    c_kv = nn.rmsnorm_apply(p["kv_norm"], ckv[..., :c])
+    k_rope = nn.apply_rope(ckv[..., c:][:, :, None, :], positions, base=cfg.rope_base)
+    return c_kv, k_rope[:, :, 0, :]
+
+
+def _mla_expanded(p: dict, x: torch.Tensor, cfg: ModelConfig, positions, kv_len=None):
+    """Full-sequence MLA with expanded K/V (causal, through the flash kernel
+    on a card) -> (the block's output, c_kv, k_rope)."""
+    b, s, _ = x.shape
+    h, dn, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    c_kv, k_rope = _mla_ckv(p, x, cfg, positions)
+    k_nope = _dense(p["w_uk"], c_kv, cfg).reshape(b, s, h, dn)
+    v = _dense(p["w_uv"], c_kv, cfg).reshape(b, s, h, dv)
+    kr = k_rope[:, :, None, :].expand(b, s, h, k_rope.shape[-1])
+    o = attn_lib.mla_prefill_attention(q_nope, q_rope, k_nope, kr, v, chunk=cfg.attn_chunk,
+                                       kv_len=kv_len, impl=cfg.attn_impl)
+    return _dense(p["wo"], o.reshape(b, s, -1), cfg), c_kv, k_rope
+
+
+def mla_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, positions) -> torch.Tensor:
+    """Full-sequence MLA (expanded K/V, causal), no cache."""
+    return _mla_expanded(p, x, cfg, positions)[0]
+
+
+def mla_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict):
+    """Matrix-absorbed one-token decode against the compressed cache; its
+    leaves are written in place (never rebound: a captured tick replays)."""
+    b = x.shape[0]
+    h, dn, dv, c = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim, cfg.kv_lora_rank
+    positions = cache["len"][:, None]
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)              # (B, 1, H, dn / dr)
+    c_kv, k_rope = _mla_ckv(p, x, cfg, positions)              # (B, 1, c), (B, 1, dr)
+    write_span(cache, {"c": c_kv, "kr": k_rope}, cache["len"])
+    cache["len"].add_(1)
+    w_uk = p["w_uk"]["w"].reshape(c, h, dn).to(cdt(cfg))
+    q_abs = torch.einsum("bshd,chd->bshc", q_nope, w_uk)
+    ctx = attn_lib.mla_absorbed_decode(q_abs, q_rope, cache["c"], cache["kr"], cache["len"],
+                                       sm_scale=1.0 / (dn + cfg.qk_rope_dim) ** 0.5)
+    w_uv = p["w_uv"]["w"].reshape(c, h, dv).to(cdt(cfg))
+    o = torch.einsum("bshc,chv->bshv", ctx, w_uv).reshape(b, 1, -1)
+    return _dense(p["wo"], o, cfg), cache
+
+
+# ---------------------------------------------------------------------------
 # decoder block (pre-norm residual)
 # ---------------------------------------------------------------------------
 
@@ -183,30 +277,33 @@ def block_sig(cfg: ModelConfig, idx: int) -> BlockSig:
     return BlockSig(attn, "binary" if binary else "float", moe)
 
 
-def _check_sig(sig: BlockSig) -> None:
-    if sig.attn != "gqa" or sig.moe:
-        raise NotImplementedError(f"block {sig}: MLA and MoE blocks are ROADMAP A8")
-
-
 def block_init(cfg: ModelConfig, sig: BlockSig, *, generator, device,
                packed: bool = True) -> dict:
-    _check_sig(sig)
     kw = dict(generator=generator, device=device)
-    return {"attn": gqa_init(cfg, **kw),
-            "ffn": ffn_init(cfg, binary=sig.ffn == "binary", packed=packed, **kw),
+    binary = sig.ffn == "binary"
+    return {"attn": mla_init(cfg, **kw) if sig.attn == "mla" else gqa_init(cfg, **kw),
+            "ffn": (moe.moe_init(cfg, binary=binary, **kw) if sig.moe
+                    else ffn_init(cfg, binary=binary, packed=packed, **kw)),
             "ln1": nn.rmsnorm_init(cfg.d_model, device=device),
             "ln2": nn.rmsnorm_init(cfg.d_model, device=device)}
+
+
+def _ffn(p: dict, h: torch.Tensor, cfg: ModelConfig, sig: BlockSig):
+    """The block's FFN -> (output, the MoE aux loss or None)."""
+    if sig.moe:
+        return moe.moe_apply(p["ffn"], h, cfg)
+    return ffn_apply(p["ffn"], h, cfg), None
 
 
 def block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, sig: BlockSig, *,
                 positions) -> tuple[torch.Tensor, torch.Tensor]:
     """The training forward of one block -> (x, aux); aux is the MoE balance
     loss, 0.0 for a dense block (repro/models/lm_common.py:335)."""
-    _check_sig(sig)
     h = nn.rmsnorm_apply(p["ln1"], x)
-    x = x + gqa_apply(p["attn"], h, cfg, positions=positions)
-    h = nn.rmsnorm_apply(p["ln2"], x)
-    return x + ffn_apply(p["ffn"], h, cfg), x.new_zeros((), dtype=torch.float32)
+    attn = mla_apply if sig.attn == "mla" else gqa_apply
+    x = x + attn(p["attn"], h, cfg, positions=positions)
+    f, aux = _ffn(p, nn.rmsnorm_apply(p["ln2"], x), cfg, sig)
+    return x + f, x.new_zeros((), dtype=torch.float32) if aux is None else aux
 
 
 def block_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig, sig: BlockSig, *,
@@ -220,35 +317,42 @@ def block_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig, sig: BlockSig, *,
     prefix cache): ctx is this block's {"k", "v"} (B, P, Hkv, D) gathered
     from the paged pool, ctx_len (B,) its valid lengths, and ``positions``
     the suffix tokens' absolute (B, S) positions. That prefill attends with
-    the plain prefix attention, not the flash kernel, as in repro.
+    the plain prefix attention, not the flash kernel, as in repro. GQA only:
+    MLA's compressed cache is not paged.
 
-    K/V are encoded into the ``cfg.kv_cache`` codec after attention, which
-    uses them unquantized: prefill logits are the same under every codec."""
-    _check_sig(sig)
+    GQA K/V are encoded into the ``cfg.kv_cache`` codec after attention,
+    which uses them unquantized: prefill logits are the same under every
+    codec. An MLA block's cache is its compressed (c_kv, k_rope)."""
     b, s, _ = x.shape
     h = nn.rmsnorm_apply(p["ln1"], x)
-    q, k, v = gqa_qkv(p["attn"], h, cfg, positions)
-    if ctx is not None:
-        o = attn_lib.prefix_prefill_attention(q, ctx["k"], ctx["v"], ctx_len, k, v,
-                                              kv_len=seq_lens)
+    if sig.attn == "mla":
+        if ctx is not None:
+            raise ValueError("cached-prefix (suffix) prefill requires GQA blocks; MLA "
+                             "caches are not paged")
+        a, c_kv, k_rope = _mla_expanded(p["attn"], h, cfg, positions, kv_len=seq_lens)
+        cache = {"c": pad_time(c_kv, max_len), "kr": pad_time(k_rope, max_len),
+                 "len": torch.full((b,), s, dtype=torch.int32, device=x.device)}
     else:
-        o = attn_lib.prefill_attention(q, k, v, chunk=cfg.attn_chunk, kv_len=seq_lens,
-                                       impl=cfg.attn_impl)
-    a = _dense(p["attn"]["wo"], o.reshape(b, s, -1), cfg)
-    cache = kvc.get_codec(cfg.kv_cache).from_prefill(k, v, max_len)
+        q, k, v = gqa_qkv(p["attn"], h, cfg, positions)
+        if ctx is not None:
+            o = attn_lib.prefix_prefill_attention(q, ctx["k"], ctx["v"], ctx_len, k, v,
+                                                  kv_len=seq_lens)
+        else:
+            o = attn_lib.prefill_attention(q, k, v, chunk=cfg.attn_chunk, kv_len=seq_lens,
+                                           impl=cfg.attn_impl)
+        a = _dense(p["attn"]["wo"], o.reshape(b, s, -1), cfg)
+        cache = kvc.get_codec(cfg.kv_cache).from_prefill(k, v, max_len)
     x = x + a
-    h = nn.rmsnorm_apply(p["ln2"], x)
-    return x + ffn_apply(p["ffn"], h, cfg), cache
+    return x + _ffn(p, nn.rmsnorm_apply(p["ln2"], x), cfg, sig)[0], cache
 
 
 def block_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, sig: BlockSig,
                  cache: dict):
-    _check_sig(sig)
     h = nn.rmsnorm_apply(p["ln1"], x)
-    a, cache = gqa_decode(p["attn"], h, cfg, cache)
+    attn = mla_decode if sig.attn == "mla" else gqa_decode
+    a, cache = attn(p["attn"], h, cfg, cache)
     x = x + a
-    h = nn.rmsnorm_apply(p["ln2"], x)
-    return x + ffn_apply(p["ffn"], h, cfg), cache
+    return x + _ffn(p, nn.rmsnorm_apply(p["ln2"], x), cfg, sig)[0], cache
 
 
 def block_verify(p: dict, x: torch.Tensor, cfg: ModelConfig, sig: BlockSig,
@@ -258,12 +362,10 @@ def block_verify(p: dict, x: torch.Tensor, cfg: ModelConfig, sig: BlockSig,
     if sig.attn == "mla":
         raise ValueError("speculative verify requires GQA attention blocks; MLA "
                          "families decode one token at a time")
-    _check_sig(sig)
     h = nn.rmsnorm_apply(p["ln1"], x)
     a, cache = gqa_verify(p["attn"], h, cfg, cache)
     x = x + a
-    h = nn.rmsnorm_apply(p["ln2"], x)
-    return x + ffn_apply(p["ffn"], h, cfg), cache
+    return x + _ffn(p, nn.rmsnorm_apply(p["ln2"], x), cfg, sig)[0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -355,11 +457,20 @@ def cache_insert_slots(pool: list, new: list, slots) -> list:
 
 def init_segment_caches(cfg: ModelConfig, batch: int, max_len: int,
                         dtype=torch.bfloat16, *, device) -> list:
-    """Empty decode caches, one per layer, in the ``cfg.kv_cache`` codec's
-    layout."""
+    """Empty decode caches, one per layer: GQA layers in the ``cfg.kv_cache``
+    codec's layout, MLA layers the dense compressed cache."""
     codec = kvc.get_codec(cfg.kv_cache)
-    return [codec.init(batch, max_len, cfg.n_kv_heads, cfg.kv_head_dim(), dtype,
-                       device=device) for _ in range(cfg.n_layers)]
+
+    def one(sig):
+        if sig.attn == "mla":
+            return {"c": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype,
+                                     device=device),
+                    "kr": torch.zeros((batch, max_len, cfg.qk_rope_dim), dtype=dtype,
+                                      device=device),
+                    "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+        return codec.init(batch, max_len, cfg.n_kv_heads, cfg.kv_head_dim(), dtype,
+                          device=device)
+    return [one(block_sig(cfg, i)) for i in range(cfg.n_layers)]
 
 
 def init_paged_segment_caches(cfg: ModelConfig, n_blocks: int, block_size: int,
@@ -367,7 +478,14 @@ def init_paged_segment_caches(cfg: ModelConfig, n_blocks: int, block_size: int,
                               device) -> list:
     """The paged decode pool, one per layer: a shared (n_blocks, block_size,
     ...) block pool in the ``cfg.kv_cache`` codec's layout plus the slots'
-    block tables (serving/kvcache.init_paged)."""
+    block tables (serving/kvcache.init_paged). GQA layers only: MLA's
+    compressed per-slot cache has no block layout to share."""
+    for si, (sig, _, _) in enumerate(build_segments(cfg)):
+        if sig.attn == "mla":
+            raise ValueError(
+                "paged KV pool requires GQA attention blocks; "
+                f"segment {si} of {cfg.name!r} is MLA (use the "
+                "slot-contiguous pool for MLA families)")
     codec = kvc.get_codec(cfg.kv_cache)
     return [kvc.init_paged(codec, n_blocks, block_size, cfg.n_kv_heads, cfg.kv_head_dim(),
                            max_batch, n_pages, dtype, device=device)

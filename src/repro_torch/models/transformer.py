@@ -1,7 +1,9 @@
-"""Decoder LM for the dense GQA archs (port of repro/models/transformer.py:
-the training loss, and serving's init, prefill, chunked and interleaved
-(sliced) prefill, suffix prefill against a cached prefix, decode, the
-speculative verify, contiguous and paged caches)."""
+"""Decoder LM for the dense and MoE archs, GQA or MLA (port of
+repro/models/transformer.py: the training loss, and serving's init,
+prefill, chunked and interleaved (sliced) prefill, suffix prefill against a
+cached prefix, decode, the speculative verify, contiguous and paged caches;
+MLA models take the prefill, decode and contiguous caches only, as in
+repro)."""
 
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""Attention and the bf16 KV cache (port of the GQA parts of
-repro/nn/attention.py).
+"""Attention and the bf16 KV cache (port of repro/nn/attention.py: GQA and
+MLA).
 
 Every model calls one entrypoint per shape family, and the lowering is
 resolved per call (``resolve_attn_impl``):
@@ -10,6 +10,11 @@ resolved per call (``resolve_attn_impl``):
   prefix_prefill_attention
                       suffix prefill against a cached prefix (the radix
                       prefix cache's admissions; no kernel, as in repro)
+  mla_prefill_attention
+                      MLA's expanded-KV prefill: prefill_attention over q
+                      and k = [nope | rope] (D = dn + dr) and v (Dv)
+  mla_absorbed_decode MLA's matrix-absorbed decode over the compressed
+                      cache (plain torch, as repro keeps it in XLA)
 
 Backends:
 
@@ -22,7 +27,8 @@ Backends:
             everywhere (one query against a cache has no score blowup, and
             repro has no decode kernel)
 
-Shapes: q (B, S, Hq, D), k/v (B, T, Hkv, D); GQA groups G = Hq // Hkv.
+Shapes: q (B, S, Hq, D), k (B, T, Hkv, D), v (B, T, Hkv, Dv); GQA groups
+G = Hq // Hkv.
 """
 
 from __future__ import annotations
@@ -158,6 +164,41 @@ def prefix_prefill_attention(q, k_ctx, v_ctx, ctx_len, k, v, *, kv_len=None,
            .to(torch.float32)
            + torch.einsum("bhgst,bthd->bshgd", w[..., p:].to(v.dtype), v).to(torch.float32))
     return out.reshape(b, s, hq, v.shape[-1]).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention: DeepSeek-V2/V3, MiniCPM3)
+# ---------------------------------------------------------------------------
+
+def mla_prefill_attention(q_nope, q_rope, k_nope, k_rope, v, *, chunk: int = 1024,
+                          kv_len=None, impl: str = "auto"):
+    """Expanded-KV MLA prefill. q_nope, k_nope (B, S, H, dn); q_rope, k_rope
+    (B, S, H, dr), k_rope broadcast from its one shared rope head; v (B, S,
+    H, dv) -> (B, S, H, dv). On a card the flash kernel takes (dn + dr,
+    dv)."""
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope], dim=-1)
+    return prefill_attention(q, k, v.contiguous(), causal=True, chunk=chunk,
+                             scale=1.0 / math.sqrt(q.shape[-1]), kv_len=kv_len, impl=impl)
+
+
+def mla_absorbed_decode(q_abs, q_rope, c_cache, kr_cache, kv_len, *, sm_scale: float):
+    """Matrix-absorbed MLA decode against the compressed cache: q_abs (B, 1,
+    H, c) is q_nope already through W_uk, q_rope (B, 1, H, dr), c_cache (B,
+    T, c), kr_cache (B, T, dr), kv_len (B,) -> (B, 1, H, c), attention over
+    the compressed values. Scores in f32 (repro's preferred_element_type),
+    masked at the finite -1e9; the weighted sum in the cache's dtype. No
+    kernel: the compressed cache is the point, and the (B, H, 1, T) scores
+    are decode-sized."""
+    f32 = torch.float32
+    s_nope = torch.einsum("bshc,btc->bhst", q_abs.to(f32), c_cache.to(f32))
+    s_rope = torch.einsum("bshr,btr->bhst", q_rope.to(f32), kr_cache.to(f32))
+    scores = (s_nope + s_rope) * sm_scale
+    t = c_cache.shape[1]
+    valid = (torch.arange(t, device=c_cache.device)[None, :] < kv_len[:, None])
+    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhst,btc->bshc", w.to(c_cache.dtype), c_cache)
 
 
 # ---------------------------------------------------------------------------

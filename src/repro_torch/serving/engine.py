@@ -204,6 +204,9 @@ class ServeEngine:
             raise ValueError(f"model {api.cfg.name!r} has no multi-token verify step "
                              "(MLA/SSM caches decode one token at a time); speculative "
                              "decoding requires a GQA KV pool (spec_k=0)")
+        if kv_block_size and api.init_paged_cache is None:
+            raise ValueError(f"model {api.cfg.name!r} has no paged cache layout "
+                             "(MLA/SSM caches are not paged); use kv_block_size=0")
         self.prefill_chunk = int(prefill_chunk)
         if self.prefill_chunk < 0 or self.prefill_chunk & (self.prefill_chunk - 1):
             raise ValueError(f"prefill_chunk must be 0 or a power of two (buckets are "

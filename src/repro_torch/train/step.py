@@ -60,7 +60,9 @@ def make_train_step(api, cfg, *, peak_lr: float = 3e-4, warmup: int = 100,
                     total: int = 10000, grad_accum: int = 1, max_grad_norm: float = 1.0,
                     weight_decay: float = 0.1):
     """-> train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics), the gradients taken over ``grad_accum`` microbatches."""
+    metrics), the gradients taken over ``grad_accum`` microbatches. ``cfg``
+    is the reference's argument; the latent clip finds the binary layers by
+    their keys (optim/bnn.py)."""
 
     def train_step(params, opt_state, batch):
         _, metrics, grads = accumulated_loss_and_grads(api, params, batch, grad_accum)

@@ -18,17 +18,29 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
-def map_binary_denses(fn, tree):
-    """``tree`` with ``fn`` applied to each binary dense: each dict that
-    holds a ``w_latent`` leaf (core/binary_dense.py), found through dicts
-    and lists. Every other node is rebuilt around the same leaves."""
+def map_dicts_with(key: str, fn, tree):
+    """``tree`` with ``fn`` applied to each dict that holds ``key``, found
+    through dicts and lists. Every other node is rebuilt around the same
+    leaves."""
     if isinstance(tree, dict):
-        if "w_latent" in tree:
+        if key in tree:
             return fn(tree)
-        return {k: map_binary_denses(fn, v) for k, v in tree.items()}
+        return {k: map_dicts_with(key, fn, v) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [map_binary_denses(fn, v) for v in tree]
+        return [map_dicts_with(key, fn, v) for v in tree]
     return tree
+
+
+def map_binary_denses(fn, tree):
+    """``fn`` on each binary dense: each dict that holds a ``w_latent`` leaf
+    (core/binary_dense.py)."""
+    return map_dicts_with("w_latent", fn, tree)
+
+
+def map_binary_moe(fn, tree):
+    """``fn`` on each binary MoE layer: each dict that holds ``s_mid``
+    beside its expert stacks (models/moe.py)."""
+    return map_dicts_with("s_mid", fn, tree)
 
 
 def tree_leaves_with_path(tree, prefix: str = "") -> list:

@@ -397,12 +397,44 @@ def test_flash_kernel_serving_shapes(dev, dtype, b, s, t, hq, d, q_offset, kv_le
                                atol=TOLS[dtype])
 
 
+# MLA's prefill: q and k are [nope | rope] of width D, v of width Dv
+# (smoke configs (24, 16), minicpm3-4b (96, 64), deepseek-v2 (192, 128)):
+# causal, with ragged kv_len, S not a multiple of the 64-row tile
+FLASH_MLA_CASES = [  # (B, S, Hq, D, Dv, kv_len)
+    (2, 32, 4, 24, 16, None),
+    (2, 45, 4, 24, 16, [45, 7]),
+    (2, 100, 40, 96, 64, [100, 33]),
+    (1, 128, 8, 192, 128, None),
+    (2, 70, 4, 192, 128, [70, 65]),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,hq,d,dv,kv_len", FLASH_MLA_CASES)
+def test_flash_kernel_mla_head_dims(dev, dtype, b, s, hq, d, dv, kv_len):
+    gen = _gen(dev, s + d)
+    q, k = (torch.randn(b, s, hq, d, generator=gen, device=dev).to(getattr(torch, dtype))
+            for _ in range(2))
+    v = torch.randn(b, s, hq, dv, generator=gen, device=dev).to(getattr(torch, dtype))
+    kvl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    scale = 1.0 / (d ** 0.5)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=True, kv_len=kvl, scale=scale)
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=True, kv_len=kvl, scale=scale)
+    torch.cuda.synchronize()
+    assert got.dtype == v.dtype and got.shape == (b, s, hq, dv)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOLS[dtype],
+                               atol=TOLS[dtype])
+
+
 def test_flash_kernel_rejects_what_it_does_not_take(dev):
     q = torch.zeros(1, 4, 2, 48, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dims"):
         flash_attention(q, q, q, causal=True)
     q = torch.zeros(1, 4, 2, 64, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="Dv == D"):
+    # Dv != D only at MLA's pairs: (64, 32) is not one
+    with pytest.raises(ValueError, match="head dims"):
         flash_attention(q, q, q[..., :32].contiguous(), causal=True)
     with pytest.raises(TypeError):
         flash_attention(q.half(), q.half(), q.half(), causal=True)
@@ -431,6 +463,58 @@ def test_smoke_model_on_card_matches_cpu(dev):
     want, _ = api.prefill(params, {"tokens": torch.from_numpy(toks)}, max_len=24,
                           seq_lens=torch.from_numpy(lens))
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "deepseek-v2-236b"])
+def test_mla_smoke_model_on_card(dev, arch):
+    """The MLA smoke LMs (f32; deepseek at capacity_factor 16, as the CPU
+    tests run it) prefilled on the card against the CPU within 1e-4, B3 one
+    launch a layer at (D, Dv) = (24, 16); then served, each decode tick
+    eager and replayed from its CUDA graph: the same greedy tokens, one
+    replay a step."""
+    kw = dict(compute_dtype="float32", param_dtype="float32")
+    if arch.startswith("deepseek"):
+        kw["capacity_factor"] = 16.0
+    cfg = smoke_config(arch).replace(**kw)
+    api = get_model(cfg)
+    params = api.init(0, device="cpu")
+    params_dev = _to(params, dev)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (3, 16)).astype(np.int32)
+    lens = np.array([16, 9, 2], np.int32)
+    f0 = flash_attention.launches
+    got, _ = api.prefill(params_dev, {"tokens": torch.from_numpy(toks).to(dev)},
+                         max_len=24, seq_lens=torch.from_numpy(lens).to(dev))
+    assert flash_attention.launches - f0 == cfg.n_layers
+    want, _ = api.prefill(params, {"tokens": torch.from_numpy(toks)}, max_len=24,
+                          seq_lens=torch.from_numpy(lens))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in (5, 11, 3, 9, 14)]
+    out = {}
+    for graphs in (True, False):
+        eng = ServeEngine(api, params_dev, max_batch=4, max_len=32, cuda_graphs=graphs)
+        rids = [eng.add_request(p, max_new=6) for p in prompts]
+        res = eng.run()
+        out[graphs] = [res[r] for r in rids]
+        if graphs:
+            assert eng.graph.replays == eng.stats["decode_steps"] > 0
+    assert out[True] == out[False]
+
+
+@pytest.mark.parametrize("mode", ["int8", "xnor"])
+def test_binary_dense_batched_on_card_exact(dev, mode):
+    """The MoE experts' +-1 products (bf16 operands, f32 out) on the card
+    equal the CPU's f32 products exactly, latent and deployed."""
+    gen = _gen(dev, 7)
+    x = torch.randn(6, 24, 1536, generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.rand(6, 1536, 320, generator=gen, device=dev) * 2 - 1).to(torch.bfloat16)
+    got = ops.binary_dense_batched(x, w)
+    want = ops.binary_dense_batched(x.cpu(), w.cpu())
+    assert got.dtype == torch.float32
+    assert torch.equal(got.cpu(), want)
+    wq = (pack_bits(w.transpose(1, 2)) if mode == "xnor" else pack_signs_int8(w))
+    got = ops.binary_dense_batched_deployed(x, wq)
+    assert torch.equal(got.cpu(), want)
 
 
 # (B, S, T, Hq, Hkv, D, causal, kv_len, q_offset): the training shape of

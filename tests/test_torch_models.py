@@ -124,8 +124,12 @@ def test_unported_configs_raise():
     xnor = cfg.replace(policy=PrecisionPolicy(binary_ffn=True, edge_blocks_float=1,
                                               binary_mode="xnor"))
     assert get_model(xnor).cfg.policy.binary_mode == "xnor"
+    # MLA is ported: an MLA LM builds, with the hooks an MLA cache cannot
+    # take left None; the other families still raise
+    mla = get_model(cfg.replace(use_mla=True))
+    assert mla.verify is None and mla.init_paged_cache is None
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        get_model(cfg.replace(use_mla=True))
+        get_model(cfg.replace(family="rwkv6"))
     from repro_torch.configs import get_config
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         get_config("qwen3-8b")

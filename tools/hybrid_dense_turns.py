@@ -50,12 +50,14 @@ def one_turn(tree: Path) -> dict[str, float]:
     return times
 
 
-def main(argv: list[str]) -> int:
+def main(argv: list[str], script: str = __file__, doc: str = __doc__) -> int:
+    """The four turns of ``script`` (this file, or another tool that runs
+    its own ``--turn``), and a line a case."""
     if len(argv) == 2 and argv[0] == "--turn":
         print(json.dumps(one_turn(Path(argv[1]))))
         return 0
     if len(argv) not in (1, 2):
-        print(__doc__, file=sys.stderr)
+        print(doc, file=sys.stderr)
         return 2
     trees = {"before": Path(argv[0]).resolve(),
              "after": Path(argv[1]).resolve() if len(argv) == 2 else ROOT}
@@ -63,7 +65,7 @@ def main(argv: list[str]) -> int:
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     turns = {"before": [], "after": []}
     for label in ("before", "after", "after", "before"):
-        run = subprocess.run([sys.executable, __file__, "--turn", str(trees[label])],
+        run = subprocess.run([sys.executable, script, "--turn", str(trees[label])],
                              capture_output=True, text=True)
         if run.returncode:
             raise RuntimeError(f"the {label} turn failed:\n{run.stderr[-4000:]}")
