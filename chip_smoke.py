@@ -19,7 +19,9 @@ Phases, one output line each (or a few), every failure raising:
      interleaved prefill slice's M = 64 and 128, bin_in
      (N, K) = (6912, 2560) and bin_out (2560, 6912); minicpm3-4b's
      bin_in (6400, 2560) and bin_out (2560, 6400) at decode M = 8 and
-     prefill M = 1024),
+     prefill M = 1024; qwen3-8b's bin_in (12288, 4096) at decode, and the
+     bin_out of qwen3-8b (4096, 12288), llama-3.2-vision-11b (4096, 14336)
+     and qwen2-72b (8192, 29568: K = 32 x 924) at decode and prefill),
      a ragged case and, with activations over all of [-128, 127], a
      decode and a prefill case, required to be exactly equal; times of the
      kernel, the plain version and one cuBLAS call on unpacked operands
@@ -37,7 +39,16 @@ Phases, one output line each (or a few), every failure raising:
      minicpm3-4b's (8, 128, 40 heads, 96 / 64) causal and with ragged
      kv_len, deepseek-v2's (8, 128, 128 heads, 192 / 128) causal, and the
      smoke configs' (2, 32, 4 heads, 24 / 16) in bf16 and f32 (2e-5), SDPA
-     timed through the first backend that takes Dv != D (named);
+     timed through the first backend that takes Dv != D (named); then
+     non-causal, S != T, T off the 64-key tile: whisper-base's encoder (8,
+     1500, 8 heads of 64) and cross-attention (S 32 and 1 over T 1500),
+     llama-3.2-vision-11b's cross-attention (S 128 and 1 over 1601 patches,
+     32 / 8 heads of 128), beside SDPA with no mask (enable_gqa for the
+     VLM). Every bf16 case is also held to 2^-6 of each batch row's largest
+     |output| (an output over 1500 keys is ~0.04), and every case, on v
+     made constant along the keys, must give that constant within 1 bf16
+     ulp (2e-5 in f32): an unmasked key of the last tile's zero-filled tail
+     would pull it ~1.4% towards 0;
   5. kv_quant: the insert kernel (B4a / B4c: K and V encoded and written
      into the pool in one launch) bit for bit against its plain version
      (the encode pair, then the pool's torch scatter) at the serving shape:
@@ -143,22 +154,48 @@ Phases, one output line each (or a few), every failure raising:
      it (a subprocess: --kv-cache int8 --interleave --scheduler slo with
      --metrics-out, --trace-out and --torch-profile): exit 0, the metrics
      parse, the trace holds prefill_slice spans, the profile is written;
-  6d. mla: the MLA families at full width through get_model and
-     ServeEngine (contiguous pool, max_batch 8, max_len 256, the serve
-     phase's 12 requests of 16 new tokens), random init from the seed:
-     minicpm3-4b (62 layers; 58 binary FFNs at K 2560 and 6400) and
-     deepseek-v2-236b cut to 5 layers (dense block 0, float MoE blocks 1, 3
-     and 4, the binary MoE block 2; 160 experts, top-6, its experts plain
-     torch). Each with its counts zeroed just before and read just after,
-     traced (device events = counts + the warm-up), each replay's counts =
-     its graph's kernel nodes: launches exactly B2 2 x 58 x (waves +
-     steps) for minicpm3 and 0 for deepseek, B3 one a layer a wave, the
-     codec kernels 0; kv_bytes exactly 73,138,176 and 11,796,480 (the
-     compressed cache: layers x 8 x 256 x (kv_lora + rope) x 2 bytes); the
-     same tokens on a second replayed run and eagerly; logits finite, layer
-     0's MLA prefill through B3 within 3e-2 of the plain attention. Warm
-     tok/s (replayed, eager), the busy share, device ms by family and the
-     peak memory are printed;
+  6d. families: the attention families at full width through get_model,
+     random init from the seed, each model freed before the next loads and
+     its peak memory printed. Served through ServeEngine (contiguous pool,
+     max_batch 8, max_len 256, the serve phase's 12 requests of 16 new
+     tokens), each path with its counts zeroed just before and read just
+     after (the first traced: device events = counts + the warm-up), each
+     replay's counts = its graph's kernel nodes, the pool's bytes exact, a
+     second replayed run and an eager run giving the same tokens, warm
+     tok/s, the busy share, device ms by family: minicpm3-4b (62 layers,
+     MLA; 58 binary FFNs at K 2560 and 6400) and deepseek-v2-236b cut to 5
+     layers (dense block 0, float MoE blocks 1, 3 and 4, the binary MoE
+     block 2; 160 experts, top-6, its experts plain torch) on the
+     compressed cache (73,138,176 and 11,796,480 bytes: layers x 8 x 256 x
+     (kv_lora + rope) x 2), B2 2 x 58 x (waves + steps) for minicpm3 and 0
+     for deepseek, B3 one a layer a wave, the codec kernels 0, and layer 0's
+     MLA prefill through B3 within 3e-2 of the plain attention; qwen3-8b
+     (36 layers, qk-norm, GQA 32 / 8 of 128, 32 binary FFNs) on the bf16,
+     int8 and binary pools (301,989,888 / 153,354,240 / 21,233,664 bytes)
+     and on int8 with spec_k = 3 (a wave: B2 64 (k + 1), B1 3 x 4 x k, the
+     insert kernel 36 (k + 1), kv_decode 36 (k + 2): the verify's 16 query
+     rows a kv head take two launches of MAX_ROWS 8); qwen2-72b cut to 5
+     layers (QKV bias, GQA 64 / 8, block 2 binary at d_ff 29568) on int8
+     (21,299,200 bytes); deepseek-v3-671b cut to 4 layers (three dense
+     blocks, a float MoE of 256 experts with the sigmoid router, MLA, the
+     MTP head held but not served) on its compressed cache (9,437,184
+     bytes). Launches exactly as 6 and 6b give them for each model. Then
+     whisper-base (6 + 6 layers, layer norm, 1500 frames) and
+     llama-3.2-vision-11b (40 self + 8 gated cross blocks, 1601 patches,
+     the int8 pool, its gates opened from their zero init) through
+     get_model's prefill and decode, as repro has no slot engine for them:
+     batch 8 (prompts of 32 / 128 tokens), a prefill and 16 greedy decode
+     steps, counted exactly (whisper B3 6 + 6 + 6 a prefill and 6 a step,
+     B2 8 each; the VLM B3 40 + 8 a prefill and 8 a step, B2 72, the insert
+     kernel 40 each, kv_decode 40 a step), a second run's tokens, a traced
+     run whose kernel events per family are the counts or one fewer (a
+     dropped record); prefill(S - 1) then decode(1) against prefill(S)
+     (tests/test_decode_parity.py's bar), gated where no binary FFN's sign
+     can turn path noise into O(1): f32 compute on the bf16 pool with
+     float FFNs, and whisper's served weights with their binary FFNs in
+     f32; printed beside them: the serving config, the VLM's binary FFNs
+     in f32 and its float FFNs in f32 on the int8 pool; ms a decode step,
+     tok/s, the busy share;
   7. xnor: the XNOR-popcount GEMM against its plain version, exactly, at
      the MNIST net's hidden layers (M = 1, 128, 256, 512; N = K = 1024),
      ragged K (40, 100, 384) and the spec draft's shapes (gate / up 8 x
@@ -211,8 +248,8 @@ Phases, one output line each (or a few), every failure raising:
      falling; every run's launches exact;
  12. a JSON line of the nine kernels and the two kv_decode wrappers:
      launches summed over the paths (B2, B3, B4a-d and kv_decode on the
-     serving paths, B2 and B3 on the training paths, B1 on the spec and
-     the MNIST paths, B5 and B6 on none; each serving and spec path's
+     serving and families paths, B2 and B3 on the training paths, B1 on
+     the spec and the MNIST paths, B5 and B6 on none; each serving and spec path's
      replayed counts held to its graph's kernel nodes, the bf16 and int8
      paths' and the profiled train step's to the device's kernel events
      of the same run), largest error, times and bounds;
@@ -242,7 +279,7 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.configs import get_config, smoke_config  # noqa: E402
+from repro_torch.configs import PrecisionPolicy, get_config, smoke_config  # noqa: E402
 from repro_torch.core import hybrid_mlp as H  # noqa: E402
 from repro_torch.core.binarize import pack_bits, pack_signs_int8, packed_len, unpack_bits  # noqa: E402
 from repro_torch.data.synthetic import SyntheticMnist  # noqa: E402
@@ -287,6 +324,18 @@ SDPA_GQA = tuple(int(x) for x in torch.__version__.split(".")[:2]) >= (2, 5)
 def log(tag: str, **kw) -> None:
     RECORD.setdefault(tag, []).append(kw)
     print(f"{tag} " + json.dumps(kw), flush=True)
+
+
+PHASE_SECONDS: dict[str, float] = {}
+
+
+def timed(label: str, fn, *args):
+    """fn(*args), its wall seconds kept under ``label`` (the phase_seconds
+    line: where the script's time limit goes)."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[label] = time.perf_counter() - t0
+    return out
 
 
 def counts() -> dict[str, int]:
@@ -399,6 +448,16 @@ INT8_CASES = [  # (name, M, N, K)
     ("minicpm3 decode bin_out", 8, 2560, 6400),
     ("minicpm3 prefill bin_in", 1024, 6400, 2560),
     ("minicpm3 prefill bin_out", 1024, 2560, 6400),
+    # the families phase's: qwen3-8b (d_ff 12288), llama-3.2-vision-11b
+    # (14336), qwen2-72b (29568 = 32 x 924, not a multiple of 256), each
+    # bin_out at decode M 8 and prefill M 8 x 128
+    ("qwen3 decode bin_in", 8, 12288, 4096),
+    ("qwen3 decode bin_out", 8, 4096, 12288),
+    ("qwen3 prefill bin_out", 1024, 4096, 12288),
+    ("vlm decode bin_out", 8, 4096, 14336),
+    ("vlm prefill bin_out", 1024, 4096, 14336),
+    ("qwen2 decode bin_out", 8, 8192, 29568),
+    ("qwen2 prefill bin_out", 1024, 8192, 29568),
 ]
 # activations drawn from all of [-128, 127]: the kernel is exact for any
 # int8, and so are the plain f32 version and the yardsticks (|sum| < 2**24)
@@ -498,8 +557,10 @@ FLASH_CASES = [  # (name, B, S, T, Hq, Hkv, D, q_offset, kv_len or None)
 ]
 
 
-def _visible_pairs(s, kvl, q_offset) -> int:
+def _visible_pairs(s, kvl, q_offset, causal=True) -> int:
     """(query, key) pairs the causal mask and kv_len leave visible."""
+    if not causal:
+        return s * sum(kvl)
     return sum(min(n, i + q_offset + 1) for n in kvl for i in range(s))
 
 
@@ -520,12 +581,55 @@ MLA_FLASH_CASES = [  # (name, B, S, Hq, D, Dv, kv_len or None, dtype)
     ("smoke 24/16 bf16", 2, 32, 4, 24, 16, None, torch.bfloat16),
     ("smoke 24/16 f32", 2, 32, 4, 24, 16, None, torch.float32),
 ]
+# non-causal, S != T, T off the 64-key tile: whisper-base's encoder and
+# cross-attention over 1500 frames (8 heads of 64), llama-3.2-vision-11b's
+# cross-attention over 1601 patches (32 / 8 heads of 128), at the families
+# phase's batch of 8: prefill S 32 / 128 and decode S 1
+CROSS_FLASH_CASES = [  # (name, B, S, T, Hq, Hkv, D)
+    ("whisper encoder", 8, 1500, 1500, 8, 8, 64),
+    ("whisper cross prefill", 8, 32, 1500, 8, 8, 64),
+    ("whisper cross decode", 8, 1, 1500, 8, 8, 64),
+    ("vlm cross prefill", 8, 128, 1601, 32, 8, 128),
+    ("vlm cross decode", 8, 1, 1601, 32, 8, 128),
+]
 TOLS = {torch.bfloat16: BF16_TOL, torch.float32: 2e-5}   # tests/test_attention.py TOLS
-# both lists as (name, B, S, T, Hq, Hkv, D, Dv, q_offset, kv_len, dtype)
-ALL_FLASH_CASES = ([(name, b, s, t, hq, hkv, d, d, off, kvl, torch.bfloat16)
+# bf16 is also held to each batch row's own scale: over T 1500 an output's
+# std is ~0.04, so 3e-2 alone is the size of a typical value. 2^-6 of a
+# row's largest |output| is 2 to 4 bf16 ulps of it; the kernel reads 1.
+BF16_REL = 2.0 ** -6
+# with v constant along the keys every output is that constant (the
+# weights sum to 1): within 1 bf16 ulp, or f32's bar. A key of the last
+# tile's zero-filled tail left unmasked pulls it towards 0 by its share of
+# the weights (~1.4% at T 1500, ~2.3% at T 1601)
+CONST_V_REL = {torch.bfloat16: 2.0 ** -7, torch.float32: 2e-5}
+
+
+def flash_err(got, want, dt) -> tuple[float, float]:
+    """-> (max |got - want|, the worst batch row's error over its bar); the
+    bar is TOLS[dt], in bf16 no more than BF16_REL x the row's max |want|;
+    the kernel passes at <= 1."""
+    err = (got.float() - want.float()).abs().flatten(1).amax(1)
+    bar = torch.full_like(err, TOLS[dt])
+    if dt == torch.bfloat16:
+        bar = torch.minimum(bar, BF16_REL * want.float().abs().flatten(1).amax(1))
+    return float(err.max()), float((err / bar).max())
+
+
+def flash_const_v(q, k, v, **kw) -> float:
+    """The kernel on v made constant along the keys (each (batch, head,
+    channel) keeps its first key's value) -> the largest relative error
+    against that constant; the kernel passes at <= CONST_V_REL."""
+    vc = v[:, :1].expand_as(v).contiguous()
+    got = flash_attention(q, k, vc, **kw).float()
+    want = vc[:, :1].float().repeat_interleave(q.shape[2] // v.shape[2], dim=2)
+    return float(((got - want) / want).abs().max())
+# the lists as (name, B, S, T, Hq, Hkv, D, Dv, q_offset, kv_len, dtype, causal)
+ALL_FLASH_CASES = ([(name, b, s, t, hq, hkv, d, d, off, kvl, torch.bfloat16, True)
                     for name, b, s, t, hq, hkv, d, off, kvl in FLASH_CASES]
-                   + [(name, b, s, s, hq, hq, d, dv, 0, kvl, dt)
-                      for name, b, s, hq, d, dv, kvl, dt in MLA_FLASH_CASES])
+                   + [(name, b, s, s, hq, hq, d, dv, 0, kvl, dt, True)
+                      for name, b, s, hq, d, dv, kvl, dt in MLA_FLASH_CASES]
+                   + [(name, b, s, t, hq, hkv, d, d, 0, None, torch.bfloat16, False)
+                      for name, b, s, t, hq, hkv, d in CROSS_FLASH_CASES])
 
 
 def _sdpa_dv(qt, kt, vt, timer, **kw) -> tuple[float | None, str]:
@@ -552,42 +656,53 @@ def _sdpa_dv(qt, kt, vt, timer, **kw) -> tuple[float | None, str]:
 
 def phase_flash(dev, gen, timer) -> list[dict]:
     rows = []
-    for name, b, s, t, hq, hkv, d, dv, off, kvl, dt in ALL_FLASH_CASES:
+    for name, b, s, t, hq, hkv, d, dv, off, kvl, dt, causal in ALL_FLASH_CASES:
         q = torch.randn(b, s, hq, d, generator=gen, device=dev).to(dt)
         k = torch.randn(b, t, hkv, d, generator=gen, device=dev).to(dt)
         v = torch.randn(b, t, hkv, dv, generator=gen, device=dev).to(dt)
         lens = [t] * b if kvl is None else kvl
         kv = None if kvl is None else torch.tensor(kvl, dtype=torch.int32, device=dev)
-        kw = dict(causal=True, kv_len=kv, q_offset=off)
+        kw = dict(causal=causal, kv_len=kv, q_offset=off)
         got = flash_attention(q, k, v, **kw)
         want = flash_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        if got.shape != (b, s, hq, dv) or not err <= TOLS[dt]:
+        err, over = flash_err(got, want, dt)
+        if got.shape != (b, s, hq, dv) or not over <= 1.0:
             raise AssertionError(f"flash kernel vs plain at {name}: {tuple(got.shape)}, "
-                                 f"{err} > {TOLS[dt]}")
+                                 f"{err}: {over} x its bar")
+        const_err = flash_const_v(q, k, v, **kw)
+        if not const_err <= CONST_V_REL[dt]:
+            raise AssertionError(f"flash kernel at {name}, v constant along the keys: "
+                                 f"{const_err} > {CONST_V_REL[dt]} of the constant")
         ms = timer(lambda: flash_attention(q, k, v, **kw))
         plain_ms = timer(lambda: flash_attention_plain(q, k, v, **kw), reps=10)
         # the yardstick: one SDPA call on the same inputs (heads-major views)
         lib_ms, lib_call = None, None
         gqa = {} if hq == hkv else {"enable_gqa": True}
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        sdpa_kw = ({"is_causal": True} if kvl is None and off == 0 and s == t
-                   else {"attn_mask": _sdpa_mask(b, s, t, lens, off, dev)})
+        if not causal:                       # the cross cases: no mask at all
+            sdpa_kw = {}
+        elif kvl is None and off == 0 and s == t:
+            sdpa_kw = {"is_causal": True}
+        else:
+            sdpa_kw = {"attn_mask": _sdpa_mask(b, s, t, lens, off, dev)}
         if dv != d:
             lib_ms, lib_call = _sdpa_dv(qt, kt, vt, timer, **sdpa_kw)
         elif not gqa or SDPA_GQA:
-            lib_call = ("scaled_dot_product_attention(is_causal=True)" if "is_causal" in sdpa_kw
+            lib_call = ("scaled_dot_product_attention()" if not sdpa_kw else
+                        "scaled_dot_product_attention(is_causal=True)" if "is_causal" in sdpa_kw
                         else "scaled_dot_product_attention(attn_mask=bool)")
             lib_ms = timer(lambda: F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw,
                                                                   **gqa))
             if gqa:
-                lib_call = lib_call[:-1] + ", enable_gqa=True)"
+                lib_call = lib_call[:-1] + (", " if sdpa_kw else "") + "enable_gqa=True)"
         nbytes = q.element_size() * (q.numel() + k.numel() + v.numel() + b * s * hq * dv)
-        flops = 2.0 * hq * (d + dv) * _visible_pairs(s, lens, off)
+        flops = 2.0 * hq * (d + dv) * _visible_pairs(s, lens, off, causal)
         b_ms, b_by = bound(nbytes, flops, BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS)
-        row = dict(case=name, B=b, S=s, T=t, Hq=hq, Hkv=hkv, D=d, Dv=dv, q_offset=off,
-                   dtype=str(dt).replace("torch.", ""), max_abs_err=err, ms=ms,
+        row = dict(case=name, B=b, S=s, T=t, Hq=hq, Hkv=hkv, D=d, Dv=dv, causal=causal,
+                   q_offset=off,
+                   dtype=str(dt).replace("torch.", ""), max_abs_err=err, err_over_bar=over,
+                   const_v_rel_err=const_err, ms=ms,
                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                    library_call=lib_call)
         log("flash", **row)
@@ -790,8 +905,7 @@ def _check_path(label, launches, eng, cfg, n_binary, kv: str, flash_waves: int) 
     prefill wave and per decode step, the dequant-fused decode one per layer
     per decode step, the codec's dequantizer 2 x layers per wave on a cached
     prefix (the context's gather), B3 one per layer per wave without a
-    cached prefix, all else 0;
-    and the pool's exact bytes."""
+    cached prefix, all else 0."""
     waves, steps = eng.stats["prefills"], eng.stats["decode_steps"]
     want = {k: 0 for k in KERNELS}
     want["int8_matmul"] = 2 * n_binary * (waves + steps)
@@ -803,10 +917,17 @@ def _check_path(label, launches, eng, cfg, n_binary, kv: str, flash_waves: int) 
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, want {want} for {waves} "
                              f"prefill waves + {steps} decode steps")
-    per_tok = cfg.n_layers * kvc.get_codec(kv).bytes_per_token(cfg.n_kv_heads,
-                                                               cfg.kv_head_dim())
-    if not eng.stats["kv_bytes"] == KV_BYTES[kv] == per_tok * 8 * 256:
-        raise AssertionError(f"{label}: kv_bytes {eng.stats['kv_bytes']}, want {KV_BYTES[kv]}")
+
+
+def _check_kv_bytes(label, eng, cfg, kv: str, want: int) -> None:
+    """The pool's exact bytes at max_batch 8, max_len 256: ``want``, the
+    engine's figure and layers x 8 x 256 x a token's bytes (the codec's
+    rows for each kv head, or MLA's compressed (kv_lora + rope) x 2)."""
+    per_tok = cfg.n_layers * ((cfg.kv_lora_rank + cfg.qk_rope_dim) * 2 if cfg.use_mla else
+                              kvc.get_codec(kv).bytes_per_token(cfg.n_kv_heads,
+                                                                cfg.kv_head_dim()))
+    if not eng.stats["kv_bytes"] == want == per_tok * 8 * 256:
+        raise AssertionError(f"{label}: kv_bytes {eng.stats['kv_bytes']}, want {want}")
 
 
 def _check_outputs(label, out, vocab) -> None:
@@ -891,6 +1012,7 @@ def phase_serve(dev, card: str) -> dict:
     waves, steps = eng.stats["prefills"], eng.stats["decode_steps"]
     _check_outputs("bf16", out, cfg.vocab)
     _check_path("bf16", launches, eng, cfg, n_binary, "bf16", waves)
+    _check_kv_bytes("bf16", eng, cfg, "bf16", KV_BYTES["bf16"])
     _check_replays("bf16", eng)
     out2, wall2, _ = _serve_once(api, params, prompts)
     if out2 != out:
@@ -914,6 +1036,7 @@ def phase_serve(dev, card: str) -> dict:
         # a cached prefix: every later request matches the header
         _check_path(label, k_launches, k_eng, cfg, n_binary, kw["kv_cache"],
                     1 if kw.get("prefix_cache") else k_eng.stats["prefills"])
+        _check_kv_bytes(label, k_eng, cfg, kw["kv_cache"], KV_BYTES[kw["kv_cache"]])
         _check_replays(label, k_eng)
         if kw.get("prefix_cache") and not (k_eng.pool.stats["hits"] > 0 and
                                            k_eng.stats["cached_prompt_tokens"] > 0):
@@ -982,104 +1105,10 @@ def phase_serve(dev, card: str) -> dict:
     log("serve", **row)
     log("profile", card=card, **prof)
     log("profile_eager", card=card, **prof_eager)
-    spec = phase_spec(api, params, cfg, prompts, shared, plain, n_binary, card)
-    interleave = phase_interleave(api, params, cfg, prompts, shared, plain, n_binary, card)
+    spec = timed("spec", phase_spec, api, params, cfg, prompts, shared, plain, n_binary, card)
+    interleave = timed("interleave", phase_interleave, api, params, cfg, prompts, shared, plain,
+                       n_binary, card)
     return {**row, "paths": paths, "spec": spec, "interleave": interleave}
-
-
-# ---------------------------------------------------------------------------
-# phase 6d: the MLA families at full width
-# ---------------------------------------------------------------------------
-
-# (arch, the cut, exact pool bytes at max_batch 8, max_len 256: layers x 8
-# x 256 x (kv_lora + rope) x 2 bytes of the compressed bf16 cache)
-MLA_CONFIGS = [("minicpm3-4b", {}, 73_138_176),
-               ("deepseek-v2-236b", dict(n_layers=5), 11_796_480)]
-
-
-def _mla_layer0(params, cfg, prompts, dev) -> float:
-    """Layer 0's MLA prefill of a small right-padded batch through B3 (q and
-    k [nope | rope], v of Dv) against the plain attention (3e-2); the
-    logits finite and of the padded vocab."""
-    toks = torch.as_tensor(np.stack([np.resize(p, 48) for p in prompts[:2]]), device=dev)
-    lens = torch.tensor([48, 20], dtype=torch.int32, device=dev)
-    logits, _ = get_model(cfg).prefill(params, {"tokens": toks}, max_len=64, seq_lens=lens)
-    if tuple(logits.shape) != (2, lc.padded_vocab(cfg.vocab)) or \
-            not bool(torch.isfinite(logits[:, :cfg.vocab]).all()):
-        raise AssertionError(f"{cfg.name}: prefill logits not finite / of the wrong shape")
-    x = embedding_lookup(params["embed"], toks, compute_dtype=lc.cdt(cfg))
-    pos = torch.arange(48, device=dev)
-    outs = [lc.block_prefill(params["blocks"][0], x, cfg.replace(attn_impl=impl),
-                             lc.block_sig(cfg, 0), positions=pos, max_len=64,
-                             seq_lens=lens)[0] for impl in ("flash", "ref")]
-    err = float((outs[0].float() - outs[1].float()).abs().max())
-    if not torch.allclose(outs[0].float(), outs[1].float(), rtol=BF16_TOL, atol=BF16_TOL):
-        raise AssertionError(f"{cfg.name}: layer 0 flash vs plain MLA attention: {err}")
-    return err
-
-
-def phase_mla(dev, card: str) -> dict:
-    """minicpm3-4b and the 5-layer deepseek-v2-236b served at full width
-    (module note, 6d) -> {"rows", "launches"}."""
-    rows, all_launches = [], []
-    for arch, cut, kv_bytes in MLA_CONFIGS:
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-        cfg = get_config(arch).replace(**cut)
-        sigs = [lc.block_sig(cfg, i) for i in range(cfg.n_layers)]
-        n_binary = sum(sg.ffn == "binary" and not sg.moe for sg in sigs)
-        if cfg.family == "moe" and not any(sg.ffn == "binary" and sg.moe for sg in sigs):
-            raise AssertionError(f"{arch}: the cut holds no binary MoE block: {sigs}")
-        api = get_model(cfg)
-        t0 = time.perf_counter()
-        params = api.init(SEED, device=dev)
-        torch.cuda.synchronize()
-        init_s = time.perf_counter() - t0
-        param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
-        rng = np.random.default_rng(SEED)
-        prompts = [rng.integers(0, cfg.vocab, int(rng.choice(PROMPT_LENS)))
-                   for _ in range(N_REQUESTS)]
-        label = f"mla {arch}"
-        out, wall, eng, launches, prof = _counted_run(label, api, params, prompts,
-                                                      profiled=True)
-        waves, steps = eng.stats["prefills"], eng.stats["decode_steps"]
-        _check_outputs(label, out, cfg.vocab)
-        _check_replays(label, eng)
-        want = {k: 0 for k in KERNELS}
-        want["int8_matmul"] = 2 * n_binary * (waves + steps)
-        want["flash_attention"] = cfg.n_layers * waves
-        if launches != want:
-            raise AssertionError(f"{label}: launches {launches}, want {want} for {waves} "
-                                 f"prefill waves + {steps} decode steps")
-        per_tok = cfg.n_layers * (cfg.kv_lora_rank + cfg.qk_rope_dim) * 2
-        if not eng.stats["kv_bytes"] == kv_bytes == per_tok * 8 * 256:
-            raise AssertionError(f"{label}: kv_bytes {eng.stats['kv_bytes']}, want {kv_bytes}")
-        del eng
-        out2, wall2, _ = _serve_once(api, params, prompts)
-        if out2 != out:
-            raise AssertionError(f"{label}: a second run gave other tokens")
-        wall_eager = _eager_equal(label, out, api, params, prompts)
-        layer0_err = _mla_layer0(params, cfg, prompts, dev)
-        n_tok = sum(len(o) for o in out)
-        row = dict(card=card, arch=arch, cut=cut, n_layers=cfg.n_layers, d_model=cfg.d_model,
-                   heads=cfg.n_heads, head_dims=[cfg.qk_nope_dim + cfg.qk_rope_dim,
-                                                 cfg.v_head_dim],
-                   binary_dense_ffns=n_binary, param_bytes=param_bytes, init_s=init_s,
-                   requests=N_REQUESTS, tokens=n_tok, prefill_waves=waves,
-                   decode_steps=steps, launches=launches, kv_bytes=kv_bytes,
-                   wall_s_first=wall, wall_s=wall2, wall_s_eager=wall_eager,
-                   tok_per_s_first=n_tok / wall, tok_per_s=n_tok / wall2,
-                   tok_per_s_eager=n_tok / wall_eager, layer0_flash_vs_plain=layer0_err,
-                   peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
-                   profile=_profile_summary(prof, wall, wall2))
-        log("mla", **row)
-        rows.append(row)
-        all_launches.append(launches)
-        del params, api, prof
-    gc.collect()
-    torch.cuda.empty_cache()
-    return {"rows": rows, "launches": all_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -1102,18 +1131,22 @@ def _check_spec_path(label, launches, eng, cfg, n_binary, kv: str, flash_waves: 
     """Every kernel's launches on a speculative path: per wave, k draft
     decodes and one verify of k + 1 tokens, so B1 3 x (float FFNs) x k (the
     draft's packed denses), B2 2 x (binary FFNs) x (k + 1), the codec's
-    insert kernel and kv_decode layers x (k + 1) each (the verify's one span
-    insert and one attend with q_lens); per prefill wave as on the plain
-    paths; one draft launch and one graph replay a wave."""
+    insert kernel layers x (k + 1) (the verify's one span insert), kv_decode
+    layers x (k + the verify's launches: one for each MAX_ROWS query rows
+    a kv head, G (k + 1) of them, so 1 at G 1 and 2 at G 4); per prefill
+    wave as on the plain paths; one draft launch and one graph replay a
+    wave."""
     waves, w, k = eng.stats["prefills"], eng.stats["spec_waves"], eng.spec_k
     n_float = cfg.n_layers - n_binary
+    g = cfg.n_heads // cfg.n_kv_heads
+    verify = -(-(k + 1) // (kvd.MAX_ROWS // g))
     want = {name: 0 for name in KERNELS}
     want["int8_matmul"] = 2 * n_binary * (waves + w * (k + 1))
     want["binary_matmul"] = 3 * n_float * k * w
     want["flash_attention"] = cfg.n_layers * flash_waves
     if kv != "bf16":
         want[f"kv_quant_{kv}"] = cfg.n_layers * (waves + w * (k + 1))
-        want[f"kv_decode_{kv}"] = cfg.n_layers * w * (k + 1)
+        want[f"kv_decode_{kv}"] = cfg.n_layers * w * (k + verify)
         want[f"kv_dequant_{kv}"] = 2 * cfg.n_layers * (waves - flash_waves)
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, want {want} for {waves} "
@@ -1191,6 +1224,7 @@ def phase_spec(api, params, cfg, prompts, shared, plain, n_binary, card) -> dict
     _check_outputs("int8 sampled", s_out, cfg.vocab)
     _check_path("int8 sampled", s_launches, s_eng, cfg, n_binary, "int8",
                 s_eng.stats["prefills"])
+    _check_kv_bytes("int8 sampled", s_eng, cfg, "int8", KV_BYTES["int8"])
     _check_replays("int8 sampled", s_eng)
     s_out2, s_wall2, _ = _serve_once(api, params, prompts, kv_cache="int8", temperature=0.8,
                                      seed=SEED)
@@ -1627,6 +1661,321 @@ def phase_interleave(api, params, cfg, prompts, shared, plain, n_binary, card) -
     log("interleave_http_launcher", card=card, **http)
     return {"paths": rows, "latency": latency, "front_door": front, "launcher": launcher,
             "http_launcher": http, "launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 6d: the attention families at full width
+# ---------------------------------------------------------------------------
+
+def _mla_layer0(params, cfg, prompts, dev) -> float:
+    """Layer 0's MLA prefill of a small right-padded batch through B3 (q and
+    k [nope | rope], v of Dv) against the plain attention (3e-2); the
+    logits finite and of the padded vocab."""
+    toks = torch.as_tensor(np.stack([np.resize(p, 48) for p in prompts[:2]]), device=dev)
+    lens = torch.tensor([48, 20], dtype=torch.int32, device=dev)
+    logits, _ = get_model(cfg).prefill(params, {"tokens": toks}, max_len=64, seq_lens=lens)
+    if tuple(logits.shape) != (2, lc.padded_vocab(cfg.vocab)) or \
+            not bool(torch.isfinite(logits[:, :cfg.vocab]).all()):
+        raise AssertionError(f"{cfg.name}: prefill logits not finite / of the wrong shape")
+    x = embedding_lookup(params["embed"], toks, compute_dtype=lc.cdt(cfg))
+    pos = torch.arange(48, device=dev)
+    outs = [lc.block_prefill(params["blocks"][0], x, cfg.replace(attn_impl=impl),
+                             lc.block_sig(cfg, 0), positions=pos, max_len=64,
+                             seq_lens=lens)[0] for impl in ("flash", "ref")]
+    err = float((outs[0].float() - outs[1].float()).abs().max())
+    if not torch.allclose(outs[0].float(), outs[1].float(), rtol=BF16_TOL, atol=BF16_TOL):
+        raise AssertionError(f"{cfg.name}: layer 0 flash vs plain MLA attention: {err}")
+    return err
+
+
+def _free(dev) -> None:
+    """Let the last model's tensors go before the next one loads, and start
+    the peak-memory count anew."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+
+# (arch, the cut, [(label, ServeEngine options)], exact pool bytes of each
+# codec at max_batch 8, max_len 256: GQA layers x 2 x 8 x 256 x kv heads x
+# a row's bytes (bf16 256, int8 128 + 2, binary 4 words + 2); MLA layers x
+# 8 x 256 x (kv_lora + rope) x 2)
+SERVED_FAMILIES = [
+    ("minicpm3-4b", {}, [("bf16", {})], {"bf16": 73_138_176}),
+    ("deepseek-v2-236b", dict(n_layers=5), [("bf16", {})], {"bf16": 11_796_480}),
+    ("qwen3-8b", {}, [("bf16", {}), ("int8", dict(kv_cache="int8")),
+                      ("binary", dict(kv_cache="binary")),
+                      ("spec int8", dict(kv_cache="int8", spec_k=SPEC_K))],
+     {"bf16": 301_989_888, "int8": 153_354_240, "binary": 21_233_664}),
+    ("qwen2-72b", dict(n_layers=5), [("int8", dict(kv_cache="int8"))], {"int8": 21_299_200}),
+    ("deepseek-v3-671b", dict(n_layers=4), [("bf16", {})], {"bf16": 9_437_184}),
+]
+ENCDEC_BATCH, WHISPER_PROMPT, VLM_PROMPT, ENCDEC_STEPS = 8, 32, 128, 16
+
+
+def _check_cut(arch, sigs) -> None:
+    """A cut keeps the block kinds it is there for: deepseek-v2's a binary
+    MoE block, qwen2's one binary block, deepseek-v3's three dense blocks
+    and a float MoE."""
+    if arch == "deepseek-v2-236b" and not any(sg.ffn == "binary" and sg.moe for sg in sigs):
+        raise AssertionError(f"{arch}: the cut holds no binary MoE block: {sigs}")
+    if arch == "qwen2-72b" and sum(sg.ffn == "binary" for sg in sigs) != 1:
+        raise AssertionError(f"{arch}: the cut should keep one binary block: {sigs}")
+    if arch == "deepseek-v3-671b" and [(sg.moe, sg.ffn) for sg in sigs] != \
+            [(False, "float")] * 3 + [(True, "float")]:
+        raise AssertionError(f"{arch}: the cut should be 3 dense blocks and a float MoE: {sigs}")
+
+
+def _served_family(arch, cut, paths, kv_bytes, dev, card) -> tuple[list, list]:
+    """One model of SERVED_FAMILIES through ServeEngine on each of its paths,
+    the serve phase's 12 requests: counted (the first path traced: device
+    events = counts + the warm-up), each replay's counts = its graph's
+    kernel nodes, exact launches and pool bytes, a second replayed run and
+    an eager run with the same tokens; an MLA model's layer 0 through B3
+    against the plain attention -> (rows, launches of each path)."""
+    cfg = get_config(arch).replace(**cut)
+    sigs = [lc.block_sig(cfg, i) for i in range(cfg.n_layers)]
+    _check_cut(arch, sigs)
+    n_binary = sum(sg.ffn == "binary" and not sg.moe for sg in sigs)
+    api = get_model(cfg)
+    t0 = time.perf_counter()
+    params = api.init(SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab, int(rng.choice(PROMPT_LENS)))
+               for _ in range(N_REQUESTS)]
+    rows, all_launches = [], []
+    t_path = time.perf_counter()
+    for i, (label, kw) in enumerate(paths):
+        lab = f"{arch} {label}"
+        kv = kw.get("kv_cache", "bf16")
+        out, wall, eng, launches, prof = _counted_run(lab, api, params, prompts,
+                                                      profiled=i == 0, **kw)
+        _check_outputs(lab, out, cfg.vocab)
+        waves = eng.stats["prefills"]
+        if kw.get("spec_k"):
+            _check_spec_path(lab, launches, eng, cfg, n_binary, kv, waves)
+        else:
+            _check_path(lab, launches, eng, cfg, n_binary, kv, waves)
+            _check_replays(lab, eng)
+        _check_kv_bytes(lab, eng, cfg, kv, kv_bytes[kv])
+        steps = eng.stats["decode_steps"]
+        del eng
+        out2, wall2, _ = _serve_once(api, params, prompts, **kw)
+        if out2 != out:
+            raise AssertionError(f"{lab}: a second run gave other tokens")
+        wall_eager = _eager_equal(lab, out, api, params, prompts, **kw)
+        n_tok = sum(len(o) for o in out)
+        row = dict(card=card, arch=arch, path=label, cut=cut, n_layers=cfg.n_layers,
+                   d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
+                   binary_dense_ffns=n_binary, param_bytes=param_bytes, init_s=init_s,
+                   tokens=n_tok, prefill_waves=waves, decode_steps=steps, launches=launches,
+                   kv_bytes=kv_bytes[kv], wall_s_first=wall, wall_s=wall2,
+                   wall_s_eager=wall_eager, tok_per_s_first=n_tok / wall,
+                   tok_per_s=n_tok / wall2, tok_per_s_eager=n_tok / wall_eager,
+                   peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+        if prof is not None:
+            row["profile"] = _profile_summary(prof, wall, wall2)
+            row["busy_share"] = row["profile"]["busy_share"]
+        if cfg.use_mla and i == 0:
+            row["layer0_flash_vs_plain"] = _mla_layer0(params, cfg, prompts, dev)
+        row["seconds"] = time.perf_counter() - t_path
+        t_path = time.perf_counter()
+        log("families", **row)
+        rows.append(row)
+        all_launches.append(launches)
+        del prof
+    del params, api
+    return rows, all_launches
+
+
+def _greedy(api, params, batch: dict, steps: int, max_len: int):
+    """A prefill, then ``steps`` greedy decodes -> (tokens (B, steps + 1),
+    prefill s, decode s), each closed by a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = api.prefill(params, batch, max_len=max_len)
+    toks = [logits.argmax(-1)]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(steps):
+        logits, caches = api.decode(params, caches, toks[-1][:, None])
+        toks.append(logits.argmax(-1))
+    torch.cuda.synchronize()
+    return torch.stack(toks, 1), t1 - t0, time.perf_counter() - t1
+
+
+def _decode_parity(label, api, params, batch: dict, max_len: int, vocab: int,
+                   gate: bool = True) -> dict:
+    """prefill(S - 1) then decode(1) against prefill(S) at the last position
+    (tests/test_decode_parity.py): within max(2e-2 x scale, 5e-2), the same
+    argmax in every row (``gate``: else only measured); the padded vocab's
+    -1e9 columns left out."""
+    gold, _ = api.prefill(params, batch, max_len=max_len)
+    _, caches = api.prefill(params, {**batch, "tokens": batch["tokens"][:, :-1]},
+                            max_len=max_len)
+    got, _ = api.decode(params, caches, batch["tokens"][:, -1:])
+    gold, got = gold[:, :vocab].float(), got[:, :vocab].float()
+    scale, err = float(gold.abs().max()), float((gold - got).abs().max())
+    top = torch.topk(gold, 2, dim=-1).values
+    gaps = (top[:, 0] - top[:, 1]).tolist()
+    same = torch.equal(gold.argmax(-1), got.argmax(-1))
+    if gate and not (err < max(2e-2 * scale, 5e-2) and same):
+        raise AssertionError(f"{label}: prefill(S-1) + decode(1) vs prefill(S): {err} "
+                             f"(scale {scale}), argmax {gold.argmax(-1).tolist()} vs "
+                             f"{got.argmax(-1).tolist()}, top-2 gaps {gaps}")
+    return {"max_abs_err": err, "scale": scale, "same_argmax": same, "top2_gaps": gaps}
+
+
+def _encdec(arch, dev, card) -> tuple[dict, dict]:
+    """whisper-base or llama-3.2-vision-11b at full width through
+    get_model's prefill and decode (repro gives them no slot engine): batch
+    8, a prefill and ENCDEC_STEPS greedy decodes with the counts zeroed just
+    before and read just after, exact; a warm run of the same tokens; a
+    traced run whose device events are the counts (or one fewer: a dropped
+    record); the decode parity."""
+    cfg = get_config(arch)
+    if cfg.family == "vlm":
+        cfg = cfg.replace(kv_cache="int8")
+    api = get_model(cfg)
+    t0 = time.perf_counter()
+    params = api.init(SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+    b = ENCDEC_BATCH
+    if cfg.family == "whisper":
+        s, max_len = WHISPER_PROMPT, 64
+        toks = rng.integers(0, cfg.vocab, (b, s))
+        ctx = {"frames": torch.randn((b, cfg.n_audio_frames, cfg.d_model), generator=gen,
+                                     device=dev).to(lc.cdt(cfg))}
+    else:
+        # the serve prompts, each repeated out to 128 tokens
+        s, max_len = VLM_PROMPT, VLM_PROMPT + ENCDEC_STEPS + 16
+        toks = np.stack([np.resize(rng.integers(0, cfg.vocab, int(rng.choice(PROMPT_LENS))), s)
+                         for _ in range(b)])
+        ctx = {"patches": torch.randn((b, cfg.n_patches, cfg.d_model), generator=gen,
+                                      device=dev).to(lc.cdt(cfg))}
+        # random init leaves every gate at 0, and tanh(0) = 0 would make
+        # each cross block add nothing: open them
+        for blk in params["cross"]:
+            blk["gate_attn"].fill_(0.5)
+            blk["gate_ffn"].fill_(0.5)
+    batch = {"tokens": torch.as_tensor(toks, device=dev), **ctx}
+    n_binary = sum(cfg.policy.block_is_binary(i, cfg.n_layers) for i in range(cfg.n_layers))
+    steps = ENCDEC_STEPS
+    zero_counts()
+    out, prefill_s, decode_s = _greedy(api, params, batch, steps, max_len)
+    launches = counts()
+    want = {k: 0 for k in KERNELS}
+    want["int8_matmul"] = 2 * n_binary * (1 + steps)
+    if cfg.family == "whisper":
+        want["flash_attention"] = cfg.enc_layers + 2 * cfg.n_layers + cfg.n_layers * steps
+    else:
+        n_cross = cfg.n_layers // cfg.cross_every
+        want["flash_attention"] = cfg.n_layers + n_cross * (1 + steps)
+        want["kv_quant_int8"] = cfg.n_layers * (1 + steps)
+        want["kv_decode_int8"] = cfg.n_layers * steps
+    if launches != want:
+        raise AssertionError(f"{arch}: launches {launches}, want {want}")
+    if not (out.shape == (b, steps + 1) and bool(((out >= 0) & (out < cfg.vocab)).all())):
+        raise AssertionError(f"{arch}: bad tokens {out.tolist()}")
+    out2, prefill2, decode2 = _greedy(api, params, batch, steps, max_len)
+    if not torch.equal(out2, out):
+        raise AssertionError(f"{arch}: a second run gave other tokens")
+    from torch.profiler import ProfilerActivity, profile
+    zero_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out3, prefill3, decode3 = _greedy(api, params, batch, steps, max_len)
+    if counts() != launches or not torch.equal(out3, out):
+        raise AssertionError(f"{arch}: the traced run differs: {counts()}, {launches}")
+    # the trace's kernel events of each family are the counts, or one
+    # fewer: a trace can drop a record (one B3 event of 114 in one whisper
+    # run), and no graph's nodes hold these eager runs as they hold the
+    # served ones; never one more
+    device_events = _device_launches(prof)
+    profile_row = _profile_summary(prof, prefill3 + decode3, prefill2 + decode2)
+    del prof
+    for fam, n in _by_family(launches).items():
+        if not n - 1 <= device_events.get(fam, 0) <= n:
+            raise AssertionError(f"{arch}: the trace's kernel events {device_events} are not "
+                                 f"the counts {launches} (at most one dropped a family)")
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    # The parity is a check of the decode logic (caches, positions, cross
+    # blocks), and it gates where path noise cannot reach the logits through
+    # a binary FFN's sign: f32 compute (params stay bf16), the bf16 pool
+    # (repro's default, which tests/test_decode_parity.py runs), float FFNs,
+    # as that test gates MoE in f32 at capacity 16; and whisper's served
+    # weights, binary FFNs included, in f32 on its bf16 pool, where 8 rows x
+    # (512 + 2048) x 4 binary inputs leave ~0.1 expected within f32's path
+    # noise of 0. A binary FFN mixes no positions, but it turns path noise
+    # into O(1): the prefill's B3 and the decode's plain attention round
+    # apart (~1e-2 in bf16, ~1e-6 in f32), an int8 pool's decode reads codes
+    # where the prefill attended exact K/V, and one flipped sign of a binary
+    # FFN's input moves each of its d_ff integer dots by 2, flipping the
+    # signs the next dense reads; the VLM's 8 x (4096 + 14336) x 36 binary
+    # inputs leave ~4 within f32's noise. Measured beside it, not gated: the
+    # served config (bf16, the VLM's int8 pool), the VLM's binary FFNs in
+    # f32, and the VLM's float FFNs in f32 on its int8 pool (ROADMAP C).
+    parity_served = _decode_parity(arch, api, params, batch, max_len, cfg.vocab, gate=False)
+    f32 = cfg.replace(compute_dtype="float32", kv_cache="auto")
+    parity_binary_f32 = _decode_parity(f"{arch} f32", get_model(f32), params, batch, max_len,
+                                       cfg.vocab, gate=cfg.family == "whisper")
+    del params, api
+    _free(dev)
+    f32_float = f32.replace(policy=PrecisionPolicy(binary_ffn=False))
+    f_api = get_model(f32_float)
+    f_params = f_api.init(SEED, device=dev)
+    for blk in f_params.get("cross", []):
+        blk["gate_attn"].fill_(0.5)
+        blk["gate_ffn"].fill_(0.5)
+    parity = _decode_parity(f"{arch} f32, float FFNs", f_api, f_params, batch, max_len,
+                            cfg.vocab)
+    parity_int8_f32 = None
+    if cfg.family == "vlm":
+        parity_int8_f32 = _decode_parity(f"{arch} f32, float FFNs, int8 pool",
+                                         get_model(f32_float.replace(kv_cache="int8")),
+                                         f_params, batch, max_len, cfg.vocab, gate=False)
+    del f_params, f_api
+    row = dict(card=card, arch=arch, n_layers=cfg.n_layers, d_model=cfg.d_model,
+               heads=[cfg.n_heads, cfg.n_kv_heads], kv_cache=cfg.kv_cache,
+               binary_dense_ffns=n_binary, param_bytes=param_bytes, init_s=init_s,
+               batch=b, prompt=s, context=int(next(iter(ctx.values())).shape[1]),
+               decode_steps=steps, launches=launches, device_events=device_events,
+               prefill_ms=prefill2 * 1e3,
+               decode_step_ms=decode2 / steps * 1e3, tok_per_s=b * steps / decode2,
+               busy_share=profile_row["busy_share"], decode_parity=parity,
+               decode_parity_served=parity_served, decode_parity_binary_f32=parity_binary_f32,
+               decode_parity_int8_f32=parity_int8_f32,
+               peak_mem_gib=peak, seconds=time.perf_counter() - t0, profile=profile_row)
+    log("families", **row)
+    return row, launches
+
+
+def phase_families(dev, card: str) -> dict:
+    """minicpm3-4b, deepseek-v2-236b cut to 5 layers, qwen3-8b, qwen2-72b
+    cut to 5 and deepseek-v3-671b cut to 4, served; whisper-base and
+    llama-3.2-vision-11b, prefilled and decoded; all at full width, each
+    model freed before the next loads (module note, 6d) -> {"rows",
+    "launches"}."""
+    rows, launches = [], []
+    for arch, cut, paths, kv_bytes in SERVED_FAMILIES:
+        _free(dev)
+        r, ls = _served_family(arch, cut, paths, kv_bytes, dev, card)
+        rows += r
+        launches += ls
+    for arch in ("whisper-base", "llama-3.2-vision-11b"):
+        _free(dev)
+        r, ls = _encdec(arch, dev, card)
+        rows.append(r)
+        launches.append(ls)
+    _free(dev)
+    return {"rows": rows, "launches": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -2804,6 +3153,7 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all(SOURCES)
     log("build", seconds=time.perf_counter() - t0, dir=str(build.BUILD_DIR))
+    PHASE_SECONDS["build"] = time.perf_counter() - t0
     # B2's two designs, B3's bf16 instantiations, B1 and B5 (b1 BMMA) and
     # B6's two designs (HGMMA, HMMA) run on the tensor cores: each
     # function's SASS must hold its opcode
@@ -2821,27 +3171,29 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     timer = Timer(dev)
-    int8_rows = phase_int8(dev, gen, timer)
-    phase_int8_splits(dev, gen, timer)
-    flash_rows = phase_flash(dev, gen, timer)
-    kv_rows = phase_kvquant(dev, gen, timer)
-    decode_rows = phase_kv_decode(dev, gen, timer)
-    serve = phase_serve(dev, smi)
-    mla = phase_mla(dev, smi)
-    xnor_rows = phase_xnor(dev, gen, timer)
-    phase_xnor_splits(dev, gen, timer)
-    hybrid_rows = phase_hybrid(dev, gen, timer)
-    phase_hybrid_splits(dev, gen, timer)
-    bf16_rows = phase_bf16(dev, gen, timer)
-    phase_bf16_splits(dev, gen, timer)
+    int8_rows = timed("int8", phase_int8, dev, gen, timer)
+    timed("int8_splits", phase_int8_splits, dev, gen, timer)
+    flash_rows = timed("flash", phase_flash, dev, gen, timer)
+    kv_rows = timed("kv_quant", phase_kvquant, dev, gen, timer)
+    decode_rows = timed("kv_decode", phase_kv_decode, dev, gen, timer)
+    serve = timed("serve (spec and interleave inside)", phase_serve, dev, smi)
+    families = timed("families", phase_families, dev, smi)
+    xnor_rows = timed("xnor", phase_xnor, dev, gen, timer)
+    timed("xnor_splits", phase_xnor_splits, dev, gen, timer)
+    hybrid_rows = timed("hybrid_dense", phase_hybrid, dev, gen, timer)
+    timed("hybrid_splits", phase_hybrid_splits, dev, gen, timer)
+    bf16_rows = timed("bf16", phase_bf16, dev, gen, timer)
+    timed("bf16_splits", phase_bf16_splits, dev, gen, timer)
     del timer
-    mnist = phase_mnist(dev, smi)
-    train = phase_train(dev, smi)
+    mnist = timed("mnist", phase_mnist, dev, smi)
+    train = timed("train", phase_train, dev, smi)
+    log("phase_seconds", **PHASE_SECONDS, total=time.perf_counter() - t0)
 
     # launches on every path: the serving paths (bf16, int8, binary, paged
-    # int8 with the prefix cache, int8 sampled), the MLA serving paths, the
-    # speculative paths and the MNIST net, each counted from 0
-    path_launches = [serve["launches"], mnist["launches"], *mla["launches"],
+    # int8 with the prefix cache, int8 sampled), the families phase's paths
+    # (MLA's among them), the speculative paths and the MNIST net, each
+    # counted from 0
+    path_launches = [serve["launches"], mnist["launches"], *families["launches"],
                      *(p["launches"] for p in serve["paths"]),
                      serve["spec"]["plain_sampled"]["launches"],
                      *(p["launches"] for p in serve["spec"]["paths"]),

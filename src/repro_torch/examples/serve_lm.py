@@ -3,8 +3,7 @@ examples/serve_lm.py).
 
 Mixed-length requests arrive while decode is running; finished requests are
 evicted and queued ones prefilled into the freed slots between decode steps.
-repro's example serves the qwen3-8b smoke config, whose qk-norm attention
-the port takes with ROADMAP A8; this one serves stablelm-3b's.
+It serves the qwen3-8b smoke config (qk-norm GQA), as repro's example does.
 
     PYTHONPATH=src python -m repro_torch.examples.serve_lm [--device cpu]
 
@@ -29,7 +28,7 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--interleave", action="store_true")
     args = ap.parse_args(argv)
-    cfg = smoke_config("stablelm-3b")
+    cfg = smoke_config("qwen3-8b")
     api = get_model(cfg)
     params = api.init(0, device=args.device)
     eng = ServeEngine(api, params, max_batch=8, max_len=128, temperature=0.0,

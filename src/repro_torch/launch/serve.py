@@ -5,7 +5,11 @@ baseline), or serve it over HTTP.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b \\
       --requests 12 --prompt-lens 16,48,100,128 --max-new 16
 
-``--smoke`` takes the arch's small config; ``--device cpu`` runs on the CPU
+``--arch`` takes every arch the port builds but whisper-base and
+llama-3.2-vision-11b, which need audio frames or image patches: the
+launcher refuses them with repro's message (drive them through
+``get_model(cfg).prefill`` / ``.decode``). ``--smoke`` takes the arch's
+small config; ``--device cpu`` runs on the CPU
 (the CUDA kernels then run their plain versions). Without ``--device`` it
 runs on the card, and fails where there is none. ``--kv-cache`` picks the
 pool's codec (bf16, int8, binary), ``--kv-block-size`` the paged pool and
@@ -199,6 +203,9 @@ def main(argv=None):
                                   "(ROADMAP A9)")
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family in ("whisper", "vlm"):
+        ap.error(f"--arch {args.arch}: {cfg.family} needs audio/image inputs; this "
+                 "text-only launcher cannot serve it")
     api = get_model(cfg)
     params = api.init(args.init_seed, device=args.device, packed=not args.ckpt_dir)
     if args.ckpt_dir:

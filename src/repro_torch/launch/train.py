@@ -44,7 +44,10 @@ log = logging.getLogger("repro_torch.train")
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default=ARCHS[0],
-                    help=f"one of {ARCHS}; the JAX package's other archs are ROADMAP A8")
+                    help=f"one of {ARCHS} (whisper-base and llama-3.2-vision-11b "
+                         "need frames / patches, which the synthetic stream does not "
+                         "give, as in repro); the JAX package's other archs are ROADMAP "
+                         "A8 part 3")
     ap.add_argument("--smoke", action="store_true", help="reduced config (CPU-sized)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)

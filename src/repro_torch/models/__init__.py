@@ -16,6 +16,7 @@
     h_last, caches = api.prefill_slice(params, caches, tokens, h_last, seq_lens, pos)
     logits, caches = api.prefill_slice_finish(params, caches, h_last, seq_lens)
     loss, metrics = api.loss(params, batch)      # batch: tokens, labels (B, S)
+                                                 # (+ frames / patches)
     dparams = api.init_deployed(seed, device=)   # latents dropped (models/deploy.py)
 
 ``api.init(seed, device=, packed=True)`` adds each binary dense's packed
@@ -23,11 +24,20 @@ serving copy; the trainer asks for latent-only params (``packed=False``),
 which ``loss`` differentiates (its binary FFNs read the latents).
 
 The port trains and serves ``family="dense"`` and ``"moe"``, with GQA or
-MLA attention. An MLA model's hooks that need a paged or multi-token GQA
-cache (``init_paged_cache``, ``prefill_ctx``, ``verify``,
-``prefill_chunked``, ``prefill_slice*``) are None, as in repro, and the
-serving engine refuses those options with repro's errors. The other
-families raise NotImplementedError (ROADMAP A8).
+MLA attention (and DeepSeek-V3's MTP head in the loss). An MLA model's
+hooks that need a paged or multi-token GQA cache (``init_paged_cache``,
+``prefill_ctx``, ``verify``, ``prefill_chunked``, ``prefill_slice*``) are
+None, as in repro, and the serving engine refuses those options with
+repro's errors.
+
+``family="whisper"`` (models/whisper.py) and ``"vlm"``
+(models/llama_vision.py) take their frames or patches in the batch
+(``api.prefill(params, {"tokens", "frames" | "patches"})``) and have only
+prefill, decode, init_cache and loss, as in repro: no slot-indexed insert
+(the serving engine refuses them), no paged pool, no verify, no slices.
+whisper keeps its own bf16 caches and refuses another ``kv_cache``, with
+repro's error. ``mamba2_hybrid`` and ``rwkv6`` raise NotImplementedError
+(ROADMAP A8 part 3).
 """
 
 from __future__ import annotations
@@ -43,13 +53,15 @@ class ModelApi(NamedTuple):
     prefill: Callable
     decode: Callable
     init_cache: Callable
-    cache_insert: Callable
+    # the slot-indexed cache insert of the continuous-batching engine; None
+    # for whisper and vlm, whose caches are not a slot pool
+    cache_insert: Callable | None = None
     # the paged pool's seams (radix prefix cache): init_paged_cache(n_blocks,
     # block_size, max_batch, n_pages, device=) and prefill_ctx(params, batch,
     # ctx, ctx_lens, max_len=, seq_lens=), a suffix prefill that attends to
     # a cached prefix gathered from the pool; None for MLA (not paged)
-    init_paged_cache: Callable | None
-    prefill_ctx: Callable | None
+    init_paged_cache: Callable | None = None
+    prefill_ctx: Callable | None = None
     # the speculative-decoding verify step: verify(params, caches, tokens
     # (B, S)) scores S tokens in one pass, their K/V appended to the caches;
     # None for a model whose cache decodes one token at a time (MLA)
@@ -79,13 +91,40 @@ class ModelApi(NamedTuple):
 def get_model(cfg: ModelConfig) -> ModelApi:
     from repro_torch.kernels.ops import resolve_impl
     from repro_torch.nn.attention import resolve_kv_cache
-    resolve_kv_cache(cfg.kv_cache)
+    if resolve_kv_cache(cfg.kv_cache) != "bf16" and cfg.family in ("whisper", "rwkv6"):
+        # whisper builds its own bf16 decoder / cross caches and rwkv6 keeps
+        # recurrent state, not a KV pool: repro refuses a codec it would ignore
+        raise ValueError(
+            f"family {cfg.family!r} has no codec-backed KV pool; "
+            f"kv_cache={cfg.kv_cache!r} is only supported for "
+            "dense/moe/vlm/mamba2_hybrid (leave it 'auto')")
     if cfg.policy.binary_ffn:
         resolve_impl(cfg.policy.binary_mode)
+    if cfg.family == "vlm":
+        from repro_torch.models import llama_vision as v
+        return ModelApi(
+            cfg=cfg,
+            init=lambda seed, device="cuda", packed=True: v.vlm_init(cfg, seed, device=device,
+                                                                     packed=packed),
+            prefill=lambda p, b, **kw: v.vlm_prefill(p, cfg, b["tokens"], b["patches"], **kw),
+            decode=lambda p, c, tok: v.vlm_decode(p, cfg, c, tok),
+            init_cache=lambda bs, ml, device: v.vlm_init_cache(cfg, bs, ml, device=device),
+            loss=lambda p, b: v.vlm_loss(p, cfg, b))
+    if cfg.family == "whisper":
+        from repro_torch.models import whisper as w
+        return ModelApi(
+            cfg=cfg,
+            init=lambda seed, device="cuda", packed=True: w.whisper_init(
+                cfg, seed, device=device, packed=packed),
+            prefill=lambda p, b, **kw: w.whisper_prefill(p, cfg, b["tokens"], b["frames"],
+                                                         **kw),
+            decode=lambda p, c, tok: w.whisper_decode(p, cfg, c, tok),
+            init_cache=lambda bs, ml, device: w.whisper_init_cache(cfg, bs, ml, device=device),
+            loss=lambda p, b: w.whisper_loss(p, cfg, b))
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is ROADMAP A8; the port serves dense and MoE "
-            "transformers")
+            f"family {cfg.family!r} is ROADMAP A8 part 3 (the recurrent families); the "
+            "port builds dense, MoE, vlm and whisper models")
     from repro_torch.models import transformer as t
     gqa = not cfg.use_mla     # MLA's compressed cache is neither paged nor multi-token
 

@@ -5,7 +5,11 @@ already a numpy array (``jax.tree.map(np.asarray, params)`` on the caller's
 side: this package imports no jax) and returns the port's params:
 
   * each stacked ``blocks/seg{i}`` leaf (leading layer axis) is split into
-    the port's per-layer dicts, following ``build_segments``;
+    the port's per-layer dicts, following ``build_segments``; so are
+    whisper's ``dec_blocks/seg{i}`` (following its ``_dec_segments``) and
+    its ``enc_blocks``, and a VLM's ``cross`` (one stack each, over every
+    layer); every other key (an MTP head's ``mtp`` among them) is one
+    unstacked tree and comes across whole;
   * bf16 arrays (numpy's ml_dtypes bfloat16) are reinterpreted bit for bit;
   * each binary dense gets its packed sign words (``w_packed``) from its
     latent weight, as the port's own init does; with ``packed=False`` it
@@ -36,7 +40,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.binary_dense import pack_tree
 from repro_torch.device import resolve_device
 from repro_torch.models import lm_common as lc
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -50,18 +54,38 @@ def _tensor(a, device) -> torch.Tensor:
     return t.to(device)
 
 
+def _unstack(stack, count: int, device) -> list:
+    """A stacked tree (every leaf with a leading axis of ``count`` layers)
+    -> ``count`` per-layer trees."""
+    for leaf in tree_leaves(stack):
+        if np.shape(leaf)[0] != count:
+            raise ValueError(f"a stacked leaf of shape {np.shape(leaf)} does not hold "
+                             f"{count} layers")
+    return [tree_map(lambda a, i=i: _tensor(a[i], device), stack) for i in range(count)]
+
+
 def params_from_jax(tree: dict, cfg: ModelConfig, *, device="cuda",
                     packed: bool = True) -> dict:
     device = resolve_device(device)
-    out = {k: tree_map(lambda a: _tensor(a, device), v)
-           for k, v in tree.items() if k != "blocks"}
-    blocks = []
-    for si, (sig, start, count) in enumerate(lc.build_segments(cfg)):
-        seg = tree["blocks"][f"seg{si}"]
-        for i in range(count):
-            blocks.append(tree_map(lambda a, i=i: _tensor(a[i], device), seg))
-    out["blocks"] = pack_tree(blocks) if packed else blocks
-    return out
+    out = {}
+    for k, v in tree.items():
+        if k == "blocks":
+            counts = [count for _, _, count in lc.build_segments(cfg)]
+        elif k == "dec_blocks":
+            from repro_torch.models.whisper import _dec_segments
+            counts = [count for _, count, _ in _dec_segments(cfg)]
+        elif k in ("enc_blocks", "cross"):
+            out[k] = _unstack(v, cfg.enc_layers if k == "enc_blocks"
+                              else cfg.n_layers // cfg.cross_every, device)
+            continue
+        else:
+            out[k] = tree_map(lambda a: _tensor(a, device), v)
+            continue
+        if len(v) != len(counts):
+            raise ValueError(f"{k}: {len(v)} stacked segments, the config has {len(counts)}")
+        out[k] = [blk for si, count in enumerate(counts)
+                  for blk in _unstack(v[f"seg{si}"], count, device)]
+    return pack_tree(out) if packed else out
 
 
 def caches_from_jax(tree: dict, cfg: ModelConfig, *, device="cuda") -> list:

@@ -1,9 +1,10 @@
 """Decoder LM for the dense and MoE archs, GQA or MLA (port of
-repro/models/transformer.py: the training loss, and serving's init,
-prefill, chunked and interleaved (sliced) prefill, suffix prefill against a
-cached prefix, decode, the speculative verify, contiguous and paged caches;
-MLA models take the prefill, decode and contiguous caches only, as in
-repro)."""
+repro/models/transformer.py: the training loss with DeepSeek-V3's
+multi-token prediction head, and serving's init, prefill, chunked and
+interleaved (sliced) prefill, suffix prefill against a cached prefix,
+decode, the speculative verify, contiguous and paged caches; MLA models
+take the prefill, decode and contiguous caches only, as in repro). Serving
+ignores the MTP head, as repro's does."""
 
 from __future__ import annotations
 
@@ -22,8 +23,6 @@ def lm_init(cfg: ModelConfig, seed: int, *, device="cuda", packed: bool = True) 
     dense's serving copy of its sign words; the trainer asks for latents
     only (packed=False)."""
     device = resolve_device(device)
-    if cfg.use_mtp:
-        raise NotImplementedError("multi-token prediction heads are ROADMAP A8")
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     kw = dict(generator=gen, device=device)
@@ -34,7 +33,16 @@ def lm_init(cfg: ModelConfig, seed: int, *, device="cuda", packed: bool = True) 
          "ln_f": nn.rmsnorm_init(cfg.d_model, device=device)}
     if not cfg.tie_embeddings:
         p["head"] = nn.dense_init(cfg.d_model, vp, dtype=lc.pdt(cfg), **kw)
+    if cfg.use_mtp:
+        p["mtp"] = {"proj": nn.dense_init(2 * cfg.d_model, cfg.d_model, dtype=lc.pdt(cfg), **kw),
+                    "block": lc.block_init(cfg, _mtp_sig(cfg), packed=packed, **kw),
+                    "ln": nn.rmsnorm_init(cfg.d_model, device=device)}
     return p
+
+
+def _mtp_sig(cfg: ModelConfig) -> lc.BlockSig:
+    """The MTP head's block: the model's attention, a float dense FFN."""
+    return lc.BlockSig("mla" if cfg.use_mla else "gqa", "float", False)
 
 
 def _logits(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -52,19 +60,35 @@ def _embed(p: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
 
 def lm_loss(params: dict, cfg: ModelConfig, batch: dict):
     """The training loss (repro/models/transformer.py:87-112) -> (loss,
-    {"ce", "aux", "loss"}): mean token cross-entropy with z-loss plus 0.01
-    x the blocks' aux loss, over ``batch`` {"tokens", "labels"} (B, S).
-    Binary FFNs read their latents (the STE); attention runs the flash
-    kernel on the card, differentiable through its recompute."""
-    if cfg.use_mtp:
-        raise NotImplementedError("multi-token prediction heads are ROADMAP A8")
+    {"ce", "aux", "loss"}, and "mtp_ce" with an MTP head): mean token
+    cross-entropy with z-loss plus 0.01 x the blocks' aux loss, over
+    ``batch`` {"tokens", "labels"} (B, S). Binary FFNs read their latents
+    (the STE); attention runs the flash kernel on the card, differentiable
+    through its recompute.
+
+    DeepSeek-V3's MTP head (``cfg.use_mtp``) predicts token t + 2 from the
+    final hidden state at t, normed, beside the embedding of token t + 1
+    (the label at t): proj(2d -> d), one float block, the shared head; its
+    cross-entropy over labels[:, 1:] against its logits[:, :-1] adds 0.3 x
+    to the loss."""
     tokens, labels = batch["tokens"], batch["labels"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = _embed(params, cfg, tokens)
     h, aux = lc.segments_apply(params["blocks"], x, cfg, positions=positions)
     ce = lc.softmax_xent(_logits(params, cfg, h), labels)
     loss = ce + 0.01 * aux
-    return loss, {"ce": ce, "aux": aux, "loss": loss}
+    metrics = {"ce": ce, "aux": aux}
+    if cfg.use_mtp:
+        mtp = params["mtp"]
+        hcat = torch.cat([nn.rmsnorm_apply(mtp["ln"], h), _embed(params, cfg, labels)],
+                         dim=-1)
+        h2 = nn.dense_apply(mtp["proj"], hcat, compute_dtype=lc.cdt(cfg))
+        h2, _ = lc.block_apply(mtp["block"], h2, cfg, _mtp_sig(cfg), positions=positions)
+        ce2 = lc.softmax_xent(_logits(params, cfg, h2)[:, :-1], labels[:, 1:])
+        loss = loss + 0.3 * ce2
+        metrics["mtp_ce"] = ce2
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def lm_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,

@@ -1,5 +1,5 @@
-"""Attention and the bf16 KV cache (port of repro/nn/attention.py: GQA and
-MLA).
+"""Attention and the bf16 KV cache (port of repro/nn/attention.py: GQA,
+MLA and cross-attention).
 
 Every model calls one entrypoint per shape family, and the lowering is
 resolved per call (``resolve_attn_impl``):
@@ -7,6 +7,9 @@ resolved per call (``resolve_attn_impl``):
   prefill_attention   full-sequence self attention, causal by default,
                       optional kv_len for right-padded batches
   decode_attention    single-query attend over a preallocated cache
+  cross_attention     non-causal attention over a context (whisper's
+                      encoder self-attention and cross-attention,
+                      llama-vision's gated cross blocks), optional kv_len
   prefix_prefill_attention
                       suffix prefill against a cached prefix (the radix
                       prefix cache's admissions; no kernel, as in repro)
@@ -22,8 +25,8 @@ Backends:
             query chunks (chunked_causal_attention) for long causal prefill
   "flash"   kernels/flash_attention.flash_attention: the CUDA kernel for
             CUDA tensors, its plain blockwise version for CPU tensors
-  "auto"    prefill: flash for a CUDA tensor and ref on the CPU, as repro
-            picks its Pallas kernel off CPU and xla_ref on it; decode: ref
+  "auto"    prefill and cross: flash for a CUDA tensor and ref on the CPU,
+            as repro picks its Pallas kernel off CPU and xla_ref on it; decode: ref
             everywhere (one query against a cache has no score blowup, and
             repro has no decode kernel)
 
@@ -38,6 +41,7 @@ import math
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.kv_quant import write_span
 
 NEG_INF = -1e9   # finite, as in repro: a fully masked row stays finite
 
@@ -56,7 +60,7 @@ def resolve_kv_cache(impl: str = "auto") -> str:
 
 def resolve_attn_impl(impl: str = "auto", *, family: str = "prefill",
                       device: torch.device) -> str:
-    """family in {prefill, decode} -> concrete impl for this call."""
+    """family in {prefill, decode, cross} -> concrete impl for this call."""
     if impl not in ATTN_IMPLS:
         raise ValueError(f"unknown attn impl {impl!r}; known: {ATTN_IMPLS}")
     if impl != "auto":
@@ -131,6 +135,14 @@ def decode_attention(q, k, v, *, kv_len, scale: float | None = None,
     if impl == "ref":
         return dot_attention(q, k, v, causal=False, kv_len=kv_len, scale=scale)
     return flash_attention(q, k, v, causal=False, kv_len=kv_len, scale=scale)
+
+
+def cross_attention(q, k, v, *, kv_len=None, impl: str = "auto"):
+    """Full (non-causal) attention of q (B, S, Hq, D) over a context k, v
+    (B, T, Hkv, D), S and T free; kv_len (B,) masks context past each row's
+    length."""
+    impl = resolve_attn_impl(impl, family="cross", device=q.device)
+    return prefill_attention(q, k, v, causal=False, kv_len=kv_len, impl=impl)
 
 
 def prefix_prefill_attention(q, k_ctx, v_ctx, ctx_len, k, v, *, kv_len=None,
@@ -210,3 +222,12 @@ def init_kv_cache(batch: int, max_len: int, n_kv: int, head_dim: int,
     return {"k": torch.zeros((batch, max_len, n_kv, head_dim), dtype=dtype, device=device),
             "v": torch.zeros((batch, max_len, n_kv, head_dim), dtype=dtype, device=device),
             "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def cache_update_decode(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor) -> dict:
+    """Insert one token per sequence, k_new / v_new (B, 1, Hkv, D), at
+    position cache["len"] and advance ``len`` by one, all in place (repro
+    returns a new cache; the port's caches are written where they lie)."""
+    write_span(cache, {"k": k_new, "v": v_new}, cache["len"])
+    cache["len"].add_(1)
+    return cache

@@ -85,6 +85,22 @@ def rmsnorm_apply(p: dict, x: torch.Tensor, *, eps: float = 1e-6):
     return y.to(x.dtype)
 
 
+def layernorm_init(dim: int, *, device, dtype=torch.float32) -> dict:
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device),
+            "bias": torch.zeros((dim,), dtype=dtype, device=device)}
+
+
+def layernorm_apply(p: dict, x: torch.Tensor, *, eps: float = 1e-5):
+    """In f32 inside (the population variance, as jnp.var), back to x's
+    dtype; eps 1e-5, not rmsnorm's 1e-6."""
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * p["scale"].to(torch.float32) + p["bias"].to(torch.float32)
+    return y.to(x.dtype)
+
+
 def batchnorm_init(dim: int, *, device, dtype=torch.float32) -> dict:
     """BatchNorm1d as in the paper's MLP (running stats for inference)."""
     return {"scale": torch.ones((dim,), dtype=dtype, device=device),
@@ -157,3 +173,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, base: float = 10000.
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(length: int, dim: int, *, device=None) -> torch.Tensor:
+    """(length, dim) f32: sin in the even columns, cos in the odd ones."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32, device=device)
+                    * (-math.log(10000.0) / dim))
+    pe = torch.zeros((length, dim), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe

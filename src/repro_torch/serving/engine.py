@@ -191,6 +191,9 @@ class ServeEngine:
             # model fns close over cfg, so a fresh api is the only seam
             from repro_torch.models import get_model
             api = get_model(api.cfg.replace(**overrides))
+        if api.cache_insert is None:
+            raise ValueError(f"model family {api.cfg.family!r} has no slot-indexed cache "
+                             "insert; use repro_torch.serving.bucket.BucketEngine instead")
         if prefix_cache and not kv_block_size:
             raise ValueError("prefix_cache requires kv_block_size > 0 "
                              "(the radix cache shares paged blocks)")

@@ -23,7 +23,9 @@ from repro_torch.tree import tree_leaves_with_path, tree_map, tree_unflatten_lik
 def loss_and_grads(api, params, batch: dict):
     """-> (loss, metrics, grads): the gradient of ``api.loss`` for every
     leaf of ``params``, in the leaf's dtype, as jax.value_and_grad gives
-    it; loss and metrics detached."""
+    it (zeros for a leaf the loss does not reach differentiably, such as a
+    sigmoid router's bias, which only picks the experts); loss and metrics
+    detached."""
     leaves = tree_leaves_with_path(params)
     fixed = [path for path, t in leaves if not t.is_floating_point()]
     if fixed:
@@ -33,9 +35,10 @@ def loss_and_grads(api, params, batch: dict):
     live = [t.detach().requires_grad_() for _, t in leaves]
     with torch.enable_grad():
         loss, metrics = api.loss(tree_unflatten_like(params, live), batch)
-        grads = torch.autograd.grad(loss, live)
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g for t, g in zip(live, grads)]
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
-            tree_unflatten_like(params, list(grads)))
+            tree_unflatten_like(params, grads))
 
 
 def accumulated_loss_and_grads(api, params, batch: dict, grad_accum: int = 1):

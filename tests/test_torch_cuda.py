@@ -14,7 +14,10 @@ sum once each, then take the sign); the bf16 GEMM matches its plain version
 within tests/test_kernels.py's 2e-2 (f32 sums in another order). Flash
 attention matches the plain version within tests/test_attention.py's TOLS:
 2e-5 in f32 (the online softmax sums in another order) and 3e-2 in bf16
-(the kernel also rounds p to bf16 before p @ v, as the TPU kernel does).
+(the kernel also rounds p to bf16 before p @ v, as the TPU kernel does);
+at the non-causal cross shapes, whose outputs over ~1500 keys are ~0.04,
+bf16 is also held to 2^-6 of each batch row's largest |output|, and with v
+constant along the keys every output must be that constant within 1 ulp.
 The model checks run f32 on both devices; their only differences come
 before sign() and are ~1e-6, so 1e-4 holds unless a value sits that close
 to 0. A train step's gradients differ by ~2e-6 of a leaf's max-abs, its
@@ -1299,3 +1302,197 @@ def test_telemetry_on_off_same_launches_on_card(dev, kw):
     assert runs[0] == runs[1]
     assert runs[1][2] == runs[1][3]["decode_steps"] > 0
     assert tm.prefill_slice_s.count == runs[1][3]["prefill_slices"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the attention families: qwen3 (qk-norm), qwen2 (QKV bias), deepseek-v3
+# (MTP), whisper (layer norm, cross-attention) and the VLM
+# ---------------------------------------------------------------------------
+
+# (B, S, T, Hq, Hkv, D, kv_len): non-causal, S != T, T not a multiple of the
+# 64-key tile: whisper's encoder (S = T) and cross-attention (prefill S 32,
+# decode S 1) at head dim 64, the VLM's cross-attention at GQA 32 / 8, head
+# dim 128, over 1601 patches
+FLASH_CROSS_CASES = [
+    (2, 150, 150, 8, 8, 64, None),
+    (2, 32, 1500, 8, 8, 64, None),
+    (2, 1, 1500, 8, 8, 64, [1500, 77]),
+    (2, 128, 1601, 32, 8, 128, None),
+    (2, 1, 1601, 32, 8, 128, [1601, 1]),
+]
+
+
+# bf16 over T ~1500 keys: an output's std is ~0.04, so each batch row is
+# also held to 2^-6 of its own largest |output| (2 to 4 bf16 ulps of it;
+# the kernel reads 1), as chip_smoke.py's flash_err does
+BF16_REL = 2.0 ** -6
+# v constant along the keys: every output is that constant, within 1 bf16
+# ulp (or f32's bar); an unmasked key of the last tile's zero-filled tail
+# pulls it towards 0 by ~1.4% (T 1500) or ~2.3% (T 1601)
+CONST_V_REL = {"float32": 2e-5, "bfloat16": 2.0 ** -7}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,t,hq,hkv,d,kv_len", FLASH_CROSS_CASES)
+def test_flash_kernel_non_causal_cross_shapes(dev, dtype, b, s, t, hq, hkv, d, kv_len):
+    gen = _gen(dev, s + t + d)
+    q, k, v = (torch.randn(b, n, h, d, generator=gen, device=dev).to(getattr(torch, dtype))
+               for n, h in ((s, hq), (t, hkv), (t, hkv)))
+    kvl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=False, kv_len=kvl)
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=False, kv_len=kvl)
+    torch.cuda.synchronize()
+    assert got.dtype == v.dtype and got.shape == (b, s, hq, d)
+    err = (got.float() - want.float()).abs().flatten(1).amax(1)
+    bar = torch.full_like(err, TOLS[dtype])
+    if dtype == "bfloat16":
+        bar = torch.minimum(bar, BF16_REL * want.float().abs().flatten(1).amax(1))
+    assert bool((err <= bar).all()), (err.tolist(), bar.tolist())
+    # v constant along the keys: each output is its kv head's constant
+    vc = v[:, :1].expand_as(v).contiguous()
+    got = flash_attention(q, k, vc, causal=False, kv_len=kvl).float()
+    want = vc[:, :1].float().repeat_interleave(hq // hkv, dim=2).expand_as(got)
+    rel = float(((got - want) / want).abs().max())
+    assert rel <= CONST_V_REL[dtype], rel
+
+
+# (M, K, N): qwen2-72b's binary FFN, bin_in K 8192 -> 29568 and bin_out
+# K 29568 = 32 x 924 (not a multiple of 256) -> 8192, at decode and prefill M
+@pytest.mark.parametrize("m,k,n", [(8, 29568, 8192), (300, 29568, 8192), (8, 8192, 29568)])
+def test_int8_kernel_exact_at_qwen2_widths(dev, m, k, n):
+    g = _gen(dev, m + k + n)
+    a = pack_signs_int8(torch.randn(m, k, generator=g, device=dev))
+    pw = pack_bits(torch.randn(n, k, generator=g, device=dev))
+    got = int8_matmul(a, pw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, int8_matmul_plain(a, pw))
+
+
+def _family_cfg(arch):
+    kw = dict(compute_dtype="float32", param_dtype="float32")
+    if arch.startswith("deepseek"):
+        kw["capacity_factor"] = 16.0
+    return smoke_config(arch).replace(**kw)
+
+
+def _family_batch(cfg, dev, s=16):
+    rng = np.random.default_rng(0)
+    b = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (3, s)).astype(np.int64))}
+    if cfg.family == "whisper":
+        b["frames"] = torch.from_numpy(
+            rng.standard_normal((3, cfg.n_audio_frames, cfg.d_model)).astype(np.float32))
+    if cfg.family == "vlm":
+        b["patches"] = torch.from_numpy(
+            rng.standard_normal((3, cfg.n_patches, cfg.d_model)).astype(np.float32))
+    return b, _to(b, dev)
+
+
+def _open_gates(params):
+    """The VLM's cross gates start at 0 (tanh 0 = 0): open them, so that
+    the cross blocks reach the logits."""
+    for i, blk in enumerate(params.get("cross", [])):
+        blk["gate_attn"].fill_(0.8 - 0.3 * i)
+        blk["gate_ffn"].fill_(0.5)
+    return params
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "qwen2-72b", "deepseek-v3-671b", "whisper-base",
+                                  "llama-3.2-vision-11b"])
+def test_family_smoke_model_on_card_matches_cpu(dev, arch):
+    """Each new family's smoke model (f32; deepseek at capacity_factor 16)
+    prefilled and decoded one step on the card against the CPU, logits
+    within 1e-4 of their max-abs; B3 once a causal layer and once a
+    non-causal attention in the prefill (whisper: encoder, decoder, cross;
+    the VLM: self, cross), and once a cross-attention in the decode."""
+    cfg = _family_cfg(arch)
+    api = get_model(cfg)
+    params = _open_gates(api.init(0, device="cpu"))
+    params_dev = _to(params, dev)
+    batch, batch_dev = _family_batch(cfg, dev)
+    n_cross = cfg.n_layers // cfg.cross_every if cfg.family == "vlm" else 0
+    f0 = flash_attention.launches
+    got, caches = api.prefill(params_dev, batch_dev, max_len=24)
+    if cfg.family == "whisper":
+        assert flash_attention.launches - f0 == cfg.enc_layers + 2 * cfg.n_layers
+    else:
+        assert flash_attention.launches - f0 == cfg.n_layers + n_cross
+    want, want_caches = api.prefill(params, batch, max_len=24)
+    tol = 1e-4 * float(want.abs().max())
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=tol)
+    nxt = want.argmax(-1)[:, None]
+    f0 = flash_attention.launches
+    got, _ = api.decode(params_dev, caches, nxt.to(dev))
+    assert flash_attention.launches - f0 == (cfg.n_layers if cfg.family == "whisper"
+                                             else n_cross)
+    want, _ = api.decode(params, want_caches, nxt)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4 * float(want.abs().max()))
+
+
+def test_mtp_train_step_on_card_matches_cpu(dev):
+    """One train step of deepseek-v3's smoke model (f32, capacity_factor 16,
+    the MTP head on, remat "block") on the card against the same step on the
+    CPU: the loss and mtp_ce within 2e-2, every gradient leaf within 1e-4
+    and every updated param within 1e-3 of the leaf's max-abs; B3 once a
+    block in the forward, again in remat's recompute, and once for the MTP
+    head's block (not rematerialized, as in repro); no B2 (its binary FFNs
+    are MoE experts, the batched +-1 products)."""
+    from repro_torch.data.synthetic import SyntheticTokens
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.step import loss_and_grads, make_train_step
+    cfg = _family_cfg("deepseek-v3-671b")
+    assert cfg.use_mtp and cfg.remat == "block"
+    api = get_model(cfg)
+    params = api.init(0, device="cpu", packed=False)
+    batch = {k: torch.from_numpy(v) for k, v in
+             next(SyntheticTokens(cfg.vocab, 32, 4, seed=0)).items()}
+    step = make_train_step(api, cfg, peak_lr=1e-3, warmup=1, total=10)
+    before = {w.__name__: w.launches for w in GRAPH_COUNTED}
+    p_dev, _, m_dev = step(_to(params, dev), adamw_init(_to(params, dev)), _to(batch, dev))
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches - before[w.__name__] for w in GRAPH_COUNTED}
+    assert launches == {**{k: 0 for k in launches}, "flash_attention": 2 * cfg.n_layers + 1}
+    p_cpu, _, m_cpu = step(params, adamw_init(params), batch)
+    for key in ("loss", "mtp_ce"):
+        assert abs(float(m_dev[key]) - float(m_cpu[key])) <= 2e-2, key
+    _, _, g_dev = loss_and_grads(api, _to(params, dev), _to(batch, dev))
+    _, _, g_cpu = loss_and_grads(api, params, batch)
+    assert float(g_cpu["mtp"]["proj"]["w"].abs().max()) > 0
+    for what, errs in (("grad", _leaf_errs(g_dev, g_cpu)), ("param", _leaf_errs(p_dev, p_cpu))):
+        worst = max(errs, key=errs.get)
+        assert errs[worst] <= TRAIN_TOL[what], f"{what} {worst}: {errs[worst]}"
+
+
+def test_qk_norm_spec_g4_binary_pool_replay_equals_eager(dev):
+    """qwen3's smoke model at 8 query heads over 2 kv heads (G 4), served on
+    the binary pool with spec_k=3, each wave eager and replayed from its
+    CUDA graph: the same tokens and stats, and, a wave, kv_decode once a
+    layer for each of the k draft steps and twice for the verify, whose
+    G x (k + 1) = 16 query rows a kv head exceed the kernel's MAX_ROWS."""
+    k = 3
+    cfg = smoke_config("qwen3-8b").replace(n_heads=8, compute_dtype="float32",
+                                           param_dtype="float32")
+    assert cfg.n_heads // cfg.n_kv_heads * (k + 1) > kvd.MAX_ROWS >= cfg.n_heads // cfg.n_kv_heads
+    api = get_model(cfg)
+    params = _to(api.init(0, device="cpu"), dev)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, 4 + 3 * i) for i in range(5)]
+    outs, engs, launches = [], [], []
+    for graphs in (False, True):
+        eng = ServeEngine(api, params, max_batch=2, max_len=64, cuda_graphs=graphs,
+                          kv_cache="binary", spec_k=k)
+        before = {w.__name__: w.launches for w in GRAPH_COUNTED}
+        rids = [eng.add_request(p, max_new=8) for p in prompts]
+        res = eng.run()
+        outs.append([res[r] for r in rids])
+        engs.append(eng)
+        launches.append({w.__name__: w.launches - before[w.__name__] for w in GRAPH_COUNTED})
+    assert outs[1] == outs[0]
+    assert engs[1].stats == engs[0].stats
+    waves = engs[1].stats["spec_waves"]
+    assert engs[1].graph.replays == engs[1].stats["decode_steps"] == waves > 0
+    assert launches[1] == launches[0]
+    assert launches[1]["kv_decode_binary"] == cfg.n_layers * (k + 2) * waves
+    n_float = sum(not cfg.policy.block_is_binary(i, cfg.n_layers) for i in range(cfg.n_layers))
+    assert launches[1]["binary_matmul"] == 3 * n_float * k * waves

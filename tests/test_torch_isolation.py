@@ -68,7 +68,7 @@ def test_port_imports_no_jax_and_refuses_missing_card():
                 "serving.sampling", "serving.graphs", "serving.telemetry", "serving.bucket",
                 "launch.server", "examples.serve_lm", "tree", "optim.adamw", "train.step",
                 "train.checkpoint", "train.fault_tolerance", "launch.train", "models.deploy",
-                "examples.binary_llm"):
+                "examples.binary_llm", "models.whisper", "models.llama_vision"):
         assert "repro_torch." + mod in out["modules"]
     assert out["leaked"] == []
     assert set(out["raised"]) == {"init", "serve", "mlp_init", "quickstart", "train",

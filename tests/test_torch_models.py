@@ -125,11 +125,22 @@ def test_unported_configs_raise():
                                               binary_mode="xnor"))
     assert get_model(xnor).cfg.policy.binary_mode == "xnor"
     # MLA is ported: an MLA LM builds, with the hooks an MLA cache cannot
-    # take left None; the other families still raise
+    # take left None
     mla = get_model(cfg.replace(use_mla=True))
     assert mla.verify is None and mla.init_paged_cache is None
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        get_model(cfg.replace(family="rwkv6"))
+    # the attention families are ported: each builds, full and smoke (the
+    # encoder-decoder and the VLM without the slot pool's hooks, as in
+    # repro); the recurrent families still raise
     from repro_torch.configs import get_config
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        get_config("qwen3-8b")
+    for arch in ("qwen3-8b", "qwen2-72b", "deepseek-v3-671b", "whisper-base",
+                 "llama-3.2-vision-11b"):
+        for c in (get_config(arch), smoke_config(arch)):
+            api = get_model(c)
+            assert (api.cache_insert is None) == (c.family in ("whisper", "vlm"))
+    assert get_model(get_config("deepseek-v3-671b")).cfg.use_mtp
+    for family in ("rwkv6", "mamba2_hybrid"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A8 part 3"):
+            get_model(cfg.replace(family=family))
+    for arch in ("zamba2-2.7b", "rwkv6-3b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A8 part 3"):
+            get_config(arch)

@@ -8,9 +8,10 @@ run, in the order before, after, after, before. Each imports
 ``repro_torch`` from its checkout's ``src`` (which builds that checkout's
 ``flash_attention.cu`` into the checkout's own ``build/``) and, at each of
 chip_smoke.py's flash cases (``ALL_FLASH_CASES``: D = Dv and MLA's
-D != Dv, bf16 and f32) with inputs from its seed, holds the public wrapper
-``flash_attention`` against ``flash_attention_plain`` within chip_smoke.py's
-tolerance for the dtype and times it with chip_smoke.py's
+D != Dv, causal and non-causal, bf16 and f32) with inputs from its seed,
+holds the public wrapper ``flash_attention`` against
+``flash_attention_plain`` within chip_smoke.py's bar (``flash_err``) and
+times it with chip_smoke.py's
 timer (CUDA events, L2 flushed). It prints the card's name and power
 limit, then one JSON line a case: each checkout's two times and their
 mean. The turns are run as in tools/hybrid_dense_turns.py.
@@ -40,15 +41,15 @@ def one_turn(tree: Path) -> dict[str, float]:
     gen.manual_seed(cs.SEED)
     timer = cs.Timer(dev)
     times = {}
-    for name, b, s, t, hq, hkv, d, dv, off, kvl, dt in cs.ALL_FLASH_CASES:
+    for name, b, s, t, hq, hkv, d, dv, off, kvl, dt, causal in cs.ALL_FLASH_CASES:
         q = torch.randn(b, s, hq, d, generator=gen, device=dev).to(dt)
         k = torch.randn(b, t, hkv, d, generator=gen, device=dev).to(dt)
         v = torch.randn(b, t, hkv, dv, generator=gen, device=dev).to(dt)
         kv = None if kvl is None else torch.tensor(kvl, dtype=torch.int32, device=dev)
-        kw = dict(causal=True, kv_len=kv, q_offset=off)
-        err = float((cs.flash_attention(q, k, v, **kw).float()
-                     - cs.flash_attention_plain(q, k, v, **kw).float()).abs().max())
-        if not err <= cs.TOLS[dt]:
+        kw = dict(causal=causal, kv_len=kv, q_offset=off)
+        err, over = cs.flash_err(cs.flash_attention(q, k, v, **kw),
+                                 cs.flash_attention_plain(q, k, v, **kw), dt)
+        if not over <= 1.0:
             raise AssertionError(f"{tree}: flash_attention differs from plain at {name}: {err}")
         times[name] = timer(lambda: cs.flash_attention(q, k, v, **kw))
     return times
