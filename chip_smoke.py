@@ -21,7 +21,10 @@ Phases, one output line each (or a few), every failure raising:
      bin_in (6400, 2560) and bin_out (2560, 6400) at decode M = 8 and
      prefill M = 1024; qwen3-8b's bin_in (12288, 4096) at decode, and the
      bin_out of qwen3-8b (4096, 12288), llama-3.2-vision-11b (4096, 14336)
-     and qwen2-72b (8192, 29568: K = 32 x 924) at decode and prefill),
+     and qwen2-72b (8192, 29568: K = 32 x 924) at decode and prefill;
+     zamba2-2.7b's in_zx (10240, 2560) and out (2560, 5120) and rwkv6-3b's
+     c_k (8960, 2560) and c_v (2560, 8960: K = 32 x 280) at decode M = 8
+     and prefill M = 1024),
      a ragged case and, with activations over all of [-128, 127], a
      decode and a prefill case, required to be exactly equal; times of the
      kernel, the plain version and one cuBLAS call on unpacked operands
@@ -159,10 +162,11 @@ Phases, one output line each (or a few), every failure raising:
      its peak memory printed. Served through ServeEngine (contiguous pool,
      max_batch 8, max_len 256, the serve phase's 12 requests of 16 new
      tokens), each path with its counts zeroed just before and read just
-     after (the first traced: device events = counts + the warm-up), each
-     replay's counts = its graph's kernel nodes, the pool's bytes exact, a
-     second replayed run and an eager run giving the same tokens, warm
-     tok/s, the busy share, device ms by family: minicpm3-4b (62 layers,
+     after (the first traced, but minicpm3-4b's: device events = counts +
+     the warm-up), each replay's counts = its graph's kernel nodes, the
+     pool's bytes exact, a second replayed run and an eager run giving the
+     same tokens, warm tok/s, the busy share and device ms by family (of
+     the traced runs): minicpm3-4b (62 layers,
      MLA; 58 binary FFNs at K 2560 and 6400) and deepseek-v2-236b cut to 5
      layers (dense block 0, float MoE blocks 1, 3 and 4, the binary MoE
      block 2; 160 experts, top-6, its experts plain torch) on the
@@ -196,6 +200,37 @@ Phases, one output line each (or a few), every failure raising:
      f32; printed beside them: the serving config, the VLM's binary FFNs
      in f32 and its float FFNs in f32 on the int8 pool; ms a decode step,
      tok/s, the busy share;
+  6e. recurrent: zamba2-2.7b (54 Mamba2 blocks, 50 binary: in_zx and out
+     through B2; the shared attention + MLP block, 32 heads of 80, invoked
+     9 times) and rwkv6-3b (32 Finch blocks, 28 binary: c_k and c_v
+     through B2; 40 WKV heads of 64) at full width and full depth, random
+     init from the seed, bf16, each freed before the next loads, served
+     through BucketEngine (max_batch 8, max_len 256; repro gives them no
+     slot engine) on the serve phase's 12 requests of 16 new tokens:
+     zamba2 on a bf16 and an int8 pool, rwkv6 on its state. Each path's
+     first run is counted: launches exactly B2 2 x binary blocks x
+     (prefills + steps), B3 9 x prefills (zamba2), on int8 the insert
+     kernel 9 x (prefills + steps) and kv_decode 9 x steps, 0 of the
+     rest; every cache the engine gets holds exactly the reckoned bytes
+     per row, and init_cache(8, 256) exactly the reckoned bytes (zamba2's state
+     593,436,672, its pool 188,743,680 bf16 / 96,731,136 int8; rwkv6's
+     state 173,015,040); a second run gives the same tokens and the warm
+     tok/s, prefill ms and ms a decode step. The longest prompts' group is
+     served again alone, untraced and traced (CUDA activity only), its
+     launches exact and the trace's kernel events the counts or one fewer.
+     Printed: its busy share and device ms by family, the device ms of the
+     SSD, the conv, one Mamba2 block's decode and the WKV loop (each timed
+     alone at the served shapes), peak memory.
+     Then prefill(S - 1) + decode(1) against prefill(S) in f32 (S 200 for
+     zamba2: two SSD chunks with a ragged tail; S 64 for rwkv6), gated
+     with float denses at 2e-3 of the logits' scale (rwkv6 at bf16's
+     2^-7: its time-mix projections round to bf16 whatever the config
+     says, as repro's), printed with the served binary ones; and each
+     smoke config's loss and grads (f32, 8 x 40) on the card against the
+     CPU: zamba2 (binary blocks kept) within 1e-5 and 1e-4 of each leaf's
+     max-abs; rwkv6 with float denses within 5e-3 and 2^-3 (the grads'
+     own spread under 1e-7 of param noise on the CPU reaches 0.065), its
+     binary config printed beside;
   7. xnor: the XNOR-popcount GEMM against its plain version, exactly, at
      the MNIST net's hidden layers (M = 1, 128, 256, 512; N = K = 1024),
      ragged K (40, 100, 384) and the spec draft's shapes (gate / up 8 x
@@ -248,9 +283,9 @@ Phases, one output line each (or a few), every failure raising:
      falling; every run's launches exact;
  12. a JSON line of the nine kernels and the two kv_decode wrappers:
      launches summed over the paths (B2, B3, B4a-d and kv_decode on the
-     serving and families paths, B2 and B3 on the training paths, B1 on
-     the spec and the MNIST paths, B5 and B6 on none; each serving and spec path's
-     replayed counts held to its graph's kernel nodes, the bf16 and int8
+     serving, families and recurrent paths, B2 and B3 on the training
+     paths, B1 on the spec and the MNIST paths, B5 and B6 on none; each
+     serving and spec path's replayed counts held to its graph's kernel nodes, the bf16 and int8
      paths' and the profiled train step's to the device's kernel events
      of the same run), largest error, times and bounds;
 
@@ -294,10 +329,11 @@ from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_plain  # no
 from repro_torch.kernels.ksplit import splits_for  # noqa: E402
 from repro_torch.kernels import kv_decode as kvd  # noqa: E402
 from repro_torch.kernels import kv_quant as kvq  # noqa: E402
-from repro_torch.models import get_model, lm_common as lc  # noqa: E402
+from repro_torch.models import get_model, lm_common as lc, mamba2, rwkv6  # noqa: E402
 from repro_torch.nn import attention as attn_lib  # noqa: E402
 from repro_torch.nn.layers import embedding_lookup, rmsnorm_apply  # noqa: E402
 from repro_torch.serving import kvcache as kvc  # noqa: E402
+from repro_torch.serving.bucket import BucketEngine  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 
@@ -458,6 +494,18 @@ INT8_CASES = [  # (name, M, N, K)
     ("vlm prefill bin_out", 1024, 4096, 14336),
     ("qwen2 decode bin_out", 8, 8192, 29568),
     ("qwen2 prefill bin_out", 1024, 8192, 29568),
+    # the recurrent phase's: zamba2-2.7b's in_zx (10240, 2560) and out
+    # (2560, 5120), rwkv6-3b's c_k (8960, 2560) and c_v (2560, 8960: K = 32
+    # x 280, which the TPU kernel's bk rule refuses), at decode M 8 and
+    # prefill M 8 x 128
+    ("zamba2 decode in_zx", 8, 10240, 2560),
+    ("zamba2 decode out", 8, 2560, 5120),
+    ("rwkv6 decode c_k", 8, 8960, 2560),
+    ("rwkv6 decode c_v", 8, 2560, 8960),
+    ("zamba2 prefill in_zx", 1024, 10240, 2560),
+    ("zamba2 prefill out", 1024, 2560, 5120),
+    ("rwkv6 prefill c_k", 1024, 8960, 2560),
+    ("rwkv6 prefill c_v", 1024, 2560, 8960),
 ]
 # activations drawn from all of [-128, 127]: the kernel is exact for any
 # int8, and so are the plain f32 version and the yardsticks (|sum| < 2**24)
@@ -1710,6 +1758,10 @@ SERVED_FAMILIES = [
     ("qwen2-72b", dict(n_layers=5), [("int8", dict(kv_cache="int8"))], {"int8": 21_299_200}),
     ("deepseek-v3-671b", dict(n_layers=4), [("bf16", {})], {"bf16": 9_437_184}),
 ]
+# served but not traced: minicpm3-4b's MLA path is traced on
+# deepseek-v2-236b, and its own trace (62 layers of eager prefill waves)
+# cost ~80 s of the script's time limit (PERF.md section 7)
+UNTRACED = {"minicpm3-4b"}
 ENCDEC_BATCH, WHISPER_PROMPT, VLM_PROMPT, ENCDEC_STEPS = 8, 32, 128, 16
 
 
@@ -1728,10 +1780,11 @@ def _check_cut(arch, sigs) -> None:
 
 def _served_family(arch, cut, paths, kv_bytes, dev, card) -> tuple[list, list]:
     """One model of SERVED_FAMILIES through ServeEngine on each of its paths,
-    the serve phase's 12 requests: counted (the first path traced: device
-    events = counts + the warm-up), each replay's counts = its graph's
-    kernel nodes, exact launches and pool bytes, a second replayed run and
-    an eager run with the same tokens; an MLA model's layer 0 through B3
+    the serve phase's 12 requests: counted (the first path traced, unless
+    the model is UNTRACED: device events = counts + the warm-up), each
+    replay's counts = its graph's kernel nodes, exact launches and pool
+    bytes, a second replayed run and an eager run with the same tokens; an
+    MLA model's layer 0 through B3
     against the plain attention -> (rows, launches of each path)."""
     cfg = get_config(arch).replace(**cut)
     sigs = [lc.block_sig(cfg, i) for i in range(cfg.n_layers)]
@@ -1752,7 +1805,8 @@ def _served_family(arch, cut, paths, kv_bytes, dev, card) -> tuple[list, list]:
         lab = f"{arch} {label}"
         kv = kw.get("kv_cache", "bf16")
         out, wall, eng, launches, prof = _counted_run(lab, api, params, prompts,
-                                                      profiled=i == 0, **kw)
+                                                      profiled=i == 0 and arch not in UNTRACED,
+                                                      **kw)
         _check_outputs(lab, out, cfg.vocab)
         waves = eng.stats["prefills"]
         if kw.get("spec_k"):
@@ -1808,11 +1862,12 @@ def _greedy(api, params, batch: dict, steps: int, max_len: int):
 
 
 def _decode_parity(label, api, params, batch: dict, max_len: int, vocab: int,
-                   gate: bool = True) -> dict:
+                   gate: bool = True, rel: float = 2e-2, floor: float = 5e-2,
+                   argmax: bool = True) -> dict:
     """prefill(S - 1) then decode(1) against prefill(S) at the last position
-    (tests/test_decode_parity.py): within max(2e-2 x scale, 5e-2), the same
-    argmax in every row (``gate``: else only measured); the padded vocab's
-    -1e9 columns left out."""
+    (tests/test_decode_parity.py): within max(rel x scale, floor) and, with
+    ``argmax``, the same argmax in every row (``gate``: else only measured);
+    the padded vocab's -1e9 columns left out."""
     gold, _ = api.prefill(params, batch, max_len=max_len)
     _, caches = api.prefill(params, {**batch, "tokens": batch["tokens"][:, :-1]},
                             max_len=max_len)
@@ -1822,7 +1877,7 @@ def _decode_parity(label, api, params, batch: dict, max_len: int, vocab: int,
     top = torch.topk(gold, 2, dim=-1).values
     gaps = (top[:, 0] - top[:, 1]).tolist()
     same = torch.equal(gold.argmax(-1), got.argmax(-1))
-    if gate and not (err < max(2e-2 * scale, 5e-2) and same):
+    if gate and not (err < max(rel * scale, floor) and (same or not argmax)):
         raise AssertionError(f"{label}: prefill(S-1) + decode(1) vs prefill(S): {err} "
                              f"(scale {scale}), argmax {gold.argmax(-1).tolist()} vs "
                              f"{got.argmax(-1).tolist()}, top-2 gaps {gaps}")
@@ -1974,6 +2029,303 @@ def phase_families(dev, card: str) -> dict:
         r, ls = _encdec(arch, dev, card)
         rows.append(r)
         launches.append(ls)
+    _free(dev)
+    return {"rows": rows, "launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 6e: the recurrent families at full width
+# ---------------------------------------------------------------------------
+
+# (arch, its paths: the shared block's pool codec, or "state"); exact bytes
+# at 8 slots and max_len 256: zamba2's Mamba state (h + conv, f32) 54 x (80
+# x 64 x 64 + 3 x 5,248) x 4 x 8, its shared block's pool 9 invocations x 8
+# x 256 x a token's bytes (bf16 2 x 32 x 80 x 2; int8 2 x 32 x (80 + 2));
+# rwkv6's state (tm_s + tm_x + cm_x, f32) 32 x (40 x 64 x 64 + 2 x 2,560) x
+# 4 x 8
+RECURRENT = [("zamba2-2.7b", ["bf16", "int8"]), ("rwkv6-3b", ["state"])]
+STATE_BYTES = {"zamba2-2.7b": 593_436_672, "rwkv6-3b": 173_015_040}
+POOL_BYTES = {"bf16": 188_743_680, "int8": 96_731_136, "state": 0}
+# decode parity's prompt (zamba2: two SSD chunks of 128 with a ragged tail)
+# and its bar, of the logits' scale, in f32 with float denses. rwkv6's
+# time-mix projections and c_r round to bf16 whatever the config says
+# (models/rwkv6.py, as repro); cuBLAS sums the prefill's (504, 2560) and
+# the decode's (8, 2560) products in other orders, so some round to the
+# next bf16 (2^-8 of themselves), and over 32 blocks the logits move by
+# ~5e-3 of their scale (on the CPU, whose sums per row do not depend on M,
+# the smoke model's parity is exact): rwkv6 is held to bf16's 2^-7
+PARITY_S = {"zamba2-2.7b": 200, "rwkv6-3b": 64}
+PARITY_REL = {"zamba2-2.7b": 2e-3, "rwkv6-3b": 2 ** -7}
+# the smoke loss (absolute) and grads (of each leaf's max-abs), card against
+# CPU: zamba2's (binary blocks kept) as the train phase holds stablelm's.
+# rwkv6's time-mix projections and c_r round to bf16 whatever the config
+# says (models/rwkv6.py, as repro): card and CPU sum them in other orders,
+# and a sum on a rounding edge moves by 2^-8 of itself. On the CPU alone,
+# 1e-7 to 1e-5 of relative noise in every param moves its smoke grads at
+# batch 8 x 40 by up to 0.065 of a leaf's max-abs with float denses, and by
+# ~0.9 with its binary channel-mix, whose signs flip on that noise: it is
+# gated with float denses (the loss within 2^-10 of its ~5.5) and its
+# binary config printed beside
+RECURRENT_TRAIN_TOL = {"zamba2-2.7b": {"loss": 1e-5, "grad": TRAIN_TOL["grad"]},
+                       "rwkv6-3b": {"loss": 5e-3, "grad": 2 ** -3}}
+
+
+def _recurrent_bytes(cfg, caches) -> tuple[int, int]:
+    """(the recurrent state's bytes, the shared block's pool bytes)."""
+    nbytes = lambda tree: sum(t.numel() * t.element_size() for t in tree_leaves(tree))  # noqa: E731
+    if cfg.family == "mamba2_hybrid":
+        return nbytes(caches["mamba"]), kvc.kv_pool_bytes(caches["attn"])
+    return nbytes(caches), 0
+
+
+class _Calls:
+    """``api`` with its prefill and decode counted and timed (each call
+    closed by a synchronize: the bucket engine reads every step's tokens
+    on the host anyway) and the bytes per batch row of the caches each
+    call returns kept."""
+
+    def __init__(self, api):
+        self.n = {"prefill": 0, "decode": 0}
+        self.s = {"prefill": 0.0, "decode": 0.0}
+        self.row_bytes: set = set()
+
+        def wrap(name, fn):
+            def call(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, caches = fn(*args, **kw)
+                torch.cuda.synchronize()
+                self.s[name] += time.perf_counter() - t0
+                self.n[name] += 1
+                self.row_bytes.add(tuple(b // logits.shape[0]
+                                         for b in _recurrent_bytes(api.cfg, caches)))
+                return logits, caches
+            return call
+        self.api = api._replace(prefill=wrap("prefill", api.prefill),
+                                decode=wrap("decode", api.decode))
+
+
+def _bucket_once(api, params, prompts):
+    """The prompts through a fresh BucketEngine (max_batch 8, max_len 256)
+    -> (tokens, wall s, the _Calls)."""
+    calls = _Calls(api)
+    eng = BucketEngine(calls.api, params, max_batch=8, max_len=256)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [eng.add_request(p, max_new=MAX_NEW) for p in prompts]
+    res = eng.run()
+    torch.cuda.synchronize()
+    return [res[r] for r in rids], time.perf_counter() - t0, calls
+
+
+def _recurrent_launches(label, calls, n_binary, n_shared) -> dict[str, int]:
+    """A recurrent path's launches: B2 2 x binary blocks per prefill and
+    step, B3 once per shared invocation per prefill, on the int8 pool the
+    insert kernel once per invocation per prefill and step and kv_decode
+    once per invocation per step; every other kernel 0."""
+    waves, steps = calls.n["prefill"], calls.n["decode"]
+    want = {k: 0 for k in KERNELS}
+    want["int8_matmul"] = 2 * n_binary * (waves + steps)
+    want["flash_attention"] = n_shared * waves
+    if label == "int8":
+        want["kv_quant_int8"] = n_shared * (waves + steps)
+        want["kv_decode_int8"] = n_shared * steps
+    return want
+
+
+def _recurrent_path(arch, label, api, params, prompts, n_binary, n_shared, card) -> dict:
+    """One served path of a recurrent model through the bucket engine: the
+    counted run (exact launches, every cache's bytes per row, tokens in
+    range), a second run with the same tokens (warm tok/s, prefill and
+    decode ms); then the longest prompts' group alone, untraced and traced
+    (CUDA activity only: an eager step's host ops would be ~25,000 trace
+    events), its launches exact and the trace's kernel events the counts or
+    one fewer: its busy share and device ms by family."""
+    from torch.profiler import ProfilerActivity, profile
+    lab = f"{arch} {label}"
+    zero_counts()
+    out, wall, calls = _bucket_once(api, params, prompts)
+    launches = counts()
+    want = _recurrent_launches(label, calls, n_binary, n_shared)
+    if launches != want:
+        raise AssertionError(f"{lab}: launches {launches}, want {want} for {calls.n}")
+    _check_outputs(lab, out, api.cfg.vocab)
+    row_bytes = (STATE_BYTES[arch] // 8, POOL_BYTES[label] // 8)
+    if calls.row_bytes != {row_bytes}:
+        raise AssertionError(f"{lab}: bytes per row {calls.row_bytes}, want {row_bytes}")
+    out2, wall2, calls2 = _bucket_once(api, params, prompts)
+    if out2 != out:
+        raise AssertionError(f"{lab}: a second run gave other tokens")
+    longest = max(len(p) for p in prompts)
+    group = [p for p in prompts if len(p) == longest]
+    g_out, g_wall, _ = _bucket_once(api, params, group)
+    zero_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        g_out2, g_wall_traced, g_calls = _bucket_once(api, params, group)
+    g_launches = counts()
+    if g_out2 != g_out or g_launches != _recurrent_launches(label, g_calls, n_binary, n_shared):
+        raise AssertionError(f"{lab}: the traced group run differs: {g_launches}")
+    device_events = _device_launches(prof)
+    for fam, n in _by_family(g_launches).items():
+        if not n - 1 <= device_events.get(fam, 0) <= n:
+            raise AssertionError(f"{lab}: the trace's kernel events {device_events} are not "
+                                 f"the counts {g_launches} (at most one dropped a family)")
+    profile_row = _profile_summary(prof, g_wall_traced, g_wall)
+    del prof
+    n_tok = sum(len(o) for o in out)
+    return dict(card=card, arch=arch, path=label, prefills=calls.n["prefill"],
+                decode_steps=calls.n["decode"], launches=launches,
+                state_bytes=STATE_BYTES[arch], pool_bytes=POOL_BYTES[label],
+                wall_s_first=wall, wall_s=wall2, tok_per_s=n_tok / wall2,
+                prefill_ms=calls2.s["prefill"] / calls2.n["prefill"] * 1e3,
+                decode_step_ms=calls2.s["decode"] / calls2.n["decode"] * 1e3,
+                traced_group=dict(prompts=len(group), length=longest, wall_s=g_wall,
+                                  launches=g_launches, device_events=device_events),
+                busy_share=profile_row["busy_share"], profile=profile_row)
+
+
+def _sequence_mixing_ms(cfg, params, dev, timer) -> dict[str, float]:
+    """Device ms of one call of the plain-torch sequence mixing at the
+    served shapes (8 rows; prefill 128 tokens): zamba2's SSD and causal
+    conv over a prompt and one Mamba2 block's decode (its B2 products
+    included); rwkv6's WKV loop over a prompt and over one token."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
+    b, s = 8, PROMPT_LENS[-1]
+    if cfg.family == "mamba2_hybrid":
+        di, nh = mamba2.dims(cfg)
+        ds = cfg.d_state
+        xt, alpha_log = rnd(b, s, nh, mamba2.HEAD_P), -F.softplus(rnd(b, s, nh))
+        bm, cm, conv_in = rnd(b, s, ds), rnd(b, s, ds), rnd(b, s, di + 2 * ds)
+        blk = params["blocks"][cfg.n_layers // 2]          # a binary block
+        x1 = rnd(b, 1, cfg.d_model).to(lc.cdt(cfg))
+        cache = mamba2.mamba_init_cache(cfg, b, device=dev)
+        return {"ssd_chunked (8, 128)": timer(lambda: mamba2.ssd_chunked(
+                    xt, alpha_log, bm, cm, chunk=min(cfg.ssm_chunk, s)), reps=10),
+                "_causal_conv (8, 128)": timer(lambda: mamba2._causal_conv(
+                    conv_in, blk["conv_w"], blk["conv_b"]), reps=10),
+                "mamba_decode, one block (8, 1)": timer(lambda: mamba2.mamba_decode(
+                    blk, x1, cfg, cache), reps=10)}
+    nh, hd = rwkv6.heads(cfg)
+    w = torch.sigmoid(rnd(b, s, cfg.d_model))
+    r, k, v, u = rnd(b, s, cfg.d_model), rnd(b, s, cfg.d_model), rnd(b, s, cfg.d_model), \
+        rnd(cfg.d_model)
+    s0 = torch.zeros((b, nh, hd, hd), device=dev)
+    return {"_wkv_scan (8, 128)": timer(lambda: rwkv6._wkv_scan(r, k, v, w, u, nh, hd, s0),
+                                        reps=5),
+            "_wkv_scan (8, 1)": timer(lambda: rwkv6._wkv_scan(
+                r[:, :1], k[:, :1], v[:, :1], w[:, :1], u, nh, hd, s0), reps=10)}
+
+
+def _recurrent_train_vs_cpu(arch, dev, binary: bool = True) -> dict:
+    """The smoke config's loss and grads (f32, latents; ``binary=False``:
+    float denses) on the card against the CPU, on the same params and
+    batch (seq 40: zamba2's SSD carries a state over two chunks of 32 with
+    a ragged tail) -> the loss error, the largest grad error relative to
+    its leaf's max-abs and its leaf, the card's launches."""
+    from repro_torch.data.synthetic import SyntheticTokens
+    from repro_torch.train.step import loss_and_grads
+    from repro_torch.tree import tree_leaves_with_path, tree_map
+    cfg = smoke_config(arch).replace(compute_dtype="float32", param_dtype="float32")
+    if not binary:
+        cfg = cfg.replace(policy=PrecisionPolicy(binary_ffn=False))
+    api = get_model(cfg)
+    cpu = api.init(SEED, device="cpu", packed=False)
+    batch = {k: torch.from_numpy(v)
+             for k, v in next(SyntheticTokens(cfg.vocab, 40, 8, seed=SEED)).items()}
+    zero_counts()
+    got = loss_and_grads(api, tree_map(lambda t: t.to(dev), cpu),
+                         {k: v.to(dev) for k, v in batch.items()})
+    launches = counts()
+    want = loss_and_grads(api, cpu, batch)
+    err, worst = -1.0, ""
+    for (path, g), (_, w) in zip(tree_leaves_with_path(got[2]), tree_leaves_with_path(want[2])):
+        e = float((g.float().cpu() - w.float()).abs().max()) / max(float(w.abs().max()), 1e-30)
+        if e > err:
+            err, worst = e, path
+    return {"binary": binary, "loss_err": abs(float(got[0]) - float(want[0])), "grad_err": err,
+            "grad_leaf": worst, "b2_launches": launches["int8_matmul"]}
+
+
+def _recurrent_model(arch, paths, dev, card, timer) -> tuple[list, list]:
+    """One recurrent model at full width and depth (random init from the
+    seed, bf16), served on each path, its empty caches' bytes at 8 slots,
+    its sequence mixing timed; the decode parity in f32 (gated with float
+    denses at PARITY_REL, printed with the served binary ones); the smoke
+    config's loss and grads against the CPU (RECURRENT_TRAIN_TOL) ->
+    (rows, launches of each path)."""
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    n_binary = sum(cfg.policy.block_is_binary(i, cfg.n_layers) for i in range(cfg.n_layers))
+    n_shared = cfg.n_layers // cfg.attn_every if cfg.family == "mamba2_hybrid" else 0
+    params = get_model(cfg).init(SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab, int(rng.choice(PROMPT_LENS)))
+               for _ in range(N_REQUESTS)]
+    rows, launches = [], []
+    for label in paths:
+        api = get_model(cfg.replace(kv_cache=label) if label != "state" else cfg)
+        t_path = time.perf_counter()
+        row = _recurrent_path(arch, label, api, params, prompts, n_binary, n_shared, card)
+        empty = _recurrent_bytes(cfg, api.init_cache(8, 256, device=dev))
+        if empty != (STATE_BYTES[arch], POOL_BYTES[label]):
+            raise AssertionError(f"{arch} {label}: init_cache(8, 256) holds {empty} bytes")
+        row.update(n_layers=cfg.n_layers, d_model=cfg.d_model, binary_blocks=n_binary,
+                   shared_calls=n_shared, param_bytes=param_bytes, init_s=init_s,
+                   peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                   seconds=time.perf_counter() - t_path)
+        rows.append(row)
+        launches.append(row["launches"])
+    t1 = time.perf_counter()
+    mixing = _sequence_mixing_ms(cfg, params, dev, timer)
+    s = PARITY_S[arch]
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (8, s)), device=dev)}
+    f32 = cfg.replace(compute_dtype="float32")
+    binary = _decode_parity(f"{arch} f32, binary denses", get_model(f32), params, batch, s,
+                            cfg.vocab, gate=False)
+    del params
+    _free(dev)
+    f_api = get_model(f32.replace(policy=PrecisionPolicy(binary_ffn=False)))
+    f_params = f_api.init(SEED, device=dev)
+    parity = _decode_parity(f"{arch} f32, float denses", f_api, f_params, batch, s, cfg.vocab,
+                            rel=PARITY_REL[arch], floor=0.0, argmax=False)
+    del f_params, f_api
+    _free(dev)
+    gated = cfg.family == "mamba2_hybrid"       # zamba2's binary smoke config; rwkv6's float
+    train = [_recurrent_train_vs_cpu(arch, dev, binary=gated)]
+    if not gated:
+        train.append(_recurrent_train_vs_cpu(arch, dev))     # printed beside
+    for row in rows:
+        row.update(decode_parity=parity, decode_parity_bar=PARITY_REL[arch],
+                   decode_parity_binary=binary, parity_prompt=s, sequence_mixing_ms=mixing,
+                   smoke_train_vs_cpu=train, smoke_train_tol=RECURRENT_TRAIN_TOL[arch],
+                   checks_s=time.perf_counter() - t1, model_s=time.perf_counter() - t0)
+        log("recurrent", **row)
+    tol = RECURRENT_TRAIN_TOL[arch]
+    if not (train[0]["grad_err"] <= tol["grad"] and train[0]["loss_err"] <= tol["loss"]):
+        raise AssertionError(f"{arch} smoke loss / grads, card vs CPU: {train[0]}")
+    if train[-1]["b2_launches"] == 0:
+        raise AssertionError(f"{arch} smoke loss: no B2 launch on the card")
+    return rows, launches
+
+
+def phase_recurrent(dev, card: str) -> dict:
+    """zamba2-2.7b (bf16 and int8 pools) and rwkv6-3b at full width and
+    depth through the bucket engine, each freed before the next loads
+    (module note, 6e) -> {"rows", "launches"}."""
+    timer = Timer(dev)
+    rows, launches = [], []
+    for arch, paths in RECURRENT:
+        _free(dev)
+        r, ls = _recurrent_model(arch, paths, dev, card, timer)
+        rows += r
+        launches += ls
+    del timer
     _free(dev)
     return {"rows": rows, "launches": launches}
 
@@ -3178,6 +3530,7 @@ def main() -> int:
     decode_rows = timed("kv_decode", phase_kv_decode, dev, gen, timer)
     serve = timed("serve (spec and interleave inside)", phase_serve, dev, smi)
     families = timed("families", phase_families, dev, smi)
+    recurrent = timed("recurrent", phase_recurrent, dev, smi)
     xnor_rows = timed("xnor", phase_xnor, dev, gen, timer)
     timed("xnor_splits", phase_xnor_splits, dev, gen, timer)
     hybrid_rows = timed("hybrid_dense", phase_hybrid, dev, gen, timer)
@@ -3191,9 +3544,10 @@ def main() -> int:
 
     # launches on every path: the serving paths (bf16, int8, binary, paged
     # int8 with the prefix cache, int8 sampled), the families phase's paths
-    # (MLA's among them), the speculative paths and the MNIST net, each
-    # counted from 0
+    # (MLA's among them), the recurrent phase's, the speculative paths and
+    # the MNIST net, each counted from 0
     path_launches = [serve["launches"], mnist["launches"], *families["launches"],
+                     *recurrent["launches"],
                      *(p["launches"] for p in serve["paths"]),
                      serve["spec"]["plain_sampled"]["launches"],
                      *(p["launches"] for p in serve["spec"]["paths"]),

@@ -1,11 +1,12 @@
 """Config registry: ``get_config(name)`` / ``smoke_config(name)``.
 
-``ARCHS`` lists the models the port builds (the launchers' choices; the
-serving launcher refuses whisper-base and llama-3.2-vision-11b, which need
-audio frames or image patches, as repro's does); ``beanna-mnist`` is the
-paper's MLP (core/hybrid_mlp.py), which is trained and run, not served.
-The other archs of ``repro.configs`` raise NotImplementedError naming the
-ROADMAP item that ports them.
+``ARCHS`` lists the models the port builds, every arch of
+``repro.configs``: the dense, MoE and MLA LMs, whisper-base and
+llama-3.2-vision-11b (which the serving launcher refuses: they need audio
+frames or image patches, as in repro), and the recurrent families,
+zamba2-2.7b (Mamba2 with a shared attention block) and rwkv6-3b (Finch),
+which the launcher serves through the bucket engine. ``beanna-mnist`` is
+the paper's MLP (core/hybrid_mlp.py), which is trained and run, not served.
 """
 
 from __future__ import annotations
@@ -15,22 +16,18 @@ import importlib
 from repro_torch.configs.base import ModelConfig, PrecisionPolicy  # noqa: F401
 
 ARCHS = ["stablelm-3b", "minicpm3-4b", "deepseek-v2-236b", "qwen3-8b", "qwen2-72b",
-         "whisper-base", "llama-3.2-vision-11b", "deepseek-v3-671b"]
+         "whisper-base", "llama-3.2-vision-11b", "deepseek-v3-671b", "zamba2-2.7b",
+         "rwkv6-3b"]
 
 _MOD = {"stablelm-3b": "stablelm_3b", "minicpm3-4b": "minicpm3_4b",
         "deepseek-v2-236b": "deepseek_v2_236b", "qwen3-8b": "qwen3_8b",
         "qwen2-72b": "qwen2_72b", "whisper-base": "whisper_base",
         "llama-3.2-vision-11b": "llama32_vision_11b",
-        "deepseek-v3-671b": "deepseek_v3_671b", "beanna-mnist": "beanna_mnist"}
-
-# archs of the JAX package that this package does not build yet
-_LATER = {name: "ROADMAP A8 part 3 (the recurrent families)" for name in (
-    "zamba2-2.7b", "rwkv6-3b")}
+        "deepseek-v3-671b": "deepseek_v3_671b", "zamba2-2.7b": "zamba2_2p7b",
+        "rwkv6-3b": "rwkv6_3b", "beanna-mnist": "beanna_mnist"}
 
 
 def _module(name: str):
-    if name in _LATER:
-        raise NotImplementedError(f"arch {name!r} is not ported yet: {_LATER[name]}")
     if name not in _MOD:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_MOD)}")
     return importlib.import_module(f"repro_torch.configs.{_MOD[name]}")

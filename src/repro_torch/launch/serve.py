@@ -19,7 +19,11 @@ drafts K tokens a wave through the binarized self-draft and verifies them
 in one float pass (``--spec-draft-impl`` picks the draft's packed
 product). ``--init-seed`` seeds the random weights and the prompts.
 ``--engine bucket`` runs the run-to-completion baseline
-(serving/bucket.py) instead of the slot engine.
+(serving/bucket.py) instead of the slot engine. A family with no
+slot-indexed cache insert (zamba2-2.7b, rwkv6-3b: a recurrent state, not a
+slot pool) falls back to the bucket engine with repro's warning:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --smoke --device cpu
 
 Prefill and scheduling: ``--prefill-chunk C`` prefills in C-token chunks
 through the verify path; ``--interleave`` runs one prefill slice a tick
@@ -237,7 +241,12 @@ def main(argv=None):
         log.warning("--http turns --interleave on; on the card eager prefill slices "
                     "currently give a longer TTFT and ITL than --no-interleave "
                     "(ROADMAP C)")
-    if args.engine == "slot":
+    engine = args.engine
+    if engine == "slot" and api.cache_insert is None:
+        log.warning("family %r has no slot-indexed cache insert; falling back to the bucket "
+                    "engine", cfg.family)
+        engine = "bucket"
+    if engine == "slot":
         eng = ServeEngine(api, params, max_batch=args.max_batch, max_len=max_len,
                           temperature=args.temperature, seed=args.seed,
                           attn_impl=args.attn_impl, kv_cache=args.kv_cache,

@@ -46,8 +46,7 @@ def main(argv=None):
     ap.add_argument("--arch", default=ARCHS[0],
                     help=f"one of {ARCHS} (whisper-base and llama-3.2-vision-11b "
                          "need frames / patches, which the synthetic stream does not "
-                         "give, as in repro); the JAX package's other archs are ROADMAP "
-                         "A8 part 3")
+                         "give, as in repro)")
     ap.add_argument("--smoke", action="store_true", help="reduced config (CPU-sized)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)

@@ -36,8 +36,14 @@ repro's errors.
 prefill, decode, init_cache and loss, as in repro: no slot-indexed insert
 (the serving engine refuses them), no paged pool, no verify, no slices.
 whisper keeps its own bf16 caches and refuses another ``kv_cache``, with
-repro's error. ``mamba2_hybrid`` and ``rwkv6`` raise NotImplementedError
-(ROADMAP A8 part 3).
+repro's error.
+
+The recurrent families have the same five functions and no other hook,
+as in repro: ``mamba2_hybrid`` (models/zamba2.py: Mamba2 blocks with a
+shared attention block, whose caches take the ``kv_cache`` codec) and
+``rwkv6`` (models/rwkv6_lm.py: a recurrent state, which refuses a codec).
+With no slot-indexed insert the serving engine refuses them, and the
+serving launcher runs them through the bucket engine (serving/bucket.py).
 """
 
 from __future__ import annotations
@@ -54,7 +60,8 @@ class ModelApi(NamedTuple):
     decode: Callable
     init_cache: Callable
     # the slot-indexed cache insert of the continuous-batching engine; None
-    # for whisper and vlm, whose caches are not a slot pool
+    # for whisper, vlm and the recurrent families, whose caches are not a
+    # slot pool
     cache_insert: Callable | None = None
     # the paged pool's seams (radix prefix cache): init_paged_cache(n_blocks,
     # block_size, max_batch, n_pages, device=) and prefill_ctx(params, batch,
@@ -121,10 +128,28 @@ def get_model(cfg: ModelConfig) -> ModelApi:
             decode=lambda p, c, tok: w.whisper_decode(p, cfg, c, tok),
             init_cache=lambda bs, ml, device: w.whisper_init_cache(cfg, bs, ml, device=device),
             loss=lambda p, b: w.whisper_loss(p, cfg, b))
+    if cfg.family == "mamba2_hybrid":
+        from repro_torch.models import zamba2 as z
+        return ModelApi(
+            cfg=cfg,
+            init=lambda seed, device="cuda", packed=True: z.zamba_init(cfg, seed, device=device,
+                                                                       packed=packed),
+            prefill=lambda p, b, **kw: z.zamba_prefill(p, cfg, b["tokens"], **kw),
+            decode=lambda p, c, tok: z.zamba_decode(p, cfg, c, tok),
+            init_cache=lambda bs, ml, device: z.zamba_init_cache(cfg, bs, ml, device=device),
+            loss=lambda p, b: z.zamba_loss(p, cfg, b))
+    if cfg.family == "rwkv6":
+        from repro_torch.models import rwkv6_lm as r
+        return ModelApi(
+            cfg=cfg,
+            init=lambda seed, device="cuda", packed=True: r.rwkv_init(cfg, seed, device=device,
+                                                                      packed=packed),
+            prefill=lambda p, b, **kw: r.rwkv_prefill(p, cfg, b["tokens"], **kw),
+            decode=lambda p, c, tok: r.rwkv_decode(p, cfg, c, tok),
+            init_cache=lambda bs, ml, device: r.rwkv_init_cache(cfg, bs, ml, device=device),
+            loss=lambda p, b: r.rwkv_loss(p, cfg, b))
     if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is ROADMAP A8 part 3 (the recurrent families); the "
-            "port builds dense, MoE, vlm and whisper models")
+        raise ValueError(f"unknown family {cfg.family!r}")
     from repro_torch.models import transformer as t
     gqa = not cfg.use_mla     # MLA's compressed cache is neither paged nor multi-token
 

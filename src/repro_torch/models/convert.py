@@ -5,11 +5,13 @@ already a numpy array (``jax.tree.map(np.asarray, params)`` on the caller's
 side: this package imports no jax) and returns the port's params:
 
   * each stacked ``blocks/seg{i}`` leaf (leading layer axis) is split into
-    the port's per-layer dicts, following ``build_segments``; so are
-    whisper's ``dec_blocks/seg{i}`` (following its ``_dec_segments``) and
-    its ``enc_blocks``, and a VLM's ``cross`` (one stack each, over every
-    layer); every other key (an MTP head's ``mtp`` among them) is one
-    unstacked tree and comes across whole;
+    the port's per-layer dicts, following ``build_segments`` (rwkv6: its
+    ``_segments``); so are zamba2's ``blocks/run{i}`` (following its
+    ``_runs``), whisper's ``dec_blocks/seg{i}`` (following its
+    ``_dec_segments``) and its ``enc_blocks``, and a VLM's ``cross`` (one
+    stack each, over every layer); every other key (an MTP head's ``mtp``
+    and zamba2's ``shared`` block among them) is one unstacked tree and
+    comes across whole;
   * bf16 arrays (numpy's ml_dtypes bfloat16) are reinterpreted bit for bit;
   * each binary dense gets its packed sign words (``w_packed``) from its
     latent weight, as the port's own init does; with ``packed=False`` it
@@ -20,10 +22,13 @@ side: this package imports no jax) and returns the port's params:
     the ``w_latent`` denses only); deployed ``*_q`` stacks come across as
     int8, or as int32 words with the bits of repro's uint32.
 
-``caches_from_jax(tree, cfg)`` takes a repro KV cache pytree (contiguous or
-paged, any codec; numpy leaves) and returns the port's list of per-layer
-cache dicts: each ``seg{i}`` leaf is split along its layer axis, and packed
-uint32 words become int32 words with the same bits.
+``caches_from_jax(tree, cfg)`` takes a repro decode cache pytree (numpy
+leaves) and returns the port's: for an LM's KV cache (contiguous or paged,
+any codec) and rwkv6's states, the list of per-layer dicts, each
+``seg{i}`` leaf split along its layer axis; for zamba2, {"mamba": one
+{"h", "conv"} a block, from its ``run`` stacks, "attn": one codec cache an
+invocation of the shared block, from their stack}. Packed uint32 words
+become int32 words with the same bits.
 
 ``mlp_params_from_jax(tree)`` takes repro's hybrid-MLP params
 (core/hybrid_mlp.py), latent or packed, with numpy leaves, and keeps their
@@ -64,13 +69,26 @@ def _unstack(stack, count: int, device) -> list:
     return [tree_map(lambda a, i=i: _tensor(a[i], device), stack) for i in range(count)]
 
 
+def _block_stacks(cfg: ModelConfig) -> tuple[str, list[int]]:
+    """-> (the key prefix of repro's stacks of ``blocks``, each stack's
+    count of layers)."""
+    if cfg.family == "mamba2_hybrid":
+        from repro_torch.models.zamba2 import _runs
+        return "run", [count for _, count, _ in _runs(cfg)]
+    if cfg.family == "rwkv6":
+        from repro_torch.models.rwkv6_lm import _segments
+        return "seg", [count for _, count, _ in _segments(cfg)]
+    return "seg", [count for _, _, count in lc.build_segments(cfg)]
+
+
 def params_from_jax(tree: dict, cfg: ModelConfig, *, device="cuda",
                     packed: bool = True) -> dict:
     device = resolve_device(device)
     out = {}
     for k, v in tree.items():
+        prefix = "seg"
         if k == "blocks":
-            counts = [count for _, _, count in lc.build_segments(cfg)]
+            prefix, counts = _block_stacks(cfg)
         elif k == "dec_blocks":
             from repro_torch.models.whisper import _dec_segments
             counts = [count for _, count, _ in _dec_segments(cfg)]
@@ -84,18 +102,20 @@ def params_from_jax(tree: dict, cfg: ModelConfig, *, device="cuda",
         if len(v) != len(counts):
             raise ValueError(f"{k}: {len(v)} stacked segments, the config has {len(counts)}")
         out[k] = [blk for si, count in enumerate(counts)
-                  for blk in _unstack(v[f"seg{si}"], count, device)]
+                  for blk in _unstack(v[f"{prefix}{si}"], count, device)]
     return pack_tree(out) if packed else out
 
 
-def caches_from_jax(tree: dict, cfg: ModelConfig, *, device="cuda") -> list:
+def caches_from_jax(tree: dict, cfg: ModelConfig, *, device="cuda"):
     device = resolve_device(device)
-    caches = []
-    for si, (_, _, count) in enumerate(lc.build_segments(cfg)):
-        seg = tree[f"seg{si}"]
-        caches += [{k: _tensor(np.asarray(a)[i], device) for k, a in seg.items()}
-                   for i in range(count)]
-    return caches
+    if cfg.family == "mamba2_hybrid":
+        from repro_torch.models.zamba2 import _runs, n_shared_calls
+        return {"mamba": [blk for stack, (_, count, _) in zip(tree["mamba"], _runs(cfg))
+                          for blk in _unstack(stack, count, device)],
+                "attn": _unstack(tree["attn"], n_shared_calls(cfg), device)}
+    _, counts = _block_stacks(cfg)
+    return [blk for si, count in enumerate(counts)
+            for blk in _unstack(tree[f"seg{si}"], count, device)]
 
 
 def mlp_params_from_jax(tree: dict, *, device="cuda") -> dict:

@@ -1,0 +1,94 @@
+"""RWKV6 language model (port of repro/models/rwkv6_lm.py): Finch blocks
+between an embedding and a layer-normed head. repro stacks the blocks in
+runs of one binary flag (``_segments``, param keys ``blocks/seg{i}``); the
+port keeps one param dict and one state {"tm_x", "tm_s", "cm_x"} per block,
+in lists. The state is O(1) in the sequence length: there is no KV pool,
+and get_model refuses a ``kv_cache`` codec for this family, as repro does.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import lm_common as lc
+from repro_torch.models import rwkv6
+from repro_torch.nn import layers as nn
+
+
+def _segments(cfg: ModelConfig) -> list[tuple[int, int, bool]]:
+    """[(start, count, binary)]: repro's runs of one binary flag, whose
+    params it stacks as ``blocks/seg{i}``."""
+    segs = []
+    for i in range(cfg.n_layers):
+        f = cfg.policy.block_is_binary(i, cfg.n_layers)
+        if segs and segs[-1][2] == f:
+            segs[-1] = (segs[-1][0], segs[-1][1] + 1, f)
+        else:
+            segs.append((i, 1, f))
+    return segs
+
+
+def rwkv_init(cfg: ModelConfig, seed: int, *, device="cuda", packed: bool = True) -> dict:
+    """Random params on ``device`` from a seeded torch.Generator, with
+    repro's init distributions (not its numbers)."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    kw = dict(generator=gen, device=device)
+    vp = lc.padded_vocab(cfg.vocab)
+    return {
+        "embed": nn.embedding_init(vp, cfg.d_model, dtype=lc.pdt(cfg), **kw),
+        "blocks": [rwkv6.rwkv_block_init(cfg, binary=cfg.policy.block_is_binary(i, cfg.n_layers),
+                                         packed=packed, **kw) for i in range(cfg.n_layers)],
+        "ln_f": nn.layernorm_init(cfg.d_model, device=device),
+        "head": nn.dense_init(cfg.d_model, vp, dtype=lc.pdt(cfg), **kw),
+    }
+
+
+def _forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, caches: list):
+    """-> (hidden states, one new state per block)."""
+    x = nn.embedding_lookup(params["embed"], tokens, compute_dtype=lc.cdt(cfg))
+    new = []
+    for p, c in zip(params["blocks"], caches):
+        x, c = rwkv6.rwkv_block_apply(p, x, cfg, c)
+        new.append(c)
+    return x, new
+
+
+def _logits(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    h = nn.layernorm_apply(params["ln_f"], h)
+    return lc.mask_pad_logits(nn.dense_apply(params["head"], h, compute_dtype=lc.cdt(cfg)),
+                              cfg.vocab)
+
+
+def rwkv_init_cache(cfg: ModelConfig, batch: int, max_len: int = 0, *, device) -> list:
+    """Zero states, one per block (``max_len`` unused: the state does not
+    grow)."""
+    return [rwkv6.rwkv_init_cache_block(cfg, batch, device=device)
+            for _ in range(cfg.n_layers)]
+
+
+def rwkv_loss(params: dict, cfg: ModelConfig, batch: dict):
+    """Mean token cross-entropy with z-loss over ``batch`` {"tokens",
+    "labels"} -> (ce, {"ce", "loss"})."""
+    tokens = batch["tokens"]
+    h, _ = _forward(params, cfg, tokens,
+                    rwkv_init_cache(cfg, tokens.shape[0], device=tokens.device))
+    ce = lc.softmax_xent(_logits(params, cfg, h), batch["labels"])
+    return ce, {"ce": ce, "loss": ce}
+
+
+def rwkv_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+                 max_len: int | None = None):
+    """-> (last-token logits (B, Vp), the states after the prompt)."""
+    h, caches = _forward(params, cfg, tokens,
+                         rwkv_init_cache(cfg, tokens.shape[0], device=tokens.device))
+    return _logits(params, cfg, h[:, -1:, :])[:, 0], caches
+
+
+def rwkv_decode(params: dict, cfg: ModelConfig, caches: list, tokens: torch.Tensor):
+    """tokens (B, 1) -> (logits (B, Vp), the new states)."""
+    h, caches = _forward(params, cfg, tokens, caches)
+    return _logits(params, cfg, h)[:, 0], caches

@@ -9,7 +9,10 @@ the cost the continuous-batching slot engine (serving/engine.py) removes.
 On a card a group's prefill runs the flash kernel (B3) and every decode
 step the int8-binary GEMM (B2) in the binary FFNs, as the slot engine's
 blocking waves and ticks do, eagerly (no graphs: the group's shape changes
-with every wave). Sampling (``temperature > 0``) splits one key per step
+with every wave). It also serves the families the slot engine refuses for
+want of a slot-indexed cache insert: zamba2 (mamba2_hybrid: per-block
+Mamba2 states and its shared block's codec caches) and rwkv6 (per-block
+recurrent states), which the serving launcher sends here, as repro's does. Sampling (``temperature > 0``) splits one key per step
 from PRNGKey(seed) and draws the whole group's rows from it, with JAX's
 bits (serving/sampling.py), so the tokens equal repro's.
 """

@@ -68,7 +68,9 @@ def test_port_imports_no_jax_and_refuses_missing_card():
                 "serving.sampling", "serving.graphs", "serving.telemetry", "serving.bucket",
                 "launch.server", "examples.serve_lm", "tree", "optim.adamw", "train.step",
                 "train.checkpoint", "train.fault_tolerance", "launch.train", "models.deploy",
-                "examples.binary_llm", "models.whisper", "models.llama_vision"):
+                "examples.binary_llm", "models.whisper", "models.llama_vision",
+                "models.mamba2", "models.zamba2", "models.rwkv6", "models.rwkv6_lm",
+                "configs.zamba2_2p7b", "configs.rwkv6_3b"):
         assert "repro_torch." + mod in out["modules"]
     assert out["leaked"] == []
     assert set(out["raised"]) == {"init", "serve", "mlp_init", "quickstart", "train",

@@ -128,19 +128,19 @@ def test_unported_configs_raise():
     # take left None
     mla = get_model(cfg.replace(use_mla=True))
     assert mla.verify is None and mla.init_paged_cache is None
-    # the attention families are ported: each builds, full and smoke (the
-    # encoder-decoder and the VLM without the slot pool's hooks, as in
-    # repro); the recurrent families still raise
+    # the attention and the recurrent families are ported: each builds,
+    # full and smoke (the encoder-decoder, the VLM, zamba2 and rwkv6 without
+    # the slot pool's hooks, as in repro)
     from repro_torch.configs import get_config
     for arch in ("qwen3-8b", "qwen2-72b", "deepseek-v3-671b", "whisper-base",
-                 "llama-3.2-vision-11b"):
+                 "llama-3.2-vision-11b", "zamba2-2.7b", "rwkv6-3b"):
         for c in (get_config(arch), smoke_config(arch)):
             api = get_model(c)
-            assert (api.cache_insert is None) == (c.family in ("whisper", "vlm"))
+            assert (api.cache_insert is None) == (c.family in ("whisper", "vlm",
+                                                               "mamba2_hybrid", "rwkv6"))
     assert get_model(get_config("deepseek-v3-671b")).cfg.use_mtp
     for family in ("rwkv6", "mamba2_hybrid"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A8 part 3"):
-            get_model(cfg.replace(family=family))
-    for arch in ("zamba2-2.7b", "rwkv6-3b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A8 part 3"):
-            get_config(arch)
+        api = get_model(cfg.replace(family=family))
+        assert api.cache_insert is None and api.verify is None and api.loss is not None
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("mamba-7b")
