@@ -72,18 +72,21 @@ def pack_tree(tree):
 
 
 def binary_dense_apply_packed(q: dict, x: torch.Tensor, *, k: int | None = None,
-                              mode: str = "xnor") -> torch.Tensor:
+                              mode: str = "xnor", reduce=None) -> torch.Tensor:
     """Packed-weight path. The integer dot comes in x's dtype, before the
     scale, the order of repro's latent path (repro/core/binary_dense.py:36-39)
     that the LM reference runs; in f32 (the MLP) that equals repro's packed
-    path exactly."""
-    y = ops.binary_dense_packed(x, q["w_packed"], k, mode=mode)
+    path exactly. ``reduce`` (a rank's partial dot over its rows of a
+    row-parallel weight -> the sum over ranks) runs on the exact dot,
+    before the cast."""
+    y = ops.binary_dense_packed(x, q["w_packed"], k, mode=mode, reduce=reduce)
     if "scale" in q:
         y = y * q["scale"]
     return y.to(x.dtype)
 
 
-def binary_dense_apply_any(p: dict, x: torch.Tensor, *, mode: str = "xnor") -> torch.Tensor:
+def binary_dense_apply_any(p: dict, x: torch.Tensor, *, mode: str = "xnor",
+                           reduce=None) -> torch.Tensor:
     """Dispatch on representation (repro/core/binary_dense.py:61-79): the
     packed sign words (deployed xnor, or the serving copy; through
     ``mode``'s kernel), else the latent (training, STE backward), else
@@ -98,15 +101,24 @@ def binary_dense_apply_any(p: dict, x: torch.Tensor, *, mode: str = "xnor") -> t
     The reference lowers ``w_int8`` to an XLA int8 dot, not a Pallas
     kernel, so here it is the plain product in f32, which is exact: every
     partial sum of +-1 terms is an integer below 2**24. The dot then
-    scales in f32, as the reference's does."""
+    scales in f32, as the reference's does.
+
+    ``reduce`` sums a row-parallel shard's exact dot over the ranks, before
+    the cast and the scale (packed and int8 weights; the latent path, the
+    trainer's, takes none)."""
     if "w_packed" in p:
-        return binary_dense_apply_packed(p, x, mode=mode)
+        return binary_dense_apply_packed(p, x, mode=mode, reduce=reduce)
     if "w_latent" in p:
+        if reduce is not None:
+            raise ValueError("a row-parallel binary dense needs its packed or int8 weights "
+                             "(the latent path is the trainer's)")
         return binary_dense_apply(p, x, mode=mode)
     if "w_int8" in p:
         lead = x.shape[:-1]
         a = pack_signs_int8(x.reshape(-1, x.shape[-1])).to(torch.float32)
         y = a @ p["w_int8"].to(torch.float32).T
+        if reduce is not None:
+            y = reduce(y)
         if "scale" in p:
             y = y * p["scale"]
         return y.reshape(*lead, -1).to(x.dtype)

@@ -1,0 +1,286 @@
+"""Logical-axis sharding rules and the tensor-parallel forward's context
+(port of repro/distributed/sharding.py).
+
+Params are trees of dicts and lists (repro_torch/tree.py); a *rule table*
+maps path regexes to tuples of logical axis names, and a MeshRules table
+maps logical names to mesh axes. repro stacks a segment's layers, so its
+leaves may carry a leading layer dim (a spec entry None); the port keeps a
+list of per-layer dicts, whose leaves match a rule with ndim == len(axes).
+
+Logical axes used across the model zoo:
+  batch      global batch              -> ("pod", "data")
+  seq        sequence                  -> None (SP optional)
+  vocab      vocabulary                -> "model"
+  embed      model width (residual)    -> None  ("data" when fsdp)
+  mlp        FFN hidden                -> "model"
+  heads      flattened attention heads -> "model"
+  kv         head_dim / per-head       -> None
+  expert     MoE expert                -> "model"
+  kv_lora    MLA compressed dim        -> None
+  state      SSM state dims            -> None
+  dconv      conv channels             -> "model"
+
+A spec is a tuple with one entry per dim of the leaf: a mesh axis name, a
+tuple of axis names, or None (replicated along that dim); () replicates
+the whole leaf. It is repro's PartitionSpec as a plain tuple.
+``placements`` turns one into DTensor placements for a
+``torch.distributed.device_mesh.DeviceMesh``; ``local_shard`` cuts a rank's
+shard of a tensor by it. The placements are metadata: the forward runs on
+plain rank-local tensors with explicit collectives, never on DTensors (a
+DTensor does not reach a kernel wrapper's ctypes call, and gloo on CUDA
+tensors has no all_gather for DTensor's redistributions).
+
+A mesh here is anything with axis names and sizes: a DeviceMesh
+(``mesh_dim_names``, ``shape``), or a stand-in with ``axis_names`` and a
+``shape`` dict, as repro's tests use.
+
+What became of repro's activation constraints: there is no GSPMD to steer,
+so ``with_logical_constraint`` (a sharding hint inside jit) has no
+counterpart and is gone. ``set_logical_rules`` / ``get_logical_rules`` /
+``active_mesh``, which repro's engines flip around every jitted call,
+become ``tensor_parallel(tp)``, a scope the engines open around every
+model call, and ``active_tp()``, which the forward reads: its collectives
+(after the row-parallel products, the embedding and the head) and its
+rank-local head counts. Outside a scope the forward is the single-device
+one, untouched.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import logging
+import re
+from dataclasses import dataclass, field
+
+import torch
+
+DEFAULT_MESH_RULES = {
+    "batch": ("pod", "data"),
+    "seq": None,
+    "vocab": "model",
+    "embed": None,
+    "mlp": "model",
+    "heads": "model",
+    "kv_heads": "model",     # flattened KV projection dim (may differ: GQA)
+    "cache_heads": "model",  # kv-cache head axis (needs head divisibility)
+    "cache_seq": None,       # kv-cache sequence axis ("model" = flash-
+                             # decoding-style sequence-parallel attention)
+    "kv": None,
+    "expert": "model",
+    "kv_lora": None,
+    "state": None,
+    "dconv": "model",
+    "fsdp": "data",
+}
+
+
+@dataclass
+class MeshRules:
+    rules: dict = field(default_factory=lambda: dict(DEFAULT_MESH_RULES))
+    fsdp: bool = False
+
+    def mesh_axes(self, logical, axis_names):
+        """logical axis name -> mesh axis entry valid for this mesh."""
+        m = self.rules.get(logical)
+        if m is None:
+            return None
+        if isinstance(m, tuple):
+            got = tuple(a for a in m if a in axis_names)
+            return got if got else None
+        return m if m in axis_names else None
+
+
+def axis_names(mesh) -> tuple:
+    names = getattr(mesh, "axis_names", None)
+    return tuple(names if names is not None else mesh.mesh_dim_names)
+
+
+def axis_sizes(mesh) -> dict:
+    """{axis name: size} of a DeviceMesh or a stand-in."""
+    shape = mesh.shape
+    if isinstance(shape, dict):
+        return dict(shape)
+    return dict(zip(axis_names(mesh), tuple(shape)))
+
+
+def logical_to_spec(axes, mesh, mesh_rules: MeshRules) -> tuple:
+    names = axis_names(mesh)
+    return tuple(mesh_rules.mesh_axes(a, names) for a in axes)
+
+
+def _entry_axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def partition_specs(params, rules, mesh, mesh_rules: MeshRules):
+    """A spec tree of ``params``' structure.
+
+    rules: list of (path_regex, (logical_axis, ...)). First match wins.
+    Unmatched leaves are replicated (and flagged when > 1 MiB, so that a
+    big tensor is never replicated unnoticed). Leaves need only ``shape``
+    and ``dtype`` (fake or meta tensors do)."""
+    from repro_torch.tree import tree_leaves_with_path, tree_unflatten_like
+    compiled = [(re.compile(rx), axes) for rx, axes in rules]
+    names, sizes = axis_names(mesh), axis_sizes(mesh)
+    specs = []
+    for pstr, leaf in tree_leaves_with_path(params):
+        spec = ()
+        shape = tuple(leaf.shape)
+        for rx, axes in compiled:
+            if rx.search(pstr):
+                core = [mesh_rules.mesh_axes(a, names) for a in axes]
+                extra = len(shape) - len(axes)
+                if extra not in (0, 1, 2):
+                    raise ValueError(f"rule {rx.pattern} axes {axes} vs leaf {pstr} "
+                                     f"shape {shape}")
+                # FSDP (ZeRO-3): shard the first unsharded *matrix* dim over
+                # "data": never 1-D params, never a layer-stack prefix, and
+                # only where that dim divides evenly
+                if mesh_rules.fsdp and len(axes) >= 2 and "data" in names:
+                    used = {x for e in core for x in _entry_axes(e)}
+                    if "data" not in used:
+                        for i, e in enumerate(core):
+                            if e is None and shape[extra + i] % sizes["data"] == 0:
+                                core[i] = "data"
+                                break
+                spec = tuple([None] * extra + core)
+                break
+        else:
+            nbytes = leaf.numel() * leaf.element_size()
+            if nbytes > (1 << 20):
+                logging.getLogger(__name__).warning(
+                    "replicating large unmatched param %s (%s)", pstr, shape)
+        specs.append(spec)
+    return tree_unflatten_like(params, specs)
+
+
+def placements(spec: tuple, mesh) -> list:
+    """A spec -> one DTensor placement per mesh dim: Shard(d) where the
+    leaf's dim d names that axis, else Replicate()."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for name in axis_names(mesh):
+        dims = [d for d, e in enumerate(spec) if name in _entry_axes(e)]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return out
+
+
+def _shard_index(entry, coords: dict, sizes: dict) -> tuple[int, int]:
+    """(this rank's index, the number of shards) along one dim; a tuple of
+    axes counts row-major, the first axis outermost."""
+    idx, n = 0, 1
+    for a in _entry_axes(entry):
+        idx, n = idx * sizes[a] + coords[a], n * sizes[a]
+    return idx, n
+
+
+def shard_shape(shape, spec: tuple, mesh) -> tuple:
+    """The shape each device holds of a leaf of ``shape`` under ``spec``."""
+    sizes = axis_sizes(mesh)
+    out = list(shape)
+    for d, e in enumerate(spec):
+        _, n = _shard_index(e, {a: 0 for a in sizes}, sizes)
+        if out[d] % n:
+            raise ValueError(f"dim {d} of {tuple(shape)} does not split {n} ways ({spec})")
+        out[d] //= n
+    return tuple(out)
+
+
+def local_shard(t: torch.Tensor, spec: tuple, mesh, coords: dict) -> torch.Tensor:
+    """The shard of ``t`` at mesh coordinates ``coords`` ({axis: index}),
+    in an allocation of its own (never an offset view: the kernel wrappers
+    refuse a base pointer off 16-byte alignment). A replicated leaf is
+    ``t`` itself."""
+    sizes = axis_sizes(mesh)
+    if not any(_entry_axes(e) for e in spec):
+        return t
+    out = t
+    for d, e in enumerate(spec):
+        if not _entry_axes(e):
+            continue
+        idx, n = _shard_index(e, coords, sizes)
+        if out.shape[d] % n:
+            raise ValueError(f"dim {d} of {tuple(t.shape)} does not split {n} ways ({spec})")
+        step = out.shape[d] // n
+        out = out.narrow(d, idx * step, step)
+    return out.clone(memory_format=torch.contiguous_format)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel forward's context
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class TensorParallel:
+    """One rank's place on the ``model`` axis, and what the forward splits
+    there (launch/specs.tensor_parallel decides it from the mesh rules):
+
+      attn   attention heads: wq / wk / wv column-parallel, wo row-parallel,
+             each rank attending with its heads against its own cache
+             heads; else the attention block runs whole on every rank
+      ffn    the FFN hidden width: w_gate / w_up / bin_in column-parallel,
+             w_down / bin_out row-parallel
+      vocab  embedding rows and head columns
+
+    Each row-parallel product is summed over the axis with one all_reduce;
+    the embedding and the logits are gathered by an all_reduce of
+    zero-filled buffers, which is exact (gloo carries only broadcast and
+    all_reduce for CUDA tensors)."""
+    size: int
+    rank: int
+    group: object = None           # a torch.distributed ProcessGroup (None: the world)
+    attn: bool = False
+    ffn: bool = False
+    vocab: bool = False
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum ``x`` over the axis, in place."""
+        import torch.distributed as dist
+        dist.all_reduce(x, group=self.group)
+        return x
+
+    def gather_last(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., n) rank-local columns -> (..., n * size), rank r's at
+        r * n, through one all_reduce of a zero-filled buffer (adding zeros
+        is exact, so every rank holds the same bits)."""
+        n = x.shape[-1]
+        full = x.new_zeros((*x.shape[:-1], n * self.size))
+        full[..., self.rank * n:(self.rank + 1) * n] = x
+        return self.all_reduce(full)
+
+
+_ACTIVE: contextvars.ContextVar = contextvars.ContextVar("tensor_parallel", default=None)
+
+
+def active_tp() -> TensorParallel | None:
+    """The TensorParallel of the enclosing ``tensor_parallel`` scope, or None
+    (the single-device forward)."""
+    return _ACTIVE.get()
+
+
+@contextlib.contextmanager
+def tensor_parallel(tp: TensorParallel | None):
+    """Run the enclosed model calls as rank ``tp.rank`` of ``tp``. The scope
+    is the calling thread's (a context variable) and restores the one it
+    replaced, so mesh and plain engines can alternate in one process."""
+    token = _ACTIVE.set(tp)
+    try:
+        yield tp
+    finally:
+        _ACTIVE.reset(token)
+
+
+def scoped_api(api, tp: TensorParallel):
+    """``api`` (models.ModelApi) with every function run inside
+    ``tensor_parallel(tp)``: init_cache then allocates the rank's own cache
+    heads, and prefill / decode run the sharded forward."""
+    def wrap(fn):
+        def call(*args, **kw):
+            with tensor_parallel(tp):
+                return fn(*args, **kw)
+        return call
+    return api._replace(**{f: wrap(getattr(api, f)) for f in api._fields
+                           if f != "cfg" and callable(getattr(api, f))})

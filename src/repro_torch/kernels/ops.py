@@ -122,15 +122,19 @@ def binary_dense(x: torch.Tensor, w_latent: torch.Tensor, *,
 
 
 def binary_dense_packed(x: torch.Tensor, w_packed: torch.Tensor, k: int | None = None,
-                        *, mode: str = "xnor") -> torch.Tensor:
+                        *, mode: str = "xnor", reduce=None) -> torch.Tensor:
     """Inference: x (..., K), w_packed (N, Kp) int32 sign words as packed at
     deploy or load time -> (..., N) in x's dtype, as binary_dense returns
     it: exact in f32 (where repro's f32 result is the same); in bf16 the one
-    cast rounds |values| > 256, as repro's latent path does."""
+    cast rounds |values| > 256, as repro's latent path does. ``reduce``
+    maps the exact (M, N) dot before that cast: a row-parallel shard's
+    partial dot summed over the ranks, still exact."""
     mode = resolve_impl(mode)
     k = k if k is not None else x.shape[-1]
     lead = x.shape[:-1]
     y = _matmul_packed(x.reshape(-1, k), w_packed, k, mode)
+    if reduce is not None:
+        y = reduce(y)
     return y.to(x.dtype).reshape(*lead, -1)
 
 

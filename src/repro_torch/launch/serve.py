@@ -51,6 +51,20 @@ them behind, and Ctrl-C exits 0.
 ``--ckpt-dir DIR`` serves the params of the latest step that the trainer
 (launch/train.py) checkpointed in DIR, with the packed copy of each binary
 dense added at load.
+
+``--mesh N`` serves tensor-parallel over N ranks (launch/mesh.spawn, one
+process each, a ``model`` mesh of N): attention heads, the FFN hidden
+width, the vocab and the KV pool's heads are split, the GQA dense family
+only (stablelm-3b, qwen3-8b, qwen2-72b). ``--backend`` picks the process
+group: ``nccl`` (the default on cuda) takes a card per rank and refuses N
+above the cards there are; ``gloo`` (the default on cpu) also lets ranks
+share a card. Rank 0 logs what the single-device launcher logs and
+writes the telemetry files. A mesh runs eagerly, and refuses
+--spec-decode, --interleave and --http (ROADMAP A9 (g)) and the other
+families (A9 (f)):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+      --requests 8 --mesh 2 --prefill-chunk 16
 """
 
 from __future__ import annotations
@@ -58,6 +72,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import sys
 import time
 
 import numpy as np
@@ -66,6 +81,7 @@ import torch
 from repro_torch.configs import ARCHS, get_config, smoke_config
 from repro_torch.core.binary_dense import pack_tree
 from repro_torch.kernels.ops import SPEC_DRAFT_IMPLS
+from repro_torch.launch.mesh import BACKENDS
 from repro_torch.models import get_model
 from repro_torch.nn.attention import ATTN_IMPLS
 from repro_torch.serving.bucket import BucketEngine
@@ -130,7 +146,7 @@ def _drive(args, eng, telemetry) -> None:
         eng.run()
 
 
-def main(argv=None):
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", choices=ARCHS, default="stablelm-3b")
     ap.add_argument("--smoke", action="store_true")
@@ -169,7 +185,11 @@ def main(argv=None):
                     help="radix prefix cache over the paged pool "
                          "(requires --kv-block-size > 0)")
     ap.add_argument("--mesh", type=int, default=0, metavar="N",
-                    help="tensor-parallel serving over N devices (not ported: ROADMAP A9)")
+                    help="tensor-parallel serving over N ranks, one process each (0 = "
+                         "one device, no ranks)")
+    ap.add_argument("--backend", default=None, choices=list(BACKENDS),
+                    help="process group of --mesh: nccl (a card per rank; the default on "
+                         "cuda) or gloo (the default on cpu; ranks may share a card)")
     ap.add_argument("--prefill-chunk", type=int, default=0, metavar="C",
                     help="blockwise prefill: C-token chunks through the verify path "
                          "(0 = monolithic; a power of two; slot engine)")
@@ -200,18 +220,56 @@ def main(argv=None):
     ap.add_argument("--queue-limit", type=int, default=64,
                     help="bounded HTTP admission queue: beyond this many waiting "
                          "submissions, POSTs answer 429 + Retry-After")
+    return ap
+
+
+def main(argv=None):
+    ap = _parser()
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    if args.mesh:
-        raise NotImplementedError("--mesh: tensor-parallel serving is not ported yet "
-                                  "(ROADMAP A9)")
+    if not args.mesh:
+        return _serve(ap, args, args.device)
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.launch.specs import serving_plan
+    for on, flag in ((args.spec_decode, "--spec-decode"), (args.interleave, "--interleave"),
+                     (args.http is not None, "--http")):
+        if on:
+            raise NotImplementedError(f"{flag} on a mesh is not ported yet (ROADMAP A9 (g))")
+    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    serving_plan(cfg, _MeshShape(args.mesh))        # the family and the shapes split
+    backend = args.backend or ("nccl" if torch.device(args.device).type == "cuda" else "gloo")
+    argv = list(sys.argv[1:] if argv is None else argv)
+    return spawn(_mesh_rank, args.mesh, backend=backend, args=(argv,), timeout=3600)[0]
 
+
+class _MeshShape:
+    """A ``model`` mesh of n ranks as the rules read it (names and sizes)."""
+
+    def __init__(self, n: int):
+        self.axis_names, self.shape = ("model",), {"model": n}
+
+
+def _mesh_rank(rank: int, world: int, argv: list):
+    """One rank of --mesh: the same drive on its shard, logged by rank 0,
+    which alone writes the telemetry and profiler files."""
+    from repro_torch.launch.mesh import make_mesh, rank_device
+    ap = _parser()
+    args = ap.parse_args(argv)
+    logging.basicConfig(level=logging.INFO if rank == 0 else logging.WARNING)
+    if rank:
+        args.metrics_out = args.trace_out = args.torch_profile = ""
+        args.stats_every = 0
+    return _serve(ap, args, rank_device(rank, args.device),
+                  mesh=make_mesh((world,), ("model",)))
+
+
+def _serve(ap, args, device, mesh=None):
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if cfg.family in ("whisper", "vlm"):
         ap.error(f"--arch {args.arch}: {cfg.family} needs audio/image inputs; this "
                  "text-only launcher cannot serve it")
     api = get_model(cfg)
-    params = api.init(args.init_seed, device=args.device, packed=not args.ckpt_dir)
+    params = api.init(args.init_seed, device=device, packed=not args.ckpt_dir)
     if args.ckpt_dir:
         # the trainer's latent-only params; serving reads the packed copy
         # of each binary dense, added here once
@@ -253,7 +311,7 @@ def main(argv=None):
                           kv_block_size=args.kv_block_size, prefix_cache=args.prefix_cache,
                           spec_k=spec_k, spec_draft_impl=args.spec_draft_impl,
                           prefill_chunk=args.prefill_chunk, telemetry=telemetry,
-                          interleave=interleave, scheduler=args.scheduler)
+                          interleave=interleave, scheduler=args.scheduler, mesh=mesh)
     else:
         if args.kv_block_size or args.prefix_cache or stop or spec_k \
                 or args.prefill_chunk or http or interleave \
@@ -266,7 +324,7 @@ def main(argv=None):
                      "slot engine")
         eng = BucketEngine(api, params, max_batch=args.max_batch, max_len=max_len,
                            temperature=args.temperature, seed=args.seed,
-                           attn_impl=args.attn_impl, kv_cache=args.kv_cache)
+                           attn_impl=args.attn_impl, kv_cache=args.kv_cache, mesh=mesh)
     if http:
         return _serve_http(args, eng, telemetry)
     rng = np.random.default_rng(args.init_seed)

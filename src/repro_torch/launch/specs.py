@@ -1,0 +1,240 @@
+"""Abstract stand-ins for every model input, the sharding trees for params,
+optimizer state, batches and caches, and the serving plan of a mesh (port
+of repro/launch/specs.py).
+
+Nothing here allocates: params and caches are built under torch's
+FakeTensorMode (shapes and dtypes alone) and batches on the meta device,
+so the 671B configs cost nothing to describe. A "sharding" is a tree of
+DTensor placements (distributed/sharding.placements), the counterpart of
+repro's NamedShardings; the specs themselves come from partition_specs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.configs.base import ModelConfig, ShapeSpec
+from repro_torch.distributed.sharding import (MeshRules, TensorParallel, axis_names, axis_sizes,
+                                              local_shard, logical_to_spec, partition_specs,
+                                              placements)
+from repro_torch.tree import tree_map
+
+# cache-leaf sharding rules (the same machinery as params)
+CACHE_RULES = [
+    (r"(^|/)(k|v|ek|ev)$", ("batch", "cache_seq", "cache_heads", "kv")),
+    (r"(^|/)c$", ("batch", "cache_seq", "kv_lora")),
+    (r"(^|/)kr$", ("batch", "cache_seq", "kv_lora")),
+    (r"(^|/)len$", ("batch",)),
+    (r"(^|/)h$", ("batch", "heads", "kv", "state")),      # mamba SSM state
+    (r"(^|/)conv$", ("batch", "seq", "dconv")),
+    (r"tm_s$", ("batch", "heads", "kv", "state")),
+    (r"(tm_x|cm_x)$", ("batch", "seq", "embed")),
+    (r"cross$", ("batch", "seq", "embed")),               # vlm patch embeds
+]
+
+BATCH_RULES = [
+    (r"(tokens|labels)$", ("batch", "seq")),
+    (r"frames$", ("batch", "seq", "embed")),
+    (r"patches$", ("batch", "seq", "embed")),
+]
+
+
+def mesh_rules_for(cfg: ModelConfig, mesh, shape: ShapeSpec | None = None) -> MeshRules:
+    """Adapt the default logical -> mesh table to this arch and cell.
+
+    Anything uneven falls back to the widest divisible sharding (as in
+    repro, where jit demands exact divisibility): e.g. 40-head archs
+    replicate attention over the model axis."""
+    rules = MeshRules(fsdp=cfg.fsdp)
+    over = {}
+    sizes = axis_sizes(mesh)
+    model_n = sizes.get("model", 1)
+    dh = cfg.kv_head_dim()
+    if cfg.n_heads % model_n or (cfg.n_heads * dh) % model_n:
+        over["heads"] = None
+    if (cfg.n_kv_heads * dh) % model_n or not cfg.shard_kv_heads:
+        over["kv_heads"] = None
+    if cfg.n_kv_heads % model_n:
+        over["cache_heads"] = None
+    if cfg.serve_shard_cache_seq:
+        # sequence-parallel decode attention: the cache's time axis over
+        # "model", which the head axis then leaves
+        over["cache_seq"] = "model"
+        over["cache_heads"] = None
+    if cfg.family == "mamba2_hybrid":
+        di = cfg.expand * cfg.d_model
+        if (di // 64) % model_n:      # mamba heads
+            over["heads"] = None
+    # batch divisibility: drop axes until the global batch divides
+    if shape is not None:
+        axes = [a for a in ("pod", "data") if a in axis_names(mesh)]
+        while axes:
+            n = 1
+            for a in axes:
+                n *= sizes[a]
+            if shape.global_batch % n == 0:
+                break
+            axes.pop(0)
+        over["batch"] = tuple(axes) if axes else None
+    if over:
+        rules.rules = dict(rules.rules, **over)
+    return rules
+
+
+def abstract(fn):
+    """fn() under FakeTensorMode: its tensors carry shapes and dtypes and
+    no storage."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        return fn()
+
+
+def abstract_params(api, *, deployed: bool = False, packed: bool = False):
+    """The params' shapes and dtypes: latents only by default, as repro's
+    init; ``packed`` adds the serving copies, ``deployed`` drops latents
+    for quantized weights (models/deploy.py)."""
+    if deployed:
+        return abstract(lambda: api.init_deployed(0, device="cpu"))
+    return abstract(lambda: api.init(0, device="cpu", packed=packed))
+
+
+def _placements(specs, mesh):
+    return tree_map(lambda s: placements(s, mesh), specs)
+
+
+def param_shardings(api, mesh, mesh_rules, *, deployed: bool = False):
+    p_abs = abstract_params(api, deployed=deployed)
+    rules = api.deployed_rules if deployed else api.param_rules
+    return p_abs, _placements(partition_specs(p_abs, rules, mesh, mesh_rules), mesh)
+
+
+def opt_shardings(api, cfg, p_abs, p_sh, mesh):
+    import torch
+
+    from repro_torch.optim import adamw_init
+    mdt = getattr(torch, cfg.opt_moment_dtype)
+    o_abs = abstract(lambda: adamw_init(p_abs, moment_dtype=mdt))
+    o_sh = {"m": p_sh, "v": p_sh, "step": placements((), mesh)}
+    return o_abs, o_sh
+
+
+def make_lm_batch_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+    """Meta tensors for a training batch of this arch x shape."""
+    import torch
+    b, s = shape.global_batch, shape.seq_len
+    meta = dict(device="meta")
+    specs = {"tokens": torch.empty((b, s), dtype=torch.int32, **meta),
+             "labels": torch.empty((b, s), dtype=torch.int32, **meta)}
+    if cfg.family == "whisper":
+        specs["frames"] = torch.empty((b, cfg.n_audio_frames, cfg.d_model),
+                                      dtype=torch.bfloat16, **meta)
+    if cfg.family == "vlm":
+        specs["patches"] = torch.empty((b, cfg.n_patches, cfg.d_model),
+                                       dtype=torch.bfloat16, **meta)
+    return specs
+
+
+def batch_specs_and_shardings(cfg, shape: ShapeSpec, mesh, mesh_rules):
+    specs = make_lm_batch_specs(cfg, shape)
+    return specs, _placements(partition_specs(specs, BATCH_RULES, mesh, mesh_rules), mesh)
+
+
+def cache_specs_and_shardings(api, cfg, shape: ShapeSpec, mesh, mesh_rules):
+    b, s = shape.global_batch, shape.seq_len
+    cache_abs = abstract(lambda: api.init_cache(b, s, "cpu"))
+    return cache_abs, _placements(partition_specs(cache_abs, CACHE_RULES, mesh, mesh_rules),
+                                  mesh)
+
+
+def decode_token_specs(cfg, shape: ShapeSpec, mesh, mesh_rules):
+    import torch
+    spec = torch.empty((shape.global_batch, 1), dtype=torch.int32, device="meta")
+    return spec, placements(logical_to_spec(("batch", "seq"), mesh, mesh_rules), mesh)
+
+
+def input_specs(arch_or_cfg, shape: ShapeSpec, *, kind=None):
+    """Abstract stand-ins for every input of the step this cell runs."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    cfg = arch_or_cfg if isinstance(arch_or_cfg, ModelConfig) else get_config(arch_or_cfg)
+    kind = kind or shape.kind
+    if kind in ("train", "prefill"):
+        return make_lm_batch_specs(cfg, shape)
+    b = shape.global_batch
+    api = get_model(cfg)
+    return {"tokens": torch.empty((b, 1), dtype=torch.int32, device="meta"),
+            "caches": abstract(lambda: api.init_cache(b, shape.seq_len, "cpu"))}
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving: the plan of a `model` mesh and each rank's shard
+# ---------------------------------------------------------------------------
+
+def serving_plan(cfg: ModelConfig, mesh, *, rank: int = 0, group=None
+                 ) -> tuple[TensorParallel, MeshRules]:
+    """-> (what rank ``rank`` of the ``model`` axis splits, the rules that
+    place its params and caches), for the GQA dense family.
+
+    mesh_rules_for decides; where it splits the flattened K/V projection
+    but not the cache heads (fewer KV heads than ranks), a rank would hold
+    part of a head, so the attention block is replicated whole instead
+    (GSPMD would gather the split heads back). A split FFN must give each
+    rank whole packed words of bin_out (d_ff / N a multiple of 32) and the
+    vocab must divide: else this raises, naming the shape. A mesh of one
+    splits nothing: the forward is the single-device one."""
+    if cfg.family != "dense" or cfg.use_mla:
+        raise NotImplementedError(
+            f"tensor-parallel serving covers the GQA dense family; {cfg.name!r} "
+            f"({cfg.family}{', MLA' if cfg.use_mla else ''}) is not ported yet (ROADMAP A9 "
+            "(f): TP for MLA, MoE, the recurrent families, whisper and the VLM)")
+    sizes = axis_sizes(mesh)
+    if "model" not in sizes or any(n > 1 for a, n in sizes.items() if a != "model"):
+        raise NotImplementedError(f"serving takes a mesh with one `model` axis, got {sizes} "
+                                  "(data-parallel axes: ROADMAP A9 (c))")
+    n = sizes["model"]
+    rules = mesh_rules_for(cfg, mesh)
+    names = axis_names(mesh)
+
+    def on_model(*logical):
+        return n > 1 and all(rules.mesh_axes(a, names) == "model" for a in logical)
+    attn = on_model("heads", "kv_heads", "cache_heads")
+    ffn, vocab = on_model("mlp"), on_model("vocab")
+    from repro_torch.models.lm_common import padded_vocab
+    if ffn:
+        per = cfg.d_ff // n
+        if cfg.d_ff % n or (cfg.policy.binary_ffn and per % 32):
+            raise ValueError(f"d_ff {cfg.d_ff} does not split into {n} shards of whole "
+                             f"32-bit words (a shard of bin_out packs its K = d_ff / {n} "
+                             "along words)")
+    if vocab and padded_vocab(cfg.vocab) % n:
+        raise ValueError(f"the padded vocab {padded_vocab(cfg.vocab)} does not split {n} ways")
+    over = {}
+    if not attn:
+        over.update(heads=None, kv_heads=None, cache_heads=None)
+    if not ffn:
+        over["mlp"] = None
+    if not vocab:
+        over["vocab"] = None
+    rules.rules = dict(rules.rules, **over)
+    return TensorParallel(size=n, rank=rank, group=group, attn=attn, ffn=ffn,
+                          vocab=vocab), rules
+
+
+def mesh_tensor_parallel(cfg: ModelConfig, mesh) -> tuple[TensorParallel, MeshRules]:
+    """serving_plan for this process's rank of a DeviceMesh."""
+    tp, rules = serving_plan(cfg, mesh)
+    return dataclasses.replace(tp, rank=mesh.get_local_rank("model"),
+                               group=mesh.get_group("model")), rules
+
+
+def shard_params(api, params, mesh, tp: TensorParallel, rules: MeshRules):
+    """Rank ``tp.rank``'s shard of the full ``params`` (latents, packed or
+    deployed weights): each leaf cut by its spec (api.deployed_rules under
+    ``rules``) into an allocation of its own; replicated leaves are the
+    full tree's own tensors."""
+    specs = partition_specs(params, api.deployed_rules, mesh, rules)
+    coords = {a: 0 for a in axis_names(mesh)}
+    coords["model"] = tp.rank
+    return tree_map(lambda t, s: local_shard(t, s, mesh, coords), params, specs)

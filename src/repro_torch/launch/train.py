@@ -17,7 +17,7 @@ kernels run their plain versions:
 
 ``main(argv)`` returns the history: one dict of floats a step (ce, aux,
 loss, grad_norm, lr, step_s). ``--mesh`` (data and model parallel
-training) is ROADMAP A9.
+training) is ROADMAP A9 (c).
 """
 
 from __future__ import annotations
@@ -56,13 +56,14 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--mesh", default="",
-                    help="data / model parallel mesh (not ported: ROADMAP A9)")
+                    help="data / model parallel mesh (not ported: ROADMAP A9 (c))")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     if args.mesh:
-        raise NotImplementedError("--mesh: sharded training is not ported yet (ROADMAP A9)")
+        raise NotImplementedError("--mesh: sharded training is not ported yet (ROADMAP A9 (c): "
+                                  "data-parallel training with the 1-bit sync)")
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     api = get_model(cfg)

@@ -88,11 +88,20 @@ class ModelApi(NamedTuple):
     prefill_slice_finish: Callable | None = None
     # the training loss: loss(params, {"tokens", "labels"}) -> (loss, metrics)
     loss: Callable | None = None
+    # the family's sharding rules, path regex -> logical axes
+    # (distributed/sharding.partition_specs), repro's tables
+    param_rules: tuple = ()
 
     def init_deployed(self, seed: int, device="cuda"):
         """Random params with the latents dropped for quantized weights."""
         from repro_torch.models.deploy import deploy_params
         return deploy_params(self.init(seed, device=device, packed=False), self.cfg)
+
+    @property
+    def deployed_rules(self) -> list:
+        """The rules of deployed or packed weights, then the family's."""
+        from repro_torch.models.deploy import DEPLOYED_RULES
+        return DEPLOYED_RULES + list(self.param_rules)
 
 
 def get_model(cfg: ModelConfig) -> ModelApi:
@@ -116,7 +125,7 @@ def get_model(cfg: ModelConfig) -> ModelApi:
             prefill=lambda p, b, **kw: v.vlm_prefill(p, cfg, b["tokens"], b["patches"], **kw),
             decode=lambda p, c, tok: v.vlm_decode(p, cfg, c, tok),
             init_cache=lambda bs, ml, device: v.vlm_init_cache(cfg, bs, ml, device=device),
-            loss=lambda p, b: v.vlm_loss(p, cfg, b))
+            loss=lambda p, b: v.vlm_loss(p, cfg, b), param_rules=tuple(v.PARAM_RULES))
     if cfg.family == "whisper":
         from repro_torch.models import whisper as w
         return ModelApi(
@@ -127,7 +136,7 @@ def get_model(cfg: ModelConfig) -> ModelApi:
                                                          **kw),
             decode=lambda p, c, tok: w.whisper_decode(p, cfg, c, tok),
             init_cache=lambda bs, ml, device: w.whisper_init_cache(cfg, bs, ml, device=device),
-            loss=lambda p, b: w.whisper_loss(p, cfg, b))
+            loss=lambda p, b: w.whisper_loss(p, cfg, b), param_rules=tuple(w.PARAM_RULES))
     if cfg.family == "mamba2_hybrid":
         from repro_torch.models import zamba2 as z
         return ModelApi(
@@ -137,7 +146,7 @@ def get_model(cfg: ModelConfig) -> ModelApi:
             prefill=lambda p, b, **kw: z.zamba_prefill(p, cfg, b["tokens"], **kw),
             decode=lambda p, c, tok: z.zamba_decode(p, cfg, c, tok),
             init_cache=lambda bs, ml, device: z.zamba_init_cache(cfg, bs, ml, device=device),
-            loss=lambda p, b: z.zamba_loss(p, cfg, b))
+            loss=lambda p, b: z.zamba_loss(p, cfg, b), param_rules=tuple(z.PARAM_RULES))
     if cfg.family == "rwkv6":
         from repro_torch.models import rwkv6_lm as r
         return ModelApi(
@@ -147,7 +156,7 @@ def get_model(cfg: ModelConfig) -> ModelApi:
             prefill=lambda p, b, **kw: r.rwkv_prefill(p, cfg, b["tokens"], **kw),
             decode=lambda p, c, tok: r.rwkv_decode(p, cfg, c, tok),
             init_cache=lambda bs, ml, device: r.rwkv_init_cache(cfg, bs, ml, device=device),
-            loss=lambda p, b: r.rwkv_loss(p, cfg, b))
+            loss=lambda p, b: r.rwkv_loss(p, cfg, b), param_rules=tuple(r.PARAM_RULES))
     if cfg.family not in ("dense", "moe"):
         raise ValueError(f"unknown family {cfg.family!r}")
     from repro_torch.models import transformer as t
@@ -177,4 +186,5 @@ def get_model(cfg: ModelConfig) -> ModelApi:
         prefill_slice_finish=only_gqa(lambda p, c, h, sl: t.lm_prefill_slice_finish(
             p, cfg, c, h, sl)),
         loss=lambda p, b: t.lm_loss(p, cfg, b),
+        param_rules=tuple(t.PARAM_RULES),
     )

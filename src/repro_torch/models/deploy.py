@@ -25,6 +25,18 @@ from repro_torch.tree import map_binary_denses, map_binary_moe
 
 EXPERT_STACKS = ("w_gate", "w_up", "w_down")
 
+# deployed-param sharding rules (put before each family's PARAM_RULES:
+# ModelApi.deployed_rules); packed dims shard like their latent
+# counterparts (packed dim = K / 32)
+DEPLOYED_RULES = [
+    (r"ffn/bin_in/(w_packed|w_int8)$", ("mlp", "embed")),
+    (r"ffn/bin_out/(w_packed|w_int8)$", ("embed", "mlp")),
+    (r"(in_zx|c_k)/bin/(w_packed|w_int8)$", ("mlp", "embed")),
+    (r"(out|c_v)/bin/(w_packed|w_int8)$", ("embed", "mlp")),
+    (r"ffn/w_(gate|up)_q$", ("expert", None, "embed")),
+    (r"ffn/w_down_q$", ("expert", "embed", None)),
+]
+
 
 def _quantize_dense(p: dict, mode: str) -> dict:
     w = p["w_latent"].T                            # (N, K): packing runs along K

@@ -30,6 +30,17 @@ from repro_torch.models import transformer as t
 from repro_torch.nn import attention as attn_lib
 from repro_torch.nn import layers as nn
 
+# path regex -> logical axes (distributed/sharding.py); first match wins
+PARAM_RULES = [
+    (r"xattn/wq/w$", ("embed", "heads")),
+    (r"xattn/w[kv]/w$", ("embed", "kv_heads")),
+    (r"xattn/wo/w$", ("heads", "embed")),
+    (r"(gate_attn|gate_ffn)$", ()),
+    (r"xffn/w_(gate|up)/w$", ("embed", "mlp")),
+    (r"xffn/w_down/w$", ("mlp", "embed")),
+    (r"(ln_x1|ln_x2)/(scale|bias)$", ("embed",)),
+] + t.PARAM_RULES
+
 
 def _cross_block_init(cfg: ModelConfig, *, generator, device) -> dict:
     kw = dict(generator=generator, device=device)

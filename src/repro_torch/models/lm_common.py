@@ -24,6 +24,15 @@ stays dense in the compute dtype whatever ``kv_cache`` says (it is already
 the family's memory optimization) and has no paged layout, as in repro.
 The decode writes ``c``, ``kr`` and ``len`` in place, so that a decode tick
 replays as a CUDA graph.
+
+Tensor parallelism (serving on a ``model`` mesh, GQA dense family): inside
+a ``distributed.sharding.tensor_parallel`` scope each rank holds its shard
+of every leaf (launch/specs.shard_params) and runs this same forward on it.
+The head counts come from the weights' shapes, the caches hold the rank's
+own KV heads, and the row-parallel products (wo, w_down, bin_out) are
+summed over the axis: the float ones as f32 partial products, rounded once
+after the sum; bin_out's as its exact integer dot, before the cast and the
+scale, so that a split binary FFN equals the single device's bit for bit.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.binary_dense import binary_dense_apply_any, binary_dense_init, with_packed
+from repro_torch.distributed.sharding import TensorParallel, active_tp
 from repro_torch.kernels.kv_quant import pad_time, write_span
 from repro_torch.models import moe
 from repro_torch.nn import attention as attn_lib
@@ -63,6 +73,30 @@ def pdt(cfg: ModelConfig) -> torch.dtype:   # param dtype
     return getattr(torch, cfg.param_dtype)
 
 
+def split_tp(part: str) -> TensorParallel | None:
+    """The active TensorParallel where it splits ``part`` ("attn", "ffn" or
+    "vocab"), else None: that part runs as on one device."""
+    tp = active_tp()
+    return tp if tp is not None and getattr(tp, part) else None
+
+
+def row_parallel(p: dict, x: torch.Tensor, cfg: ModelConfig, tp: TensorParallel) -> torch.Tensor:
+    """x (..., K / N) @ this rank's rows of w (K / N, M), summed over the
+    model axis: the partial product in f32 (a bf16 product with an f32
+    output on a card), one all_reduce, then the cast to the compute dtype
+    and the bias, in the single device's order."""
+    cd = cdt(cfg)
+    x2, w = x.reshape(-1, x.shape[-1]).to(cd), p["w"].to(cd)
+    if cd != torch.float32 and x2.device.type == "cuda":
+        y = torch.mm(x2, w, out_dtype=torch.float32)
+    else:
+        y = x2.to(torch.float32) @ w.to(torch.float32)
+    y = tp.all_reduce(y).to(cd).reshape(*x.shape[:-1], -1)
+    if "b" in p:
+        y = y + p["b"].to(cd)
+    return y
+
+
 # ---------------------------------------------------------------------------
 # hybrid FFN
 # ---------------------------------------------------------------------------
@@ -86,15 +120,36 @@ def ffn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         # the packed copy where the tree holds one (serving), else the
         # latent through the STE (training)
         mode = cfg.policy.binary_mode
+        tp = split_tp("ffn")
         h = binary_dense_apply_any(p["bin_in"], x, mode=mode)
-        return binary_dense_apply_any(p["bin_out"], h, mode=mode).to(x.dtype)
+        # split: bin_in's columns are this rank's own, and bin_out's integer
+        # dot over its rows is summed before the cast and the scale
+        return binary_dense_apply_any(p["bin_out"], h, mode=mode,
+                                      reduce=None if tp is None else tp.all_reduce).to(x.dtype)
+    tp = split_tp("ffn")
+    down = None if tp is None else (lambda pd, h: row_parallel(pd, h, cfg, tp))
     # binary_impl matters only where these denses are the self-draft's
     # packed ones (serving/spec.binarize_draft_params)
-    return nn.swiglu_apply(p, x, compute_dtype=cdt(cfg), binary_impl=cfg.spec_draft_impl)
+    return nn.swiglu_apply(p, x, compute_dtype=cdt(cfg), binary_impl=cfg.spec_draft_impl,
+                           down=down)
 
 
 def _dense(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return nn.dense_apply(p, x, compute_dtype=cdt(cfg), binary_impl=cfg.spec_draft_impl)
+
+
+def _out_proj(p: dict, o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """wo over the heads' outputs (B, S, H * D), row-parallel where the
+    heads are split."""
+    tp = split_tp("attn")
+    return _dense(p, o, cfg) if tp is None else row_parallel(p, o, cfg, tp)
+
+
+def cache_kv_heads(cfg: ModelConfig) -> int:
+    """KV heads a cache holds here: this rank's share where the heads are
+    split, else all of them."""
+    tp = split_tp("attn")
+    return cfg.n_kv_heads if tp is None else cfg.n_kv_heads // tp.size
 
 
 # ---------------------------------------------------------------------------
@@ -117,9 +172,10 @@ def gqa_init(cfg: ModelConfig, *, generator, device) -> dict:
 def gqa_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions):
     b, s, _ = x.shape
     dh = cfg.kv_head_dim()
-    q = _dense(p["wq"], x, cfg).reshape(b, s, cfg.n_heads, dh)
-    k = _dense(p["wk"], x, cfg).reshape(b, s, cfg.n_kv_heads, dh)
-    v = _dense(p["wv"], x, cfg).reshape(b, s, cfg.n_kv_heads, dh)
+    # -1: the heads these weights hold (a rank's share where they are split)
+    q = _dense(p["wq"], x, cfg).reshape(b, s, -1, dh)
+    k = _dense(p["wk"], x, cfg).reshape(b, s, -1, dh)
+    v = _dense(p["wv"], x, cfg).reshape(b, s, -1, dh)
     if cfg.qk_norm:
         q = nn.rmsnorm_apply(p["q_norm"], q)
         k = nn.rmsnorm_apply(p["k_norm"], k)
@@ -133,7 +189,7 @@ def gqa_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, positions):
     """Causal self attention over the full sequence, no cache."""
     q, k, v = gqa_qkv(p, x, cfg, positions)
     o = attn_lib.prefill_attention(q, k, v, chunk=cfg.attn_chunk, impl=cfg.attn_impl)
-    return _dense(p["wo"], o.reshape(*x.shape[:2], -1), cfg)
+    return _out_proj(p["wo"], o.reshape(*x.shape[:2], -1), cfg)
 
 
 def gqa_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict):
@@ -150,7 +206,7 @@ def gqa_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict):
     else:
         cache = codec.insert_span(cache, k, v)
         o = codec.decode_attention(q, cache, impl=cfg.attn_impl)
-    return _dense(p["wo"], o.reshape(*x.shape[:2], -1), cfg), cache
+    return _out_proj(p["wo"], o.reshape(*x.shape[:2], -1), cfg), cache
 
 
 def gqa_verify(p: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict):
@@ -174,7 +230,7 @@ def gqa_verify(p: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict):
     else:
         cache = codec.insert_span(cache, k, v)
         o = codec.decode_attention(q, cache, q_lens=q_lens)
-    return _dense(p["wo"], o.reshape(*x.shape[:2], -1), cfg), cache
+    return _out_proj(p["wo"], o.reshape(*x.shape[:2], -1), cfg), cache
 
 
 # ---------------------------------------------------------------------------
@@ -340,7 +396,7 @@ def block_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig, sig: BlockSig, *,
         else:
             o = attn_lib.prefill_attention(q, k, v, chunk=cfg.attn_chunk, kv_len=seq_lens,
                                            impl=cfg.attn_impl)
-        a = _dense(p["attn"]["wo"], o.reshape(b, s, -1), cfg)
+        a = _out_proj(p["attn"]["wo"], o.reshape(b, s, -1), cfg)
         cache = kvc.get_codec(cfg.kv_cache).from_prefill(k, v, max_len)
     x = x + a
     return x + _ffn(p, nn.rmsnorm_apply(p["ln2"], x), cfg, sig)[0], cache
@@ -468,7 +524,7 @@ def init_segment_caches(cfg: ModelConfig, batch: int, max_len: int,
                     "kr": torch.zeros((batch, max_len, cfg.qk_rope_dim), dtype=dtype,
                                       device=device),
                     "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
-        return codec.init(batch, max_len, cfg.n_kv_heads, cfg.kv_head_dim(), dtype,
+        return codec.init(batch, max_len, cache_kv_heads(cfg), cfg.kv_head_dim(), dtype,
                           device=device)
     return [one(block_sig(cfg, i)) for i in range(cfg.n_layers)]
 
@@ -487,7 +543,7 @@ def init_paged_segment_caches(cfg: ModelConfig, n_blocks: int, block_size: int,
                 f"segment {si} of {cfg.name!r} is MLA (use the "
                 "slot-contiguous pool for MLA families)")
     codec = kvc.get_codec(cfg.kv_cache)
-    return [kvc.init_paged(codec, n_blocks, block_size, cfg.n_kv_heads, cfg.kv_head_dim(),
+    return [kvc.init_paged(codec, n_blocks, block_size, cache_kv_heads(cfg), cfg.kv_head_dim(),
                            max_batch, n_pages, dtype, device=device)
             for _ in range(cfg.n_layers)]
 

@@ -6,7 +6,7 @@ Dispatch sorts the (token, expert) pairs by expert, keeps the first
 gathers the kept tokens into an (E, C, d) buffer, runs the experts as
 batched products, and combines each token's gated expert rows. The expert
 weights are stacks (E, K, N) on one device (the reference shards them over
-its mesh; the port's mesh is ROADMAP A9).
+its mesh; the port's expert axis is ROADMAP A9 (f)).
 
 Binary experts: the paper's technique where it pays most. The routed
 expert stacks are most of an MoE model's bytes; the router, the shared

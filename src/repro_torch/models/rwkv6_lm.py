@@ -16,6 +16,25 @@ from repro_torch.models import lm_common as lc
 from repro_torch.models import rwkv6
 from repro_torch.nn import layers as nn
 
+# path regex -> logical axes (distributed/sharding.py); first match wins
+PARAM_RULES = [
+    (r"embed/table$", ("vocab", "embed")),
+    (r"head/w$", ("embed", "vocab")),
+    (r"w_[rkvgo]/w$", ("embed", "heads")),
+    (r"w0$", ("heads",)),
+    (r"w_lora_a$", ("embed", None)),
+    (r"w_lora_b$", (None, "embed")),
+    (r"u$", ("heads",)),
+    (r"mu$", (None, "embed")),
+    (r"mu_c$", (None, "embed")),
+    (r"c_k/(w$|bin/w_latent$)", ("embed", "mlp")),
+    (r"c_k/bin/scale$", ("mlp",)),
+    (r"c_v/(w$|bin/w_latent$)", ("mlp", "embed")),
+    (r"c_v/bin/scale$", ("embed",)),
+    (r"c_r/w$", ("embed", "heads")),
+    (r"(ln1|ln2|ln_f|gn)/(scale|bias)$", ("embed",)),
+]
+
 
 def _segments(cfg: ModelConfig) -> list[tuple[int, int, bool]]:
     """[(start, count, binary)]: repro's runs of one binary flag, whose

@@ -15,6 +15,39 @@ from repro_torch.device import resolve_device
 from repro_torch.models import lm_common as lc
 from repro_torch.nn import layers as nn
 
+# path regex -> logical axes (distributed/sharding.py); first match wins
+PARAM_RULES = [
+    (r"embed/table$", ("vocab", "embed")),
+    (r"head/w$", ("embed", "vocab")),
+    (r"attn/wq/w$", ("embed", "heads")),
+    (r"attn/wq/b$", ("heads",)),
+    (r"attn/w[kv]/w$", ("embed", "kv_heads")),
+    (r"attn/w[kv]/b$", ("kv_heads",)),
+    (r"attn/wo/w$", ("heads", "embed")),
+    (r"attn/w_dq/w$", ("embed", "kv_lora")),
+    (r"attn/w_uq/w$", ("kv_lora", "heads")),
+    (r"attn/w_dkv/w$", ("embed", "kv_lora")),
+    (r"attn/w_u[kv]/w$", ("kv_lora", "heads")),
+    (r"ffn/w_(gate|up)/w$", ("embed", "mlp")),
+    (r"ffn/w_down/w$", ("mlp", "embed")),
+    (r"ffn/bin_in/w_latent$", ("embed", "mlp")),
+    (r"ffn/bin_in/scale$", ("mlp",)),
+    (r"ffn/bin_out/w_latent$", ("mlp", "embed")),
+    (r"ffn/bin_out/scale$", ("embed",)),
+    (r"ffn/router/w$", ("embed", None)),
+    (r"ffn/router/bias$", (None,)),
+    (r"ffn/w_(gate|up)$", ("expert", "embed", None)),   # MoE expert stacks
+    (r"ffn/w_down$", ("expert", None, "embed")),
+    (r"ffn/s_(mid|out)$", ("expert", None)),
+    (r"ffn/shared/w_(gate|up)/w$", ("embed", "mlp")),
+    (r"ffn/shared/w_down/w$", ("mlp", "embed")),
+    (r"(ln1|ln2|ln_f|q_norm|k_norm|kv_norm)/(scale|bias)$", ("embed",)),
+    (r"mtp/proj/w$", ("embed", "embed")),
+]
+
+# shared-expert rules must match before the generic expert-stack rules
+PARAM_RULES.sort(key=lambda r: 0 if "shared" in r[0] else 1)
+
 
 def lm_init(cfg: ModelConfig, seed: int, *, device="cuda", packed: bool = True) -> dict:
     """Random params on ``device`` from a seeded torch.Generator, with
@@ -46,16 +79,32 @@ def _mtp_sig(cfg: ModelConfig) -> lc.BlockSig:
 
 
 def _logits(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The head; where the vocab is split, each rank's columns are gathered
+    into the full row (exactly), so that the argmax and the sampler see
+    the same row on every rank."""
     x = nn.rmsnorm_apply(p["ln_f"], x)
     if cfg.tie_embeddings:
         logits = nn.embedding_logits(p["embed"], x, compute_dtype=lc.cdt(cfg))
     else:
         logits = nn.dense_apply(p["head"], x, compute_dtype=lc.cdt(cfg))
+    tp = lc.split_tp("vocab")
+    if tp is not None:
+        logits = tp.gather_last(logits)
     return lc.mask_pad_logits(logits, cfg.vocab)
 
 
 def _embed(p: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    return nn.embedding_lookup(p["embed"], tokens, compute_dtype=lc.cdt(cfg))
+    """Where the vocab is split, each rank looks up the ids in its rows,
+    leaves zeros for the rest, and the ranks' rows are summed: exact, one
+    rank holds each id."""
+    tp = lc.split_tp("vocab")
+    if tp is None:
+        return nn.embedding_lookup(p["embed"], tokens, compute_dtype=lc.cdt(cfg))
+    rows = p["embed"]["table"].shape[0]
+    local = tokens - tp.rank * rows
+    mine = (local >= 0) & (local < rows)
+    x = nn.embedding_lookup(p["embed"], torch.where(mine, local, 0), compute_dtype=lc.cdt(cfg))
+    return tp.all_reduce(x.masked_fill(~mine[..., None], 0))
 
 
 def lm_loss(params: dict, cfg: ModelConfig, batch: dict):

@@ -34,6 +34,25 @@ from repro_torch.models import lm_common as lc
 from repro_torch.nn import attention as attn_lib
 from repro_torch.nn import layers as nn
 
+# path regex -> logical axes (distributed/sharding.py); first match wins
+PARAM_RULES = [
+    (r"embed/table$", ("vocab", "embed")),
+    (r"pos_emb$", ("seq", "embed")),
+    (r"(attn|xattn)/wq/w$", ("embed", "heads")),
+    (r"(attn|xattn)/wq/b$", ("heads",)),
+    (r"(attn|xattn)/w[kv]/w$", ("embed", "kv_heads")),
+    (r"(attn|xattn)/w[kv]/b$", ("kv_heads",)),
+    (r"(attn|xattn)/wo/w$", ("heads", "embed")),
+    (r"ffn/w_(gate|up)/w$", ("embed", "mlp")),
+    (r"ffn/w_down/w$", ("mlp", "embed")),
+    (r"ffn/bin_in/w_latent$", ("embed", "mlp")),
+    (r"ffn/bin_in/scale$", ("mlp",)),
+    (r"ffn/bin_out/w_latent$", ("mlp", "embed")),
+    (r"ffn/bin_out/scale$", ("embed",)),
+    (r"head/w$", ("embed", "vocab")),
+    (r"(ln1|ln2|ln3|ln_f|ln_enc)/(scale|bias)$", ("embed",)),
+]
+
 MAX_DEC_LEN = 32768 * 2  # learned positional table upper bound
 
 

@@ -28,6 +28,27 @@ from repro_torch.nn import attention as attn_lib
 from repro_torch.nn import layers as nn
 from repro_torch.serving import kvcache as kvc
 
+# path regex -> logical axes (distributed/sharding.py); first match wins
+PARAM_RULES = [
+    (r"embed/table$", ("vocab", "embed")),
+    (r"head/w$", ("embed", "vocab")),
+    (r"in_zx/(w$|bin/w_latent$)", ("embed", "mlp")),
+    (r"in_zx/bin/scale$", ("mlp",)),
+    (r"in_bcdt/w$", ("embed", None)),
+    (r"out/(w$|bin/w_latent$)", ("mlp", "embed")),
+    (r"out/bin/scale$", ("embed",)),
+    (r"conv_w$", (None, "dconv")),
+    (r"conv_b$", ("dconv",)),
+    (r"(a_log|d_skip|dt_bias)$", (None,)),
+    (r"gnorm/scale$", ("mlp",)),
+    (r"shared/attn/wq/w$", ("embed", "heads")),
+    (r"shared/attn/w[kv]/w$", ("embed", "kv_heads")),
+    (r"shared/attn/wo/w$", ("heads", "embed")),
+    (r"shared/ffn/w_(gate|up)/w$", ("embed", "mlp")),
+    (r"shared/ffn/w_down/w$", ("mlp", "embed")),
+    (r"(norm|ln1|ln2|ln_f)/(scale|bias)$", ("embed",)),
+]
+
 
 def _flags(cfg: ModelConfig) -> list[bool]:
     return [cfg.policy.block_is_binary(i, cfg.n_layers) for i in range(cfg.n_layers)]

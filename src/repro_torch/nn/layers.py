@@ -143,13 +143,17 @@ def swiglu_init(dim: int, hidden: int, *, generator, device,
 
 
 def swiglu_apply(p: dict, x: torch.Tensor, *, compute_dtype=torch.bfloat16,
-                 binary_impl: str = "auto"):
+                 binary_impl: str = "auto", down=None):
     """silu in f32, as repro/models/lm_common.py:88. ``binary_impl`` picks
-    the packed lowering where the denses are the self-draft's packed ones."""
+    the packed lowering where the denses are the self-draft's packed ones;
+    ``down(p["w_down"], h)``, where given, takes the last product's place
+    (a row-parallel one on a mesh)."""
     kw = dict(compute_dtype=compute_dtype, binary_impl=binary_impl)
     g = dense_apply(p["w_gate"], x, **kw)
     u = dense_apply(p["w_up"], x, **kw)
     h = F.silu(g.to(torch.float32)).to(compute_dtype) * u
+    if down is not None:
+        return down(p["w_down"], h)
     return dense_apply(p["w_down"], h, **kw)
 
 

@@ -15,6 +15,12 @@ Mamba2 states and its shared block's codec caches) and rwkv6 (per-block
 recurrent states), which the serving launcher sends here, as repro's does. Sampling (``temperature > 0``) splits one key per step
 from PRNGKey(seed) and draws the whole group's rows from it, with JAX's
 bits (serving/sampling.py), so the tokens equal repro's.
+
+``mesh=`` (a DeviceMesh with one ``model`` axis, one process a rank) serves
+tensor-parallel as ServeEngine's does (serving/engine.py): each rank cuts
+its shard of ``params`` and runs the sharded forward, and every rank gets
+the same tokens. GQA dense family only; the recurrent families on a mesh
+are ROADMAP A9 (f).
 """
 
 from __future__ import annotations
@@ -40,14 +46,18 @@ class BucketEngine:
     def __init__(self, api, params, *, max_batch: int = 8, max_len: int = 512,
                  temperature: float = 0.0, seed: int = 0, attn_impl: str | None = None,
                  kv_cache: str | None = None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("tensor-parallel serving (mesh) is not ported yet "
-                                      "(ROADMAP A9)")
         overrides = {k: v for k, v in (("attn_impl", attn_impl), ("kv_cache", kv_cache))
                      if v is not None}
         if overrides:
             from repro_torch.models import get_model
             api = get_model(api.cfg.replace(**overrides))
+        self.mesh = mesh
+        if mesh is not None:
+            from repro_torch.distributed.sharding import scoped_api
+            from repro_torch.launch import specs
+            self.tp, self._mesh_rules = specs.mesh_tensor_parallel(api.cfg, mesh)
+            params = specs.shard_params(api, params, mesh, self.tp, self._mesh_rules)
+            api = scoped_api(api, self.tp)
         self.api, self.params = api, params
         self.device = params["embed"]["table"].device
         self.max_batch, self.max_len = max_batch, max_len

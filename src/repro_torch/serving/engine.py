@@ -82,8 +82,22 @@ graphs, and TTFT / ITL are stamped after the tick's existing token read.
 ``add_request(stream=)`` delivers each token, then None at the finish, to
 a callback (the HTTP front door's seam, launch/server.py).
 
-Not ported yet, and refused with the ROADMAP item that ports them: meshes
-(A9).
+Tensor-parallel serving (``mesh=``, a DeviceMesh with one ``model`` axis
+from launch/mesh.make_mesh, one process a rank; GQA dense family): each
+rank cuts its shard of ``params`` by the rules (launch/specs.shard_params:
+attention heads, the FFN hidden width and the vocab split, the rest
+replicated) and allocates its own heads of the pool; the model runs the
+sharded forward (models/lm_common.py) with its all_reduces over the
+``model`` group. The logits are gathered whole on every rank and every
+rank runs the same host scheduling, so the ticks, the tokens and the
+results are the same on every rank. ``stats["kv_bytes"]`` stays the whole
+pool's bytes and ``stats["kv_bytes_per_device"]`` is the rank's. A mesh
+engine runs eagerly: gloo's collectives cannot be captured in a CUDA
+graph, so ``cuda_graphs=None`` (the default) means graphs without a mesh
+and none with one, and ``cuda_graphs=True`` with a mesh raises. Not ported
+yet on a mesh, and refused with the ROADMAP item that ports them:
+speculative decoding, interleaved prefill and graphs (A9 (g)), and every
+family but the GQA dense one (A9 (f)).
 """
 
 from __future__ import annotations
@@ -94,6 +108,7 @@ import logging
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import scoped_api
 from repro_torch.kernels.ops import SPEC_DRAFT_IMPLS
 from repro_torch.serving import kvcache as kvc
 from repro_torch.serving import sampling
@@ -177,10 +192,7 @@ class ServeEngine:
                  spec_draft_impl: str | None = None, mesh=None, prefill_chunk: int = 0,
                  telemetry=None, interleave: bool = False, slices_per_tick: int = 1,
                  scheduler: str = "fifo", starvation_limit: int = 64,
-                 cuda_graphs: bool = True):
-        if mesh is not None:
-            raise NotImplementedError("tensor-parallel serving (mesh) is not ported yet "
-                                      "(ROADMAP A9)")
+                 cuda_graphs: bool | None = None):
         if spec_draft_impl is not None and spec_draft_impl not in SPEC_DRAFT_IMPLS:
             raise ValueError(f"unknown spec_draft_impl {spec_draft_impl!r}: "
                              f"expected one of {SPEC_DRAFT_IMPLS}")
@@ -226,6 +238,20 @@ class ServeEngine:
                              "families only — the verify path); use interleave=False")
         if scheduler not in ("fifo", "slo"):
             raise ValueError(f"unknown scheduler {scheduler!r}: expected 'fifo' or 'slo'")
+        self.mesh = mesh
+        if mesh is not None:
+            for on, what in ((spec_k, "speculative decoding (spec_k > 0)"),
+                             (self.interleave, "interleaved prefill"),
+                             (cuda_graphs, "CUDA graphs (gloo collectives cannot be "
+                                           "captured)")):
+                if on:
+                    raise NotImplementedError(f"{what} on a mesh is not ported yet "
+                                              "(ROADMAP A9 (g))")
+            from repro_torch.launch import specs
+            self.tp, self._mesh_rules = specs.mesh_tensor_parallel(api.cfg, mesh)
+            params = specs.shard_params(api, params, mesh, self.tp, self._mesh_rules)
+            whole_api, api = api, scoped_api(api, self.tp)
+        cuda_graphs = mesh is None if cuda_graphs is None else cuda_graphs
         self.api, self.params = api, params
         self.device = params["embed"]["table"].device
         self.max_batch, self.max_len = max_batch, max_len
@@ -271,8 +297,19 @@ class ServeEngine:
         self.step_count = 0
         self.stats = {k: 0 for k in STATS_SCHEMA}
         self.stats["kv_bytes"] = kvc.kv_pool_bytes(self.caches)
-        # one device until ROADMAP A9 shards the pool
         self.stats["kv_bytes_per_device"] = self.stats["kv_bytes"]
+        if mesh is not None:
+            # self.caches is this rank's shard: the whole pool is described
+            # on the meta device, never allocated
+            whole = (whole_api.init_paged_cache(self.n_blocks, self.block_size, max_batch,
+                                                self.n_pages, device="meta")
+                     if self.paged else whole_api.init_cache(max_batch, max_len, "meta"))
+            per_device = kvc.kv_pool_bytes_per_device(whole, mesh, self._mesh_rules)
+            if per_device != self.stats["kv_bytes"]:
+                raise RuntimeError(f"the rank's pool holds {self.stats['kv_bytes']} bytes, its "
+                                   f"shard of the whole pool {per_device}")
+            self.stats["kv_bytes"] = kvc.kv_pool_bytes(whole)
+            self.stats["kv_bytes_per_device"] = per_device
         if self.tm is not None:
             self.tm.engine_started(kv_bytes=self.stats["kv_bytes"],
                                    kv_bytes_per_device=self.stats["kv_bytes_per_device"],

@@ -45,6 +45,8 @@ kernel a layer on the quantized codecs) and attends with per-query lengths
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.core.binarize import packed_len
@@ -119,6 +121,73 @@ def kv_pool_byte_breakdown(caches: list) -> dict:
                     else "scales" if name.endswith("_s") else "values")
             out[role] += _leaf_bytes(c, name, t)
     return out
+
+
+# ---------------------------------------------------------------------------
+# cache sharding (repro/serving/kvcache.py:128-198)
+#
+# Every codec's layout obeys one naming convention, which makes the rule
+# name-driven instead of shape-driven:
+#
+#   values leaves  k, v, ek, ev, k_q, v_q, k_p, v_p   head axis at dim -2,
+#                                                     time axis at dim -3
+#   scale leaves   k_s, v_s                           head axis at dim -1,
+#                                                     time axis at dim -2
+#   index leaves   len, table                         replicated (host-
+#                                                     driven scatters)
+#
+# and any leading dims (the slot batch or a paged pool's block axis) are
+# unsharded. MLA's compressed ``c`` / ``kr`` leaves have no head axis and
+# stay replicated. The same spec covers the contiguous pool (B, T, H, D),
+# the paged pool (n_blocks + 1, block, H, D) and prefill outputs: a rank
+# holds its heads of every one of them.
+# ---------------------------------------------------------------------------
+
+_KV_VALUE_LEAVES = frozenset(["k", "v", "ek", "ev", "k_q", "v_q", "k_p", "v_p"])
+_KV_SCALE_LEAVES = frozenset(["k_s", "v_s"])
+
+
+def cache_partition_specs(caches, mesh, mesh_rules):
+    """A spec tree (distributed/sharding.py) for a cache pool of either
+    layout and any codec. ``mesh`` needs only axis names (a stand-in will
+    do); ``mesh_rules`` comes from launch/specs.mesh_rules_for, so that the
+    head-count fallbacks apply."""
+    from repro_torch.distributed.sharding import axis_names
+    from repro_torch.tree import tree_leaves_with_path, tree_unflatten_like
+    names = axis_names(mesh)
+    head = mesh_rules.mesh_axes("cache_heads", names)
+    seq = mesh_rules.mesh_axes("cache_seq", names)
+
+    def spec_for(path, leaf):
+        name = path.rsplit("/", 1)[-1]
+        if name in _KV_VALUE_LEAVES:
+            return (None,) * (leaf.ndim - 3) + (seq, head, None)
+        if name in _KV_SCALE_LEAVES:
+            return (None,) * (leaf.ndim - 2) + (seq, head)
+        return ()
+    return tree_unflatten_like(caches, [spec_for(p, t) for p, t in
+                                        tree_leaves_with_path(caches)])
+
+
+def kv_pool_bytes_per_device(caches: list, mesh=None, mesh_rules=None) -> int:
+    """The bytes of kv_pool_bytes that each device holds of the whole pool
+    ``caches`` (shapes suffice) under cache_partition_specs: kv_pool_bytes
+    itself without a mesh, about kv_bytes / N with the head axis split N
+    ways."""
+    if mesh is None:
+        return kv_pool_bytes(caches)
+    from repro_torch.distributed.sharding import shard_shape
+    specs = cache_partition_specs(caches, mesh, mesh_rules)
+    total = 0
+    for c, spec in zip(caches, specs):
+        for name, t in c.items():
+            if name in _INDEX_LEAVES:
+                continue
+            shape = list(t.shape)
+            if "table" in c:
+                shape[0] -= 1              # a paged layer's spare hole block
+            total += math.prod(shard_shape(shape, spec[name], mesh)) * t.element_size()
+    return total
 
 
 # ---------------------------------------------------------------------------

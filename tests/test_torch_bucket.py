@@ -9,6 +9,8 @@ picks' gumbel maxima at these few tokens. Also the launcher's
 ``--engine bucket``, in-process on the CPU.
 """
 
+import collections
+
 import numpy as np
 import pytest
 
@@ -69,8 +71,11 @@ def test_bucket_engine_validates_and_refuses_mesh(models):
     for prompt, max_new in (([], 4), ([1, 2], 0), (list(range(14)), 4)):
         with pytest.raises(ValueError):
             eng.add_request(prompt, max_new=max_new)
+    # a mesh serves on a `model` axis alone: a data axis is ROADMAP A9 (c)
+    mesh = collections.namedtuple("Mesh", "axis_names shape")(("data", "model"),
+                                                               {"data": 2, "model": 1})
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        BucketEngine(api, params, mesh=object())
+        BucketEngine(api, params, mesh=mesh)
 
 
 @pytest.mark.parametrize("seed,num", [(0, 2), (7, 3), (2 ** 31 - 1, 5)])

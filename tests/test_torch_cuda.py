@@ -1496,3 +1496,46 @@ def test_qk_norm_spec_g4_binary_pool_replay_equals_eager(dev):
     assert launches[1]["kv_decode_binary"] == cfg.n_layers * (k + 2) * waves
     n_float = sum(not cfg.policy.block_is_binary(i, cfg.n_layers) for i in range(cfg.n_layers))
     assert launches[1]["binary_matmul"] == 3 * n_float * k * waves
+
+
+MESH_CELLS = [("bf16", 0), ("bf16", 8), ("int8", 0), ("int8", 8)]
+
+
+def _mesh_serve(api, params, prompts, mesh=None, **kw):
+    eng = ServeEngine(api, params, max_batch=2, max_len=64, mesh=mesh,
+                      cuda_graphs=False if mesh is None else None, **kw)
+    rids = [eng.add_request(p, max_new=8) for p in prompts]
+    res = eng.run()
+    return [res[r] for r in rids], eng.stats["kv_bytes"], eng.stats["kv_bytes_per_device"]
+
+
+def _mesh_rank_on_card(rank, world, lm):
+    """One gloo rank on the shared card: every MESH_CELLS cell."""
+    from repro_torch.launch.mesh import make_mesh, rank_device
+    dev = rank_device(rank, "cuda")
+    torch.cuda.set_device(dev)
+    mesh = make_mesh((world,), ("model",))
+    cfg, params = lm
+    api = get_model(cfg)
+    params = _to(params, dev)
+    prompts = [_markov(3 + i, 7 + (i % 4), cfg.vocab) for i in range(5)]
+    return {f"{kv} {bs}": _mesh_serve(api, params, prompts, mesh, kv_cache=kv, kv_block_size=bs)
+            for kv, bs in MESH_CELLS}
+
+
+def test_mesh_tokens_on_card(dev, markov_lm):
+    """Tensor-parallel serving with two gloo ranks sharing the card
+    (launch/mesh.spawn): the trained LM's tokens on bf16 and int8,
+    contiguous and paged, equal the single-device engine's on the card, and
+    each rank holds half the pool's bytes."""
+    from repro_torch.launch.mesh import spawn
+    cfg, api, params = markov_lm
+    prompts = [_markov(3 + i, 7 + (i % 4), cfg.vocab) for i in range(5)]
+    on_card = _to(params, dev)
+    want = {f"{kv} {bs}": _mesh_serve(api, on_card, prompts, kv_cache=kv, kv_block_size=bs)
+            for kv, bs in MESH_CELLS}
+    for rank_out in spawn(_mesh_rank_on_card, 2, backend="gloo", args=((cfg, params),),
+                          timeout=600):
+        for cell, (tokens, kv_bytes, per_device) in rank_out.items():
+            assert tokens == want[cell][0], cell
+            assert per_device * 2 == kv_bytes == want[cell][1], cell

@@ -10,6 +10,8 @@ cannot carry a claim of token identity across frameworks: sign() turns a
 1-ulp difference into an O(1) jump.)
 """
 
+import collections
+
 import numpy as np
 import pytest
 
@@ -134,14 +136,16 @@ def test_bad_requests_raise_admission_error(engines, prompt, max_new, code):
 
 
 def test_unported_engine_options_raise(engines):
-    """Only a mesh is refused now (ROADMAP A9); interleaved and chunked
-    prefill, the SLO scheduler and telemetry (A6), sampling and speculation
-    (A5) construct and serve."""
+    """Only speculation, interleaving and graphs on a mesh are refused now
+    (ROADMAP A9 (g)); interleaved and chunked prefill, the SLO scheduler and
+    telemetry (A6), sampling and speculation (A5) construct and serve."""
     from repro_torch.serving.telemetry import Telemetry
     make, vocab = engines
     _, teng = make(max_batch=2, max_len=32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        ServeEngine(teng.api, teng.params, max_batch=2, max_len=32, mesh=object())
+    mesh = collections.namedtuple("Mesh", "axis_names shape")(("model",), {"model": 2})
+    for kw in ({"spec_k": 2}, {"interleave": True}, {"cuda_graphs": True}):
+        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+            ServeEngine(teng.api, teng.params, max_batch=2, max_len=32, mesh=mesh, **kw)
     want = _drive(teng, [(_markov(3, 9, vocab), 4, {})])
     for kw in ({"interleave": True}, {"interleave": True, "prefill_chunk": 4},
                {"scheduler": "slo"}, {"telemetry": Telemetry()},
