@@ -76,7 +76,8 @@ Phases, one output line each (or a few), every failure raising:
      registers) for int8 and binary on the contiguous pool and a paged pool
      (block 16, shuffled blocks, holes past each length) at B 8, T 256,
      lengths {144, 100, 17, 1, 0, 256, 48, 128}, 32 heads of 80 with bf16
-     and f32 q, G 4 (Hq 32, Hkv 8), D 64 and 128: rows with len >= 1
+     and f32 q, G 4 (Hq 32, Hkv 8), D 64 and 128, a mesh rank's 16 heads,
+     qwen3-8b's 32 / 8 heads of 128 and qwen2-72b's 64 / 8: rows with len >= 1
      within 1e-4 (f32 q) / 2e-2 (bf16 q) of the plain version, len-0 rows
      zeros, the same bits on a second call and on both pools; times beside
      the plain recurrence, the earlier loop of per-block B4b / B4d
@@ -312,6 +313,29 @@ Phases, one output line each (or a few), every failure raising:
      giving the tokens of an engine on the restored params; then
      examples/binary_llm (float and hybrid, 120 steps), both losses
      falling; every run's launches exact;
+ 11b. train_mesh: sharded training on two gloo ranks sharing this card.
+     (a) stablelm-3b at full width and depth through the launcher's rank
+     function (launch.train --mesh 1x2:data,model --backend gloo, 4 steps
+     of 8 x 128, remat "block"): a rank holds 16 of 32 heads, d_ff 3456
+     and half the vocab; per rank the step ms, the all_reduces a step
+     (counted and timed by a wrapper around torch.distributed.all_reduce,
+     a device sync on either side), the peak memory and B2 / B3 launches a
+     step, exactly 112 / 64 at the shard's (N, K); step 0's loss within
+     1e-2 and its grad norm within 5e-2 of the train phase's first ones
+     (the same params and batch; the norm catches a gradient summed twice,
+     which AdamW's steps would not show), the loss lower at step 4 than at
+     step 1, both ranks' losses equal.
+     (b) data parallel at full width cut to 8 layers (blocks 2..5 binary):
+     --mesh 2x1 through make_train_step(plan=), 4 steps, each rank 4 of the
+     8 rows: the gradient all_reduce's bytes and ms a step; step 0's loss
+     within 1e-2 and its grad norm within 5e-2 of one device's at the cut
+     on the same global batch.
+     (c) on (b)'s gradients one full-precision sync (f32 buckets) and one
+     1-bit sync (int8 signs and f32 scales, train/manual_dp.py) timed, with
+     the bytes each hands to its all_reduces; then examples/onebit_dp on the
+     card (4 gloo ranks, 40 steps): both loss curves fall (the mean of the
+     last 5 below the first 5's). B2 at (b)'s M 512 is a row of phase 3;
+     B3 at (a)'s 16 heads is phase 6f's row;
  12. a JSON line of the nine kernels and the two kv_decode wrappers:
      launches summed over the paths (B2, B3, B4a-d and kv_decode on the
      serving, families and recurrent paths, B2 and B3 on the training
@@ -323,12 +347,17 @@ Phases, one output line each (or a few), every failure raising:
 and last, ``{"ok": true, "device": {...}}``. Without a GPU it exits non-zero
 and prints no result. Kernel times are CUDA-event medians of the device's
 time for one call, with the 50 MB L2 flushed before each timed call (the
-serving path meets its weights cold).
+serving path meets its weights cold). Every trace records CUDA activity
+only (what is read from it is the device's kernel events, and an eager
+run's host ops would cost tens of seconds of the time limit to record
+and sort) and ends with a pad of kernels that are not ours (trace_pad),
+without which it can lose the records of the traced run's last kernels.
 Every phase's lines also go to build/chip_smoke.json.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import gc
 import json
@@ -543,6 +572,10 @@ INT8_CASES = [  # (name, M, N, K)
     ("mesh 2 decode bin_out", 8, 2560, 3456),
     ("mesh 2 prefill bin_in", 1024, 3456, 2560),
     ("mesh 2 prefill bin_out", 1024, 2560, 3456),
+    # a data-parallel rank's prefill in the train_mesh phase: 4 of 8 rows
+    # x 128 tokens of stablelm-3b's full-width FFN
+    ("train mesh 2x1 bin_in M 512", 512, 6912, 2560),
+    ("train mesh 2x1 bin_out M 512", 512, 2560, 6912),
 ]
 # activations drawn from all of [-128, 127]: the kernel is exact for any
 # int8, and so are the plain f32 version and the yardsticks (|sum| < 2**24)
@@ -933,10 +966,9 @@ def _counted_run(label, api, params, prompts, staged=False, profiled=False, **kw
     events must equal the counts plus the graph's warm-up (one eager step,
     which the counts leave out as set-up).
     -> (tokens, wall s, engine, counts, profiler or None)"""
-    from torch.profiler import ProfilerActivity, profile
     zero_counts()
     if profiled:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with _trace() as prof:
             out, wall, eng = _serve_once(api, params, prompts, staged=staged, **kw)
     else:
         prof = None
@@ -958,10 +990,36 @@ def _counted_run(label, api, params, prompts, staged=False, profiled=False, **kw
     return out, wall, eng, launches, prof
 
 
+# a trace stopped right after a run loses the records of the run's last
+# kernels: tools/trace_drops.py's traces of zamba2's eager group lost 3 and
+# 16 of 1,609 in 2 of 8 trials, each at the end only, and none in 8 trials
+# ended by a pad of 4,096 small kernels that are not ours
+TRACE_PAD = 4096
+PAD_KERNEL = "spin_kernel"      # torch.cuda._sleep's
+
+
+def trace_pad() -> None:
+    """TRACE_PAD launches of torch.cuda._sleep's spin kernel (one cycle
+    each), then a device sync: run inside a trace after the traced work, it
+    keeps the trace from losing the records of that work's last kernels.
+    _profile_summary leaves its kernels out."""
+    for _ in range(TRACE_PAD):
+        torch.cuda._sleep(1)
+    torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def _trace():
+    """A torch.profiler trace of CUDA activity only, ended by trace_pad."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        yield prof
+        trace_pad()
+
+
 def _profile(api, params, prompts, wall_unprofiled: float, **kw) -> dict:
     """The summary below of one profiled serving run."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with _trace() as prof:
         out, wall, _ = _serve_once(api, params, prompts, **kw)
     return {"out": out, **_profile_summary(prof, wall, wall_unprofiled)}
 
@@ -974,7 +1032,8 @@ def _profile_summary(prof, wall: float, wall_unprofiled: float) -> dict:
     from torch.autograd import DeviceType
     per_kernel = {}     # device-side events only: a CPU op's device time repeats its kernels'
     for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0:
+        if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0 and \
+                PAD_KERNEL not in evt.key:
             per_kernel[evt.key] = (evt.self_device_time_total / 1e3, evt.count)
     fam: dict[str, float] = {}
     for name, (ms, _) in per_kernel.items():
@@ -1985,9 +2044,8 @@ def _encdec(arch, dev, card) -> tuple[dict, dict]:
     out2, prefill2, decode2 = _greedy(api, params, batch, steps, max_len)
     if not torch.equal(out2, out):
         raise AssertionError(f"{arch}: a second run gave other tokens")
-    from torch.profiler import ProfilerActivity, profile
     zero_counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with _trace() as prof:
         out3, prefill3, decode3 = _greedy(api, params, batch, steps, max_len)
     if counts() != launches or not torch.equal(out3, out):
         raise AssertionError(f"{arch}: the traced run differs: {counts()}, {launches}")
@@ -2183,7 +2241,6 @@ def _recurrent_path(arch, label, api, params, prompts, n_binary, n_shared, card)
     (CUDA activity only: an eager step's host ops would be ~25,000 trace
     events), its launches exact and the trace's kernel events the counts or
     one fewer: its busy share and device ms by family."""
-    from torch.profiler import ProfilerActivity, profile
     lab = f"{arch} {label}"
     zero_counts()
     out, wall, calls = _bucket_once(api, params, prompts)
@@ -2202,7 +2259,7 @@ def _recurrent_path(arch, label, api, params, prompts, n_binary, n_shared, card)
     group = [p for p in prompts if len(p) == longest]
     g_out, g_wall, _ = _bucket_once(api, params, group)
     zero_counts()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with _trace() as prof:
         g_out2, g_wall_traced, g_calls = _bucket_once(api, params, group)
     g_launches = counts()
     if g_out2 != g_out or g_launches != _recurrent_launches(label, g_calls, n_binary, n_shared):
@@ -2608,11 +2665,13 @@ def _mesh_kernels_16_heads(dev, gen, timer) -> dict:
             raise AssertionError(f"16 heads: kv_decode {kv} vs plain: {err}")
         leaves = {n: t for n, t in cache.items() if n != "len"}
         ms = timer(lambda: kvq.kv_insert(kv, leaves, k, v, lens))
+        work = {n: t.clone() for n, t in leaves.items()}
+        plain_ms = timer(lambda: kvq.kv_insert_plain(kv, work, k, v, lens), reps=10)
         nbytes, ops = _insert_bytes_ops(kv, DECODE_B * MESH_INSERT_H, INSERT_D, 2,
                                         DECODE_B * MESH_INSERT_H)
         b_ms, b_by = bound(nbytes, ops, F32_FLOPS)
-        out[kv] = dict(insert_same_bits=True, insert_ms=ms, insert_bound_ms=b_ms,
-                       insert_bound_by=b_by, kv_decode_max_abs_err=err)
+        out[kv] = dict(insert_same_bits=True, insert_ms=ms, insert_plain_ms=plain_ms,
+                       insert_bound_ms=b_ms, insert_bound_by=b_by, kv_decode_max_abs_err=err)
     return out
 
 
@@ -3038,6 +3097,9 @@ DECODE_CASES = [  # (name, Hq, Hkv, D, q dtype) at B 8, T 256, S 1
     ("D 64, bf16 q", 32, 32, 64, torch.bfloat16),
     ("D 128, f32 q", 32, 32, 128, torch.float32),
     ("mesh 2 shard (8, 1, 16, 80), bf16 q", 16, 16, 80, torch.bfloat16),
+    # the families phase's decode: qwen3-8b (G 4) and qwen2-72b (G 8), D 128
+    ("qwen3-8b (8, 1, 32 / 8 x 128), bf16 q", 32, 8, 128, torch.bfloat16),
+    ("qwen2-72b (8, 1, 64 / 8 x 128), bf16 q", 64, 8, 128, torch.bfloat16),
 ]
 # f32 q: the kernel and the plain version sum in other orders; bf16 q: the
 # output's rounding, tests/test_kvcache.py's fused-decode tolerance
@@ -3650,7 +3712,6 @@ def phase_train(dev, card: str) -> dict:
     checkpoint, resume and serve round trip; examples/binary_llm."""
     import gc
     import shutil
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.binary_dense import pack_tree
     from repro_torch.data.synthetic import SyntheticTokens
@@ -3708,7 +3769,7 @@ def phase_train(dev, card: str) -> dict:
     step = make_train_step(api, cfg, peak_lr=3e-4, warmup=1, total=TRAIN_STEPS)
     opt = adamw_init(params)
     zero_counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with _trace() as prof:
         t0 = time.perf_counter()
         params, opt, m = step(params, opt, batch)
         float(m["loss"])
@@ -3809,6 +3870,224 @@ def phase_train(dev, card: str) -> dict:
                                  for tag, out in bl.items()})
     log("train_smoke", **smoke_row)
     return {**row, "smoke": smoke_row, "all_launches": [launches, *runs]}
+
+
+# ---------------------------------------------------------------------------
+# phase 11b: sharded training on two gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+TRAIN_MESH_STEPS = 4
+TRAIN_MESH_N = 2
+# lr 3e-3 (the smoke runs'): at the launcher's 3e-4 four steps move a
+# random full-width model's loss by less than its step-to-step noise
+TP_ARGV = TRAIN_ARGV[:2] + ["--steps", str(TRAIN_MESH_STEPS), "--batch", "8", "--seq", "128",
+                            "--lr", "3e-3", "--mesh", "1x2:data,model", "--backend", "gloo"]
+DP_LAYERS = 8                 # (b)'s depth cut: blocks 2..5 binary
+LOSS_REL = 1e-2               # a mesh's step-0 loss against one device's, bf16
+# a mesh's step-0 grad norm against one device's (the card test's bf16 bar):
+# AdamW does not see a gradient's scale, so the loss cannot show a
+# collective whose backward sums a gradient twice (x N); this can. PR 27's
+# runs read 5.4779 on each rank against 5.4628 (2.8e-3)
+GNORM_REL = 5e-2
+
+
+def _counted_all_reduces() -> dict:
+    """Count, size and time every torch.distributed.all_reduce from here
+    on (a device sync on either side, so a call's ms is its own) ->
+    the running totals."""
+    import torch.distributed as dist
+    stats = {"calls": 0, "bytes": 0, "ms": 0.0}
+    real = dist.all_reduce
+
+    def counted(t, *args, **kw):
+        if t.is_cuda:
+            torch.cuda.synchronize(t.device)
+        t0 = time.perf_counter()
+        out = real(t, *args, **kw)
+        if t.is_cuda:
+            torch.cuda.synchronize(t.device)
+        stats["ms"] += (time.perf_counter() - t0) * 1e3
+        stats["calls"] += 1
+        stats["bytes"] += t.numel() * t.element_size()
+        return out
+    dist.all_reduce = counted
+    return stats
+
+
+def _per_step(stats: dict, steps: int) -> dict:
+    return {"all_reduces": stats["calls"] / steps, "all_reduce_bytes": stats["bytes"] / steps,
+            "all_reduce_ms": stats["ms"] / steps}
+
+
+def _train_mesh_rank(rank: int, world: int, job: dict) -> dict:
+    """One rank of phase 11b: (a) the launcher's rank function at
+    --mesh 1x2, (b) the 8-layer data-parallel cut at 2x1, (c) the two
+    syncs on (b)'s gradients."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.synthetic import SyntheticTokens
+    from repro_torch.launch import specs
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import make_mesh, rank_device
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.manual_dp import (init_error_feedback, onebit_psum_grads,
+                                             onebit_wire_bytes)
+    from repro_torch.train.step import loss_and_grads, make_train_step
+    dev = rank_device(rank, "cuda")
+    torch.cuda.set_device(dev)
+    out = {"rank": rank, "device": str(dev)}
+    stats = _counted_all_reduces()
+
+    # (a) tensor parallel, full width and depth, through the launcher
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    hist = train_cli._mesh_rank(rank, world, TP_ARGV)
+    torch.cuda.synchronize()
+    out["tp"] = dict(losses=[h["loss"] for h in hist], grad_norms=[h["grad_norm"] for h in hist],
+                     step_ms=[1e3 * h["step_s"] for h in hist], launches=counts(),
+                     peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                     wall_s=time.perf_counter() - t0,
+                     **_per_step(stats, TRAIN_MESH_STEPS))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) data parallel at the depth cut, through make_train_step(plan=)
+    cfg = get_config("stablelm-3b").replace(n_layers=DP_LAYERS)
+    api = get_model(cfg)
+    plan = specs.mesh_train_plan(cfg, make_mesh((2, 1), ("data", "model")),
+                                 ShapeSpec("dp", 128, 8, "train"))
+    params = plan.shard(api, api.init(SEED, device=dev, packed=False))
+    opt = adamw_init(params)
+    step = make_train_step(api, cfg, peak_lr=3e-4, warmup=1, total=TRAIN_MESH_STEPS, plan=plan)
+    data = SyntheticTokens(cfg.vocab, 128, 8, seed=SEED)
+    rows = lambda b: {k: torch.from_numpy(plan.dp.rows(v)).to(dev)  # noqa: E731
+                      for k, v in b.items()}
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    stats.update(calls=0, bytes=0, ms=0.0)
+    losses, grad_norms, step_ms = [], [], []
+    for _ in range(TRAIN_MESH_STEPS):
+        batch = rows(next(data))
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+        grad_norms.append(float(m["grad_norm"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    out["dp"] = dict(losses=losses, grad_norms=grad_norms, step_ms=step_ms, launches=counts(),
+                     peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                     **_per_step(stats, TRAIN_MESH_STEPS))
+    del opt
+
+    # (c) one full-precision and one 1-bit sync of (b)'s gradients
+    _, _, grads = loss_and_grads(api, params, rows(next(data)))
+    leaves = tree_leaves(grads)
+    err = init_error_feedback(grads)
+    syncs = {}
+    for name, fn, nbytes in (
+            ("fp32", lambda: plan.dp.mean([g.to(torch.float32) for g in leaves]),
+             4 * sum(g.numel() for g in leaves)),
+            ("onebit", lambda: onebit_psum_grads(grads, err, plan.dp.group),
+             onebit_wire_bytes(grads))):
+        fn()                                  # warm: gloo's buffers, the allocator
+        stats.update(calls=0, bytes=0, ms=0.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        syncs[name] = dict(ms=(time.perf_counter() - t0) * 1e3, bytes=nbytes,
+                           all_reduces=stats["calls"], all_reduce_bytes=stats["bytes"],
+                           all_reduce_ms=stats["ms"])
+        if stats["bytes"] != nbytes:
+            raise AssertionError(f"{name} sync handed {stats['bytes']} bytes to all_reduce, "
+                                 f"want {nbytes}")
+    out["syncs"] = syncs
+    out["grad_elements"] = sum(g.numel() for g in leaves)
+    return out
+
+
+def phase_train_mesh(dev, card: str, train: dict) -> dict:
+    """Sharded training (module note, 11b) -> {"row", "launches"}."""
+    from repro_torch.data.synthetic import SyntheticTokens
+    from repro_torch.examples import onebit_dp
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.optim.adamw import clip_by_global_norm
+    from repro_torch.train.step import loss_and_grads
+    _free(dev)
+    t0 = time.perf_counter()
+    cfg = get_config("stablelm-3b")
+    cut = cfg.replace(n_layers=DP_LAYERS)
+    binary = [i for i in range(DP_LAYERS) if cut.policy.block_is_binary(i, DP_LAYERS)]
+    if binary != [2, 3, 4, 5]:
+        raise AssertionError(f"the depth cut's binary blocks are {binary}")
+    # one device's loss and grad norm at the cut, on the global batch
+    # (b)'s ranks split
+    api = get_model(cut)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in next(SyntheticTokens(cut.vocab, 128, 8, seed=SEED)).items()}
+    _, metrics, grads = loss_and_grads(api, api.init(SEED, device=dev, packed=False), batch)
+    cut_loss = float(metrics["loss"])
+    cut_gnorm = float(clip_by_global_norm(grads, 1.0)[1])
+    del batch, metrics, grads
+    _free(dev)
+
+    t_ranks = time.perf_counter()
+    ranks = spawn(_train_mesh_rank, TRAIN_MESH_N, backend="gloo", args=({},), timeout=900)
+    ranks_s = time.perf_counter() - t_ranks
+    # (c) the example on the card: 4 gloo ranks, fp32 against 1-bit
+    t_ex = time.perf_counter()
+    example = onebit_dp.main([])
+    example_s = time.perf_counter() - t_ex
+    single_loss, single_gnorm = train["losses"][0], train["grad_norms"][0]
+
+    def rank_rows(what):
+        return [r[what] for r in ranks]
+    row = dict(card=card, world=TRAIN_MESH_N, backend="gloo",
+               devices=[r["device"] for r in ranks],
+               tp=dict(argv=TP_ARGV, shard=dict(heads=16, d_ff=3456, vocab_rows=25216,
+                                               bin_in_nk=[3456, 2560], bin_out_nk=[2560, 3456]),
+                       single_device_first_loss=single_loss,
+                       single_device_first_grad_norm=single_gnorm,
+                       launches_per_step=_train_launches(cfg, 1), ranks=rank_rows("tp")),
+               dp=dict(layers=DP_LAYERS, binary_blocks=binary, rows_per_rank=4,
+                       single_device_loss=cut_loss, single_device_grad_norm=cut_gnorm,
+                       launches_per_step=_train_launches(cut, 1),
+                       ranks=rank_rows("dp")),
+               syncs=[r["syncs"] for r in ranks], grad_elements=ranks[0]["grad_elements"],
+               onebit_dp=dict(losses_first_last={k: [v[0], v[-1]] for k, v in example.items()},
+                              ranks=4, steps=len(example["1bit+EF"]), wall_s=example_s),
+               ranks_wall_s=ranks_s, wall_s=time.perf_counter() - t0)
+    log("train_mesh", **row)
+
+    for r in ranks:
+        tp, dp = r["tp"], r["dp"]
+        if tp["launches"] != _train_launches(cfg, TRAIN_MESH_STEPS):
+            raise AssertionError(f"train_mesh (a) rank {r['rank']}: launches {tp['launches']}, "
+                                 f"want {_train_launches(cfg, TRAIN_MESH_STEPS)}")
+        if dp["launches"] != _train_launches(cut, TRAIN_MESH_STEPS):
+            raise AssertionError(f"train_mesh (b) rank {r['rank']}: launches {dp['launches']}, "
+                                 f"want {_train_launches(cut, TRAIN_MESH_STEPS)}")
+        for tag, losses, want in (("(a)", tp["losses"], single_loss),
+                                  ("(b)", dp["losses"], cut_loss)):
+            if len(losses) != TRAIN_MESH_STEPS or not np.all(np.isfinite(losses)):
+                raise AssertionError(f"train_mesh {tag} rank {r['rank']}: losses {losses}")
+            if not abs(losses[0] - want) <= LOSS_REL * abs(want):
+                raise AssertionError(f"train_mesh {tag} rank {r['rank']}: step 0 loss "
+                                     f"{losses[0]}, one device's {want}")
+        for tag, norms, want in (("(a)", tp["grad_norms"], single_gnorm),
+                                 ("(b)", dp["grad_norms"], cut_gnorm)):
+            if not abs(norms[0] - want) <= GNORM_REL * want:
+                raise AssertionError(f"train_mesh {tag} rank {r['rank']}: step 0 grad norm "
+                                     f"{norms[0]}, one device's {want}")
+        if not tp["losses"][-1] < tp["losses"][0]:
+            raise AssertionError(f"train_mesh (a): the loss does not fall {tp['losses']}")
+        if tp["losses"] != ranks[0]["tp"]["losses"] or dp["losses"] != ranks[0]["dp"]["losses"]:
+            raise AssertionError("train_mesh: the ranks report other losses")
+    for name, losses in example.items():
+        if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+            raise AssertionError(f"onebit_dp {name}: the loss does not fall {losses}")
+    launches = [{k: sum(r[what]["launches"][k] for r in ranks) for k in KERNELS}
+                for what in ("tp", "dp")]
+    return {"row": row, "launches": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -3928,6 +4207,7 @@ def main() -> int:
     del timer
     mnist = timed("mnist", phase_mnist, dev, smi)
     train = timed("train", phase_train, dev, smi)
+    train_mesh = timed("train_mesh", phase_train_mesh, dev, smi, train)
     log("phase_seconds", **PHASE_SECONDS, total=time.perf_counter() - t0)
 
     # launches on every path: the serving paths (bf16, int8, binary, paged
@@ -3940,7 +4220,7 @@ def main() -> int:
                      serve["spec"]["plain_sampled"]["launches"],
                      *(p["launches"] for p in serve["spec"]["paths"]),
                      *serve["interleave"]["launches"], *train["all_launches"],
-                     *mesh["launches"]]
+                     *mesh["launches"], *train_mesh["launches"]]
 
     def entry(kname, source, replaces, rows):
         # the headline case is the first: decode bin_in, full-length flash,

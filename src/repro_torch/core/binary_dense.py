@@ -41,9 +41,12 @@ def binary_dense_init(in_dim: int, out_dim: int, *, generator: torch.Generator,
     return p
 
 
-def binary_dense_apply(p: dict, x: torch.Tensor, *, mode: str = "xnor") -> torch.Tensor:
-    """Latent-weight path (training and eval with latents)."""
-    y = ops.binary_dense(x, p["w_latent"], mode=mode)
+def binary_dense_apply(p: dict, x: torch.Tensor, *, mode: str = "xnor",
+                       reduce=None) -> torch.Tensor:
+    """Latent-weight path (training and eval with latents). ``reduce``, as
+    in binary_dense_apply_packed, sums a row-parallel shard's exact dot
+    before the cast; the STE backward stays local to the shard."""
+    y = ops.binary_dense(x, p["w_latent"], mode=mode, reduce=reduce)
     if "scale" in p:
         y = y * p["scale"]
     return y.to(x.dtype)
@@ -104,15 +107,11 @@ def binary_dense_apply_any(p: dict, x: torch.Tensor, *, mode: str = "xnor",
     scales in f32, as the reference's does.
 
     ``reduce`` sums a row-parallel shard's exact dot over the ranks, before
-    the cast and the scale (packed and int8 weights; the latent path, the
-    trainer's, takes none)."""
+    the cast and the scale, on every path."""
     if "w_packed" in p:
         return binary_dense_apply_packed(p, x, mode=mode, reduce=reduce)
     if "w_latent" in p:
-        if reduce is not None:
-            raise ValueError("a row-parallel binary dense needs its packed or int8 weights "
-                             "(the latent path is the trainer's)")
-        return binary_dense_apply(p, x, mode=mode)
+        return binary_dense_apply(p, x, mode=mode, reduce=reduce)
     if "w_int8" in p:
         lead = x.shape[:-1]
         a = pack_signs_int8(x.reshape(-1, x.shape[-1])).to(torch.float32)

@@ -43,6 +43,12 @@ model call, and ``active_tp()``, which the forward reads: its collectives
 (after the row-parallel products, the embedding and the head) and its
 rank-local head counts. Outside a scope the forward is the single-device
 one, untouched.
+
+Training on a mesh (launch/specs.TrainPlan, train/step.py) runs the same
+forward under autograd: ``TensorParallel``'s collectives then carry their
+gradients (Megatron's copy / reduce pair, built from all_reduce alone),
+and ``DataParallel`` holds a rank's place on the ``data`` axis: its rows
+of each batch and the f32 bucketed mean of the ranks' gradients.
 """
 
 from __future__ import annotations
@@ -213,10 +219,65 @@ def local_shard(t: torch.Tensor, spec: tuple, mesh, coords: dict) -> torch.Tenso
 # the tensor-parallel forward's context
 # ---------------------------------------------------------------------------
 
+def _recorded(x: torch.Tensor) -> bool:
+    """Whether autograd records an op on ``x`` here (training); the serving
+    forward runs under no_grad and never is."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """Sum over the group into a new tensor; the gradient passes through
+    unchanged, since every rank already holds the whole sum's gradient
+    (torch.distributed.nn's all_reduce would sum it again: N x)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyToTP(torch.autograd.Function):
+    """The identity into a split region; the gradient, this rank's part of
+    the sum over the ranks' splits, is summed over the group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _GatherLast(torch.autograd.Function):
+    """TensorParallel.gather_last with its gradient: this rank's columns."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.cols = (tp.rank * x.shape[-1], x.shape[-1])
+        return tp.gather_last(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        start, n = ctx.cols
+        return g.narrow(-1, start, n).contiguous(), None
+
+
 @dataclass(frozen=True)
 class TensorParallel:
     """One rank's place on the ``model`` axis, and what the forward splits
-    there (launch/specs.tensor_parallel decides it from the mesh rules):
+    there (launch/specs.serving_plan / train_plan decide it from the mesh
+    rules):
 
       attn   attention heads: wq / wk / wv column-parallel, wo row-parallel,
              each rank attending with its heads against its own cache
@@ -228,7 +289,14 @@ class TensorParallel:
     Each row-parallel product is summed over the axis with one all_reduce;
     the embedding and the logits are gathered by an all_reduce of
     zero-filled buffers, which is exact (gloo carries only broadcast and
-    all_reduce for CUDA tensors)."""
+    all_reduce for CUDA tensors).
+
+    Training (Megatron's pair): where autograd records the forward, each
+    split region's input goes through ``copy`` (identity; its gradient is
+    summed over the axis), each sum through ``all_reduce`` (its gradient
+    passes unchanged) and the gathered logits' gradient is cut back to
+    this rank's columns. Under no_grad (serving) ``copy`` is a no-op and
+    the sums run in place: the same collectives in the same order."""
     size: int
     rank: int
     group: object = None           # a torch.distributed ProcessGroup (None: the world)
@@ -237,19 +305,76 @@ class TensorParallel:
     vocab: bool = False
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum ``x`` over the axis, in place."""
+        """Sum ``x`` over the axis: in place, or into a new tensor where
+        autograd records ``x``."""
+        if _recorded(x):
+            return _ReduceFromTP.apply(x, self.group)
         import torch.distributed as dist
         dist.all_reduce(x, group=self.group)
         return x
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (replicated) into a split region: itself; where autograd
+        records it, its gradient is summed over the axis."""
+        return _CopyToTP.apply(x, self.group) if _recorded(x) else x
 
     def gather_last(self, x: torch.Tensor) -> torch.Tensor:
         """(..., n) rank-local columns -> (..., n * size), rank r's at
         r * n, through one all_reduce of a zero-filled buffer (adding zeros
         is exact, so every rank holds the same bits)."""
+        if _recorded(x):
+            return _GatherLast.apply(x, self)
         n = x.shape[-1]
         full = x.new_zeros((*x.shape[:-1], n * self.size))
         full[..., self.rank * n:(self.rank + 1) * n] = x
         return self.all_reduce(full)
+
+
+# elements in one all_reduce of DataParallel.mean: 256 MiB of f32
+MEAN_BUCKET = 1 << 26
+
+
+@dataclass(frozen=True)
+class DataParallel:
+    """One rank's place on the ``data`` axis of a training mesh: its rows
+    of every global batch, and the sums of what the ranks computed on
+    theirs (under no_grad, in place)."""
+    size: int = 1
+    rank: int = 0
+    group: object = None
+
+    @classmethod
+    def on_axis(cls, mesh, axis: str = "data") -> DataParallel:
+        """This process's place on ``axis`` of a DeviceMesh."""
+        return cls(size=mesh.shape[mesh.mesh_dim_names.index(axis)],
+                   rank=mesh.get_local_rank(axis), group=mesh.get_group(axis))
+
+    def rows(self, x):
+        """This rank's rows (dim 0) of a global batch leaf."""
+        if x.shape[0] % self.size:
+            raise ValueError(f"a batch of {x.shape[0]} rows does not split {self.size} ways")
+        n = x.shape[0] // self.size
+        return x[self.rank * n:(self.rank + 1) * n]
+
+    def mean(self, tensors: list) -> list:
+        """The mean over the ranks of each tensor: summed in f32 in flat
+        buckets of at most MEAN_BUCKET elements (one all_reduce each; a
+        larger tensor goes alone), divided by the size, cast back to its
+        dtype."""
+        import torch.distributed as dist
+        out, i = [], 0
+        while i < len(tensors):
+            j, n = i + 1, tensors[i].numel()
+            while j < len(tensors) and n + tensors[j].numel() <= MEAN_BUCKET:
+                n += tensors[j].numel()
+                j += 1
+            flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors[i:j]])
+            dist.all_reduce(flat, group=self.group)
+            flat /= self.size
+            for t, part in zip(tensors[i:j], flat.split([t.numel() for t in tensors[i:j]])):
+                out.append(part.view(t.shape).to(t.dtype))
+            i = j
+        return out
 
 
 _ACTIVE: contextvars.ContextVar = contextvars.ContextVar("tensor_parallel", default=None)

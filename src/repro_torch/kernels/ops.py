@@ -88,12 +88,17 @@ def _matmul_packed(x2d: torch.Tensor, w_packed: torch.Tensor, k: int,
 
 class _BinaryDense(torch.autograd.Function):
     """repro/kernels/ops.py:78-100: the integer forward beside the
-    straight-through-estimator backward (paper eq. 2)."""
+    straight-through-estimator backward (paper eq. 2). ``reduce`` sums a
+    row-parallel shard's exact dot over the ranks before the cast; the
+    backward, given the whole sum's gradient on every rank, is this
+    shard's own."""
 
     @staticmethod
-    def forward(ctx, x2d, w, mode):
+    def forward(ctx, x2d, w, mode, reduce):
         ctx.save_for_backward(x2d, w)
         y = _matmul_packed(x2d, pack_bits(w.T), x2d.shape[1], mode)
+        if reduce is not None:
+            y = reduce(y)
         return y.to(x2d.dtype)
 
     @staticmethod
@@ -107,17 +112,19 @@ class _BinaryDense(torch.autograd.Function):
         # products, as XLA computes them outside any Pallas kernel
         gx = (gf @ sw.T) * (xf.abs() <= 1.0)
         gw = (sx.T @ gf) * (w.abs() <= 1.0)
-        return gx.to(x.dtype), gw.to(w.dtype), None
+        return gx.to(x.dtype), gw.to(w.dtype), None, None
 
 
 def binary_dense(x: torch.Tensor, w_latent: torch.Tensor, *,
-                 mode: str = "xnor") -> torch.Tensor:
+                 mode: str = "xnor", reduce=None) -> torch.Tensor:
     """Trainable binary dense: x (..., K), w_latent (K, N) -> (..., N) in
     x's dtype = sign(x) @ sign(w), STE backward. The latent is packed anew
-    on every call, so an optimizer step is seen at the next forward."""
+    on every call, so an optimizer step is seen at the next forward.
+    ``reduce`` maps the exact (M, N) dot before the cast, as in
+    binary_dense_packed."""
     mode = resolve_impl(mode)
     lead = x.shape[:-1]
-    y = _BinaryDense.apply(x.reshape(-1, x.shape[-1]), w_latent, mode)
+    y = _BinaryDense.apply(x.reshape(-1, x.shape[-1]), w_latent, mode, reduce)
     return y.reshape(*lead, -1)
 
 

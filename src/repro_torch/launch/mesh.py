@@ -54,6 +54,14 @@ def make_mesh(shape, axes):
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
+class MeshShape:
+    """A mesh as the sharding rules read it (axis names and sizes), before
+    any rank exists: the launchers check a --mesh with it in the parent."""
+
+    def __init__(self, shape, axes):
+        self.axis_names, self.shape = tuple(axes), dict(zip(axes, shape))
+
+
 def make_production_mesh():
     """(data, model): ``model`` spans one node's NVLink domain of
     NVLINK_DOMAIN cards, ``data`` the nodes (world size / NVLINK_DOMAIN)."""

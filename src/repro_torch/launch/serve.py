@@ -229,24 +229,17 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     if not args.mesh:
         return _serve(ap, args, args.device)
-    from repro_torch.launch.mesh import spawn
+    from repro_torch.launch.mesh import MeshShape, spawn
     from repro_torch.launch.specs import serving_plan
     for on, flag in ((args.spec_decode, "--spec-decode"), (args.interleave, "--interleave"),
                      (args.http is not None, "--http")):
         if on:
             raise NotImplementedError(f"{flag} on a mesh is not ported yet (ROADMAP A9 (g))")
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    serving_plan(cfg, _MeshShape(args.mesh))        # the family and the shapes split
+    serving_plan(cfg, MeshShape((args.mesh,), ("model",)))   # the family and the split shapes
     backend = args.backend or ("nccl" if torch.device(args.device).type == "cuda" else "gloo")
     argv = list(sys.argv[1:] if argv is None else argv)
     return spawn(_mesh_rank, args.mesh, backend=backend, args=(argv,), timeout=3600)[0]
-
-
-class _MeshShape:
-    """A ``model`` mesh of n ranks as the rules read it (names and sizes)."""
-
-    def __init__(self, n: int):
-        self.axis_names, self.shape = ("model",), {"model": n}
 
 
 def _mesh_rank(rank: int, world: int, argv: list):

@@ -1,6 +1,6 @@
 """Abstract stand-ins for every model input, the sharding trees for params,
-optimizer state, batches and caches, and the serving plan of a mesh (port
-of repro/launch/specs.py).
+optimizer state, batches and caches, and the serving and training plans
+of a mesh (port of repro/launch/specs.py).
 
 Nothing here allocates: params and caches are built under torch's
 FakeTensorMode (shapes and dtypes alone) and batches on the meta device,
@@ -12,11 +12,12 @@ repro's NamedShardings; the specs themselves come from partition_specs.
 from __future__ import annotations
 
 import dataclasses
+from dataclasses import dataclass
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
-from repro_torch.distributed.sharding import (MeshRules, TensorParallel, axis_names, axis_sizes,
-                                              local_shard, logical_to_spec, partition_specs,
-                                              placements)
+from repro_torch.distributed.sharding import (DataParallel, MeshRules, TensorParallel,
+                                              _entry_axes, axis_names, axis_sizes, local_shard,
+                                              logical_to_spec, partition_specs, placements)
 from repro_torch.tree import tree_map
 
 # cache-leaf sharding rules (the same machinery as params)
@@ -172,29 +173,13 @@ def input_specs(arch_or_cfg, shape: ShapeSpec, *, kind=None):
 # tensor-parallel serving: the plan of a `model` mesh and each rank's shard
 # ---------------------------------------------------------------------------
 
-def serving_plan(cfg: ModelConfig, mesh, *, rank: int = 0, group=None
-                 ) -> tuple[TensorParallel, MeshRules]:
-    """-> (what rank ``rank`` of the ``model`` axis splits, the rules that
-    place its params and caches), for the GQA dense family.
-
-    mesh_rules_for decides; where it splits the flattened K/V projection
-    but not the cache heads (fewer KV heads than ranks), a rank would hold
-    part of a head, so the attention block is replicated whole instead
-    (GSPMD would gather the split heads back). A split FFN must give each
-    rank whole packed words of bin_out (d_ff / N a multiple of 32) and the
-    vocab must divide: else this raises, naming the shape. A mesh of one
-    splits nothing: the forward is the single-device one."""
-    if cfg.family != "dense" or cfg.use_mla:
-        raise NotImplementedError(
-            f"tensor-parallel serving covers the GQA dense family; {cfg.name!r} "
-            f"({cfg.family}{', MLA' if cfg.use_mla else ''}) is not ported yet (ROADMAP A9 "
-            "(f): TP for MLA, MoE, the recurrent families, whisper and the VLM)")
-    sizes = axis_sizes(mesh)
-    if "model" not in sizes or any(n > 1 for a, n in sizes.items() if a != "model"):
-        raise NotImplementedError(f"serving takes a mesh with one `model` axis, got {sizes} "
-                                  "(data-parallel axes: ROADMAP A9 (c))")
-    n = sizes["model"]
-    rules = mesh_rules_for(cfg, mesh)
+def _model_split(cfg: ModelConfig, mesh, rules: MeshRules) -> tuple[bool, bool, bool]:
+    """(attn, ffn, vocab): what the ``model`` axis splits under ``rules``
+    (mesh_rules_for's), whose entries for the parts it does not split are
+    set to None here. A split FFN must give each rank whole packed words of
+    bin_out (d_ff / N a multiple of 32) and the vocab must divide: else
+    this raises, naming the shape."""
+    n = axis_sizes(mesh).get("model", 1)
     names = axis_names(mesh)
 
     def on_model(*logical):
@@ -218,7 +203,38 @@ def serving_plan(cfg: ModelConfig, mesh, *, rank: int = 0, group=None
     if not vocab:
         over["vocab"] = None
     rules.rules = dict(rules.rules, **over)
-    return TensorParallel(size=n, rank=rank, group=group, attn=attn, ffn=ffn,
+    return attn, ffn, vocab
+
+
+def _refuse_family(cfg: ModelConfig, what: str) -> None:
+    if cfg.family != "dense" or cfg.use_mla:
+        raise NotImplementedError(
+            f"{what} covers the GQA dense family; {cfg.name!r} "
+            f"({cfg.family}{', MLA' if cfg.use_mla else ''}) is not ported yet (ROADMAP A9 "
+            "(f): TP for MLA, MoE, the recurrent families, whisper and the VLM)")
+
+
+def serving_plan(cfg: ModelConfig, mesh, *, rank: int = 0, group=None
+                 ) -> tuple[TensorParallel, MeshRules]:
+    """-> (what rank ``rank`` of the ``model`` axis splits, the rules that
+    place its params and caches), for the GQA dense family.
+
+    mesh_rules_for decides; where it splits the flattened K/V projection
+    but not the cache heads (fewer KV heads than ranks), a rank would hold
+    part of a head, so the attention block is replicated whole instead
+    (GSPMD would gather the split heads back). A split FFN must give each
+    rank whole packed words of bin_out (d_ff / N a multiple of 32) and the
+    vocab must divide: else this raises, naming the shape. A mesh of one
+    splits nothing: the forward is the single-device one."""
+    _refuse_family(cfg, "tensor-parallel serving")
+    sizes = axis_sizes(mesh)
+    if "model" not in sizes or any(n > 1 for a, n in sizes.items() if a != "model"):
+        raise ValueError(f"serving takes a mesh with one `model` axis, got {sizes}: the "
+                         "reference serves on a `model` mesh only "
+                         "(src/repro/launch/serve.py:211-219)")
+    rules = mesh_rules_for(cfg, mesh)
+    attn, ffn, vocab = _model_split(cfg, mesh, rules)
+    return TensorParallel(size=sizes["model"], rank=rank, group=group, attn=attn, ffn=ffn,
                           vocab=vocab), rules
 
 
@@ -238,3 +254,122 @@ def shard_params(api, params, mesh, tp: TensorParallel, rules: MeshRules):
     coords = {a: 0 for a in axis_names(mesh)}
     coords["model"] = tp.rank
     return tree_map(lambda t, s: local_shard(t, s, mesh, coords), params, specs)
+
+
+# ---------------------------------------------------------------------------
+# sharded training: the plan of a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class TrainPlan:
+    """What one rank of a training mesh does: the ``model`` axis splits the
+    forward as in serving (``tp``), the ``data`` axis splits every global
+    batch's rows (``dp``), and ``rules`` place the params, whose moments
+    take the same shards; params stay replicated over ``data`` (no ZeRO)."""
+    tp: TensorParallel
+    dp: DataParallel
+    rules: MeshRules
+    mesh: object
+
+    def _specs(self, api, tree):
+        return partition_specs(tree, api.deployed_rules, self.mesh, self.rules)
+
+    def shard(self, api, tree):
+        """This rank's shard of a whole tree (params, or {"params", "opt"}:
+        the rules' paths match under any prefix)."""
+        return shard_params(api, tree, self.mesh, self.tp, self.rules)
+
+    def split(self, api, tree):
+        """A tree of bools: True where a leaf is split over ``model``."""
+        return tree_map(lambda s: any("model" in _entry_axes(e) for e in s), self._specs(api, tree))
+
+    def gather(self, api, tree):
+        """The whole tree from the ``model`` group's shards, in host memory
+        on the group's rank 0; None on its other ranks. Every rank of the
+        group takes part: each split leaf's shards are broadcast in turn
+        (bits unchanged), and each one that arrives goes to rank 0's host
+        at once, so a device holds at most one shard more than its own."""
+        import torch
+        import torch.distributed as dist
+        keep = self.tp.rank == 0
+
+        def one(t, spec):
+            dims = [d for d, e in enumerate(spec) if "model" in _entry_axes(e)]
+            if not dims:
+                return t.cpu() if keep else None
+            parts = []
+            for r in range(self.tp.size):
+                buf = t.contiguous() if r == self.tp.rank else torch.empty_like(t)
+                src = r if self.tp.group is None else dist.get_global_rank(self.tp.group, r)
+                dist.broadcast(buf, src=src, group=self.tp.group)
+                if keep:
+                    parts.append(buf.cpu())
+                del buf
+            return torch.cat(parts, dim=dims[0]) if keep else None
+        with torch.no_grad():
+            whole = tree_map(one, tree, self._specs(api, tree))
+        return whole if keep else None
+
+    def sync(self, grads, metrics: dict):
+        """(grads, metrics) averaged over ``data``: the gradients in f32
+        buckets, cast back to each leaf's dtype; the metrics likewise."""
+        if self.dp.size == 1:
+            return grads, metrics
+        import torch
+
+        from repro_torch.tree import tree_leaves, tree_unflatten_like
+        grads = tree_unflatten_like(grads, self.dp.mean(tree_leaves(grads)))
+        names = sorted(metrics)
+        vec = self.dp.mean([torch.stack([metrics[k].to(torch.float32) for k in names])])[0]
+        return grads, {k: vec[i].to(metrics[k].dtype) for i, k in enumerate(names)}
+
+    def clip_args(self, api, grads) -> dict:
+        """clip_by_global_norm's mesh arguments: none where ``model`` splits
+        nothing (every rank then holds every gradient whole)."""
+        if self.tp.size == 1:
+            return {}
+        return {"split": self.split(api, grads), "reduce": self.tp.all_reduce}
+
+
+def train_plan(cfg: ModelConfig, mesh, shape: ShapeSpec | None = None) -> TrainPlan:
+    """-> the TrainPlan of rank 0 of a mesh with ``data`` and ``model``
+    axes. ``model`` splits as serving_plan does (the GQA dense family
+    only, where it is > 1); ``data`` splits the batch by mesh_rules_for's
+    ``batch`` rule, and a ``shape`` whose global batch does not divide over
+    it is refused, as is a ``data`` axis > 1 for a config with MoE layers
+    (ROADMAP A9 (j)). fsdp configs keep their params replicated over
+    ``data`` (ZeRO-3 over it is not ported: the same numbers, more
+    memory)."""
+    sizes = axis_sizes(mesh)
+    other = {a: n for a, n in sizes.items() if a not in ("data", "model") and n > 1}
+    if other:
+        raise ValueError(f"a training mesh takes `data` and `model` axes, got {sizes}")
+    n, d = sizes.get("model", 1), sizes.get("data", 1)
+    if n > 1:
+        _refuse_family(cfg, "tensor-parallel training")
+    if d > 1 and cfg.n_experts:
+        raise NotImplementedError(
+            f"data-parallel training of {cfg.name!r}'s MoE layers is not ported: each rank "
+            "would size expert capacity and average the router's aux loss over its own rows, "
+            "where the reference takes the global batch (ROADMAP A9 (j))")
+    rules = mesh_rules_for(cfg, mesh, shape)
+    rules.fsdp = False
+    if d > 1 and shape is not None and "data" not in _entry_axes(rules.rules["batch"]):
+        raise ValueError(f"a global batch of {shape.global_batch} rows does not split over "
+                         f"data {d}")
+    attn, ffn, vocab = _model_split(cfg, mesh, rules)
+    return TrainPlan(tp=TensorParallel(size=n, rank=0, attn=attn, ffn=ffn, vocab=vocab),
+                     dp=DataParallel(size=d), rules=rules, mesh=mesh)
+
+
+def mesh_train_plan(cfg: ModelConfig, mesh, shape: ShapeSpec | None = None) -> TrainPlan:
+    """train_plan for this process's rank of a DeviceMesh."""
+    plan = train_plan(cfg, mesh, shape)
+    names = axis_names(mesh)
+    tp, dp = plan.tp, plan.dp
+    if "model" in names:
+        tp = dataclasses.replace(tp, rank=mesh.get_local_rank("model"),
+                                 group=mesh.get_group("model"))
+    if "data" in names:
+        dp = DataParallel.on_axis(mesh)
+    return dataclasses.replace(plan, tp=tp, dp=dp)

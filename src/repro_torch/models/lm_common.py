@@ -33,6 +33,11 @@ own KV heads, and the row-parallel products (wo, w_down, bin_out) are
 summed over the axis: the float ones as f32 partial products, rounded once
 after the sum; bin_out's as its exact integer dot, before the cast and the
 scale, so that a split binary FFN equals the single device's bit for bit.
+Trained on a mesh (train/step.py), each split region's input goes through
+``TensorParallel.copy``, whose gradient is summed over the axis: the
+attention input of wq / wk / wv, the FFN input of w_gate / w_up / bin_in,
+the head's input, and qwen3's q_norm / k_norm scales, replicated leaves
+applied to this rank's heads.
 """
 
 from __future__ import annotations
@@ -43,7 +48,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.binary_dense import binary_dense_apply_any, binary_dense_init, with_packed
-from repro_torch.distributed.sharding import TensorParallel, active_tp
+from repro_torch.distributed.sharding import TensorParallel, active_tp, tensor_parallel
 from repro_torch.kernels.kv_quant import pad_time, write_span
 from repro_torch.models import moe
 from repro_torch.nn import attention as attn_lib
@@ -80,6 +85,24 @@ def split_tp(part: str) -> TensorParallel | None:
     return tp if tp is not None and getattr(tp, part) else None
 
 
+class _MatmulF32Out(torch.autograd.Function):
+    """x (M, K) @ w (K, N) in x's dtype with an f32 output (the card's
+    ``torch.mm(out_dtype=)``, which has no derivative); the backward's
+    products run in the operands' dtype, as x @ w's would. The output's
+    gradient is that of its cast back to x's dtype, so it is exact there."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        return g @ w.T, x.T @ g
+
+
 def row_parallel(p: dict, x: torch.Tensor, cfg: ModelConfig, tp: TensorParallel) -> torch.Tensor:
     """x (..., K / N) @ this rank's rows of w (K / N, M), summed over the
     model axis: the partial product in f32 (a bf16 product with an f32
@@ -88,7 +111,7 @@ def row_parallel(p: dict, x: torch.Tensor, cfg: ModelConfig, tp: TensorParallel)
     cd = cdt(cfg)
     x2, w = x.reshape(-1, x.shape[-1]).to(cd), p["w"].to(cd)
     if cd != torch.float32 and x2.device.type == "cuda":
-        y = torch.mm(x2, w, out_dtype=torch.float32)
+        y = _MatmulF32Out.apply(x2, w)
     else:
         y = x2.to(torch.float32) @ w.to(torch.float32)
     y = tp.all_reduce(y).to(cd).reshape(*x.shape[:-1], -1)
@@ -121,12 +144,16 @@ def ffn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         # latent through the STE (training)
         mode = cfg.policy.binary_mode
         tp = split_tp("ffn")
+        if tp is not None:
+            x = tp.copy(x)
         h = binary_dense_apply_any(p["bin_in"], x, mode=mode)
         # split: bin_in's columns are this rank's own, and bin_out's integer
         # dot over its rows is summed before the cast and the scale
         return binary_dense_apply_any(p["bin_out"], h, mode=mode,
                                       reduce=None if tp is None else tp.all_reduce).to(x.dtype)
     tp = split_tp("ffn")
+    if tp is not None:
+        x = tp.copy(x)
     down = None if tp is None else (lambda pd, h: row_parallel(pd, h, cfg, tp))
     # binary_impl matters only where these denses are the self-draft's
     # packed ones (serving/spec.binarize_draft_params)
@@ -169,16 +196,31 @@ def gqa_init(cfg: ModelConfig, *, generator, device) -> dict:
     return p
 
 
+def _head_norms(p: dict, tp: TensorParallel | None) -> tuple[dict, dict]:
+    """q_norm and k_norm. Where the heads are split and autograd records
+    them, both scales go through one ``copy`` (one all_reduce, in one
+    order on every rank): their gradients are sums over this rank's heads."""
+    qn, kn = p["q_norm"], p["k_norm"]
+    if tp is None or not torch.is_grad_enabled():
+        return qn, kn
+    both = tp.copy(torch.stack([qn["scale"], kn["scale"]]))
+    return {"scale": both[0]}, {"scale": both[1]}
+
+
 def gqa_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions):
     b, s, _ = x.shape
     dh = cfg.kv_head_dim()
+    tp = split_tp("attn")
+    if tp is not None:
+        x = tp.copy(x)
     # -1: the heads these weights hold (a rank's share where they are split)
     q = _dense(p["wq"], x, cfg).reshape(b, s, -1, dh)
     k = _dense(p["wk"], x, cfg).reshape(b, s, -1, dh)
     v = _dense(p["wv"], x, cfg).reshape(b, s, -1, dh)
     if cfg.qk_norm:
-        q = nn.rmsnorm_apply(p["q_norm"], q)
-        k = nn.rmsnorm_apply(p["k_norm"], k)
+        q_norm, k_norm = _head_norms(p, tp)
+        q = nn.rmsnorm_apply(q_norm, q)
+        k = nn.rmsnorm_apply(k_norm, k)
     if cfg.use_rope:
         q = nn.apply_rope(q, positions, base=cfg.rope_base)
         k = nn.apply_rope(k, positions, base=cfg.rope_base)
@@ -449,13 +491,20 @@ def _maybe_remat(fn, cfg: ModelConfig):
     """repro's _maybe_remat (lm_common.py:517-523): "none" keeps every
     activation; "block" and "full" keep each block's input and recompute
     the block in the backward (torch.utils.checkpoint, non-reentrant: on
-    the card the recompute launches the block's kernels again). JAX's
-    "dots" policy (keep the products' outputs) is not mapped."""
+    the card the recompute launches the block's kernels again). The
+    recompute runs in the enclosing tensor-parallel scope, re-entered
+    there: on the card autograd runs the backward on a thread of its own,
+    which does not see this thread's scope. JAX's "dots" policy (keep the
+    products' outputs) is not mapped."""
     if cfg.remat == "none":
         return fn
     if cfg.remat in ("block", "full"):
+        import contextlib
+
         from torch.utils.checkpoint import checkpoint
-        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+        tp = active_tp()
+        scopes = lambda: (contextlib.nullcontext(), tensor_parallel(tp))  # noqa: E731
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False, context_fn=scopes)
     if cfg.remat == "dots":
         raise NotImplementedError('remat="dots" (save the products\' outputs) has no '
                                   'counterpart here; use "block" or "none"')

@@ -81,13 +81,16 @@ def _mtp_sig(cfg: ModelConfig) -> lc.BlockSig:
 def _logits(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """The head; where the vocab is split, each rank's columns are gathered
     into the full row (exactly), so that the argmax and the sampler see
-    the same row on every rank."""
+    the same row on every rank (and in training, the gradient of the
+    head's input is summed over the ranks' columns)."""
     x = nn.rmsnorm_apply(p["ln_f"], x)
+    tp = lc.split_tp("vocab")
+    if tp is not None:
+        x = tp.copy(x)
     if cfg.tie_embeddings:
         logits = nn.embedding_logits(p["embed"], x, compute_dtype=lc.cdt(cfg))
     else:
         logits = nn.dense_apply(p["head"], x, compute_dtype=lc.cdt(cfg))
-    tp = lc.split_tp("vocab")
     if tp is not None:
         logits = tp.gather_last(logits)
     return lc.mask_pad_logits(logits, cfg.vocab)

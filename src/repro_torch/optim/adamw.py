@@ -33,11 +33,26 @@ def cosine_schedule(step, *, peak_lr: float, warmup: int, total: int,
     return torch.where(step < warmup, warm, cos)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, *, split=None, reduce=None):
     """-> (grads scaled so that their global L2 norm is at most max_norm,
-    each in its own dtype; the norm before clipping, f32)."""
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                        for g in tree_leaves(grads)))
+    each in its own dtype; the norm before clipping, f32).
+
+    On a tensor-parallel rank (``split``: a tree of bools, True where the
+    leaf is this rank's shard of a split parameter; ``reduce``: the sum of
+    a 0-d tensor over the ranks) the norm counts every parameter once: the
+    shards' squares summed over the ranks, the replicated leaves' once."""
+    sq = lambda g: torch.sum(torch.square(g.to(torch.float32)))  # noqa: E731
+    if split is None:
+        gn = torch.sqrt(sum(sq(g) for g in tree_leaves(grads)))
+    else:
+        own = torch.zeros((), dtype=torch.float32, device=tree_leaves(grads)[0].device)
+        rep = torch.zeros_like(own)
+        for g, s in zip(tree_leaves(grads), tree_leaves(split)):
+            if s:
+                own = own + sq(g)
+            else:
+                rep = rep + sq(g)
+        gn = torch.sqrt(reduce(own) + rep)
     scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
     return tree_map(lambda g: (g * scale).to(g.dtype), grads), gn
 

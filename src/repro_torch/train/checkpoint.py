@@ -9,6 +9,13 @@ cannot hold bfloat16, so bf16 leaves are widened to f32 (exactly) and
 restore() casts each leaf back to the dtype, and moves it to the device,
 of the matching leaf of the ``like`` tree.
 
+Elastic restore (repro's ``shardings=``): a mesh run saves the whole tree,
+its shards gathered to rank 0's host (launch/specs.TrainPlan.gather) and
+written there, in the same format; a restore reads it whole and the
+caller cuts this rank's shard (TrainPlan.shard) for whatever mesh
+restores it, of any shape, or none. Each rank then holds the whole tree
+in host memory until its shard is cut (ROADMAP A9 (h)).
+
 Concurrency contract: any number of save()/save_async() calls may overlap,
 including for the *same* step. Every writer stages into a tmp dir whose
 name is unique per call (step, pid, and a process-wide counter), and a

@@ -1,0 +1,94 @@
+"""Explicit data-parallel gradient sync with 1-bit sign compression and
+error feedback (port of repro/train/manual_dp.py).
+
+The paper binarizes weights and activations to cut memory and bandwidth;
+the same trick applied to the interconnect gives a signSGD-style gradient
+all_reduce: each rank sends sign(g + err), one int8 a gradient element on
+the wire, plus one f32 scale a tensor, and keeps the quantization residual
+in an error-feedback buffer, so that the compression bias vanishes over
+steps. Against bf16 gradients that is 2x fewer collective bytes as int8,
+16x packed; the signs are not packed into words here, as in the
+reference: a packed word cannot be summed by an all_reduce.
+
+repro runs the step under shard_map, one device a shard; here one process
+drives one rank of a ``torch.distributed`` group (launch/mesh.spawn), and
+every collective is an all_reduce, the one op gloo carries for CUDA
+tensors beside broadcast. All signs of a step go in one int8 all_reduce
+and all scales in one f32 one (the reference's psum a leaf, bucketed:
+the sums are the same).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten_like
+
+
+def compress_decompress(g: torch.Tensor, err: torch.Tensor):
+    """One tensor -> (g_hat, new_err): g_hat = scale * sign(g + err), scale
+    the mean |g + err|, sign(0) = +1."""
+    c = g.to(torch.float32) + err
+    scale = c.abs().mean()
+    ghat = scale * torch.where(c >= 0, 1.0, -1.0)
+    return ghat, c - ghat
+
+
+def onebit_psum_grads(grads, err, group=None):
+    """-> (g_sync, new_err), both f32 trees of ``grads``' structure: per
+    leaf, c = g + err and scale = mean |c| on this rank, int8 signs (c >= 0
+    -> +1); new_err = c - scale * sign stays here; the signs and scales are
+    summed over ``group`` (None: the world), n its size, and g_sync =
+    (sum scale / n) * sum sign / n on every rank. Wire: one int8 a
+    gradient element plus one f32 a leaf, from each rank."""
+    import torch.distributed as dist
+    flat_g, flat_e = tree_leaves(grads), tree_leaves(err)
+    cs = [g.to(torch.float32) + e for g, e in zip(flat_g, flat_e)]
+    scales = torch.stack([c.abs().mean() for c in cs])
+    one = torch.ones((), dtype=torch.int8, device=scales.device)
+    signs = [torch.where(c >= 0, one, -one) for c in cs]
+    new_err = [c - s * sg.to(torch.float32) for c, s, sg in zip(cs, scales, signs)]
+    sign_sum = torch.cat([sg.reshape(-1) for sg in signs])
+    scale_sum = scales.clone()
+    dist.all_reduce(sign_sum, group=group)
+    dist.all_reduce(scale_sum, group=group)
+    n = float(dist.get_world_size(group))
+    parts = sign_sum.split([c.numel() for c in cs])
+    synced = [(scale_sum[i] / n) * part.view(c.shape).to(torch.float32) / n
+              for i, (part, c) in enumerate(zip(parts, cs))]
+    return tree_unflatten_like(grads, synced), tree_unflatten_like(grads, new_err)
+
+
+def onebit_wire_bytes(grads) -> int:
+    """The bytes one rank hands to the 1-bit sync's all_reduces: an int8 a
+    gradient element and an f32 scale a leaf."""
+    leaves = tree_leaves(grads)
+    return sum(g.numel() for g in leaves) + 4 * len(leaves)
+
+
+def make_onebit_dp_step(loss_fn, update_fn, mesh, *, axis_name: str = "data"):
+    """-> step(params, opt_state, err, batch) -> (params, opt_state, err,
+    metrics): this rank's rows of the global batch (dim 0 split over
+    ``axis_name``), their gradients of ``loss_fn(params, batch) -> (loss,
+    metrics)``, the 1-bit sync, and ``update_fn(params, grads, opt_state)
+    -> (params, opt_state)``, the same on every rank (params replicated).
+    ``metrics`` are this rank's, as shard_map's unreplicated outputs give
+    the reference's caller device 0's."""
+    from repro_torch.distributed.sharding import DataParallel
+    from repro_torch.train.step import value_and_grad
+    dp = DataParallel.on_axis(mesh, axis_name)
+
+    def step(params, opt_state, err, batch):
+        rows = {k: dp.rows(v) for k, v in batch.items()}
+        _, metrics, grads = value_and_grad(loss_fn, params, rows)
+        with torch.no_grad():
+            grads, err = onebit_psum_grads(grads, err, dp.group)
+            params, opt_state = update_fn(params, grads, opt_state)
+        return params, opt_state, err, metrics
+
+    return step
+
+
+def init_error_feedback(params):
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+                    params)

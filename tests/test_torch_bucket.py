@@ -71,10 +71,10 @@ def test_bucket_engine_validates_and_refuses_mesh(models):
     for prompt, max_new in (([], 4), ([1, 2], 0), (list(range(14)), 4)):
         with pytest.raises(ValueError):
             eng.add_request(prompt, max_new=max_new)
-    # a mesh serves on a `model` axis alone: a data axis is ROADMAP A9 (c)
+    # a mesh serves on a `model` axis alone, as the reference does
     mesh = collections.namedtuple("Mesh", "axis_names shape")(("data", "model"),
                                                                {"data": 2, "model": 1})
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(ValueError, match="serves on a `model` mesh only"):
         BucketEngine(api, params, mesh=mesh)
 
 

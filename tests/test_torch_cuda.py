@@ -1539,3 +1539,70 @@ def test_mesh_tokens_on_card(dev, markov_lm):
         for cell, (tokens, kv_bytes, per_device) in rank_out.items():
             assert tokens == want[cell][0], cell
             assert per_device * 2 == kv_bytes == want[cell][1], cell
+
+
+def _train_mesh_rank_on_card(rank, world, cfg, params, batch):
+    """One gloo rank of a (1, 2) mesh on the shared card: one train step ->
+    the loss, the grad norm and the gathered params, on the CPU."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.mesh import make_mesh, rank_device
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+    dev = rank_device(rank, "cuda")
+    torch.cuda.set_device(dev)
+    api = get_model(cfg)
+    plan = S.mesh_train_plan(cfg, make_mesh((1, 2), ("data", "model")),
+                             ShapeSpec("t", 32, 4, "train"))
+    local = plan.shard(api, _to(params, dev))
+    step = make_train_step(api, cfg, peak_lr=1e-3, warmup=1, total=10, plan=plan)
+    new, _, m = step(local, adamw_init(local), _to(batch, dev))
+    # numpy across the process boundary (a CPU tensor would be passed as a
+    # shared-memory handle that dies with this process); the whole tree is
+    # on rank 0's host only
+    whole = plan.gather(api, new)
+    if whole is not None:
+        assert all(t.device.type == "cpu" for t in tree_leaves(whole))
+        whole = tree_map(lambda t: t.float().numpy(), whole)
+    return float(m["loss"]), float(m["grad_norm"]), whole
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tensor_parallel_train_step_on_card_matches_cpu(dev, dtype):
+    """One train step of the smoke LM (its int8 binary FFN, remat "block")
+    on a `model` mesh of two gloo ranks sharing the card, through B2 and B3
+    at the shards' shapes, against the single-device step on the CPU. In
+    f32: the loss and grad norm within 1e-4, every updated param within
+    TRAIN_TOL["param"] of the leaf's max-abs (the backward's collectives
+    run on autograd's device thread there, which remat's recompute must
+    re-enter the tensor-parallel scope on). In bf16 (the row-parallel
+    partials an f32-output product with a hand-written derivative): the
+    loss within 1e-2 and the grad norm within 5e-2."""
+    from repro_torch.data.synthetic import SyntheticTokens
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_map
+    cfg = smoke_config("stablelm-3b").replace(compute_dtype=dtype, param_dtype=dtype)
+    assert cfg.remat == "block" and not torch.backends.cuda.matmul.allow_tf32
+    api = get_model(cfg)
+    params = api.init(0, device="cpu", packed=False)
+    batch = {k: torch.from_numpy(v) for k, v in
+             next(SyntheticTokens(cfg.vocab, 32, 4, seed=0)).items()}
+    p_cpu, _, m_cpu = make_train_step(api, cfg, peak_lr=1e-3, warmup=1, total=10)(
+        params, adamw_init(params), batch)
+    f32 = dtype == "float32"
+    ranks = spawn(_train_mesh_rank_on_card, 2, backend="gloo", args=(cfg, params, batch),
+                  timeout=600)
+    assert [p is not None for _, _, p in ranks] == [True, False]
+    for loss, gnorm, p_dev in ranks:
+        assert abs(loss - float(m_cpu["loss"])) <= (1e-4 if f32 else 1e-2) * \
+            abs(float(m_cpu["loss"]))
+        assert abs(gnorm - float(m_cpu["grad_norm"])) <= (1e-4 if f32 else 5e-2) * \
+            float(m_cpu["grad_norm"])
+        if not f32 or p_dev is None:
+            continue
+        errs = _leaf_errs(tree_map(torch.from_numpy, p_dev), p_cpu)
+        worst = max(errs, key=errs.get)
+        assert errs[worst] <= TRAIN_TOL["param"], f"param {worst}: {errs[worst]}"

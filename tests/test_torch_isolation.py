@@ -34,14 +34,17 @@ if not torch.cuda.is_available():
     from repro_torch.models import get_model
     from repro_torch.launch import serve
     from repro_torch.core.hybrid_mlp import mlp_init
-    from repro_torch.examples import binary_llm, quickstart
+    from repro_torch.examples import binary_llm, onebit_dp, quickstart
     from repro_torch.launch import train
     for what, fn in [("init", lambda: get_model(smoke_config("stablelm-3b")).init(0)),
                      ("serve", lambda: serve.main(["--smoke", "--requests", "1"])),
                      ("mlp_init", lambda: mlp_init(0, hybrid=True)),
                      ("quickstart", lambda: quickstart.main([])),
                      ("train", lambda: train.main(["--smoke", "--steps", "1"])),
-                     ("binary_llm", lambda: binary_llm.main(["--steps", "1"]))]:
+                     ("binary_llm", lambda: binary_llm.main(["--steps", "1"])),
+                     ("train_mesh", lambda: train.main(["--smoke", "--steps", "1", "--mesh",
+                                                         "1x2:data,model"])),
+                     ("onebit_dp", lambda: onebit_dp.main(["--steps", "1"]))]:
         try:
             fn()
             raised[what] = None
@@ -70,10 +73,11 @@ def test_port_imports_no_jax_and_refuses_missing_card():
                 "train.checkpoint", "train.fault_tolerance", "launch.train", "models.deploy",
                 "examples.binary_llm", "models.whisper", "models.llama_vision",
                 "models.mamba2", "models.zamba2", "models.rwkv6", "models.rwkv6_lm",
-                "configs.zamba2_2p7b", "configs.rwkv6_3b"):
+                "configs.zamba2_2p7b", "configs.rwkv6_3b", "train.manual_dp",
+                "examples.onebit_dp"):
         assert "repro_torch." + mod in out["modules"]
     assert out["leaked"] == []
     assert set(out["raised"]) == {"init", "serve", "mlp_init", "quickstart", "train",
-                                  "binary_llm"}
+                                  "binary_llm", "train_mesh", "onebit_dp"}
     for what, msg in out["raised"].items():
         assert msg is not None and "no CUDA device" in msg, what

@@ -299,7 +299,7 @@ def test_serving_plan_refuses():
                  "whisper-base", "llama-3.2-vision-11b"):
         with pytest.raises(NotImplementedError, match="ROADMAP A9 \\(f\\)"):
             S.serving_plan(smoke_config(arch), MESH2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9 \\(c\\)"):
+    with pytest.raises(ValueError, match="serves on a `model` mesh only"):
         S.serving_plan(cfg, MESHES[2])
 
 
