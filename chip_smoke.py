@@ -336,6 +336,22 @@ Phases, one output line each (or a few), every failure raising:
      card (4 gloo ranks, 40 steps): both loss curves fall (the mean of the
      last 5 below the first 5's). B2 at (b)'s M 512 is a row of phase 3;
      B3 at (a)'s 16 heads is phase 6f's row;
+ 11c. dryrun: launch/dryrun.py's predictions for the runs above, made
+     after them on the CPU on fake tensors (no card, no process group):
+     stablelm-3b's decode step on 6f's `model` mesh of 2 (8 x 256, the
+     packed serving params), 11b's (a) and (b) and 11's single-device step
+     (8 x 128). Gated exactly: the all_reduces a step and their payload
+     bytes against those the ranks issued (counted by the wrapper around
+     torch.distributed.all_reduce, independent of the recorder: one decode
+     step a rank in 6f and every decode step of its bf16 engine, every
+     step of (a) and (b)),
+     and the params, pool and moment bytes a rank against the bytes of the
+     rank's real trees (the bf16 mesh engine's params and pool; the trees
+     the launcher's first step is given; (b)'s). Printed, not gated: the
+     predicted peak of live bytes beside torch.cuda.max_memory_allocated,
+     and the analytic t_compute / t_memory / t_collective as shares of
+     the measured median step time (t_compute / step: the share of the
+     bf16 / int8 peaks the step reaches);
  12. a JSON line of the nine kernels and the two kv_decode wrappers:
      launches summed over the paths (B2, B3, B4a-d and kv_decode on the
      serving, families and recurrent paths, B2 and B3 on the training
@@ -375,6 +391,7 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import PrecisionPolicy, get_config, smoke_config  # noqa: E402
+from repro_torch.configs.base import ShapeSpec  # noqa: E402
 from repro_torch.core import hybrid_mlp as H  # noqa: E402
 from repro_torch.core.binarize import pack_bits, pack_signs_int8, packed_len, unpack_bits  # noqa: E402
 from repro_torch.data.synthetic import SyntheticMnist  # noqa: E402
@@ -389,6 +406,7 @@ from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_plain  # no
 from repro_torch.kernels.ksplit import splits_for  # noqa: E402
 from repro_torch.kernels import kv_decode as kvd  # noqa: E402
 from repro_torch.kernels import kv_quant as kvq  # noqa: E402
+from repro_torch.launch.dryrun import tree_nbytes  # noqa: E402
 from repro_torch.models import get_model, lm_common as lc, mamba2, rwkv6  # noqa: E402
 from repro_torch.nn import attention as attn_lib  # noqa: E402
 from repro_torch.nn.layers import embedding_lookup, rmsnorm_apply  # noqa: E402
@@ -2577,14 +2595,39 @@ def _mesh_rank(rank: int, world: int, job: dict) -> dict:
                                 / float(want[:, :v].float().abs().max()))
     out["served_first_tokens_equal"] = int((got[:, :v].argmax(-1) == want[:, :v].argmax(-1))
                                            .sum())
-    del local, want, got
+    # one decode step on the rank's shard, its all_reduces counted by a
+    # wrapper around torch.distributed.all_reduce (the dryrun phase's truth)
+    with tensor_parallel(tp):
+        caches = api.init_cache(8, 256, dev)
+    tok = torch.zeros((8, 1), dtype=torch.int32, device=dev)
+    with _all_reduces_counted() as stats, torch.no_grad(), tensor_parallel(tp):
+        api.decode(local, caches, tok)
+    out["decode_all_reduces"] = dict(calls=stats["calls"], bytes=stats["bytes"])
+    del local, want, got, caches
 
     # the serving paths, each counted from 0
     out["paths"] = []
     for label, kw, on_header, _ in MESH_PATHS:
         batch = job["shared"] if on_header else job["prompts"]
         zero_counts()
-        toks, wall, eng = _serve_once(api, params, batch, staged=on_header, mesh=mesh, **kw)
+        ticks = {"calls": 0, "bytes": 0}
+
+        def count_ticks(eng):
+            # the bf16 engine's own decode steps, their all_reduces counted
+            # by the same wrapper (the dryrun phase holds them to the
+            # predicted step times eng.stats["decode_steps"])
+            step = eng._step_fn
+
+            def counted():
+                with _all_reduces_counted() as stats:
+                    out = step()
+                ticks["calls"] += stats["calls"]
+                ticks["bytes"] += stats["bytes"]
+                return out
+            eng._step_fn = counted
+        toks, wall, eng = _serve_once(api, params, batch, staged=on_header, mesh=mesh,
+                                      setup=count_ticks if label == "mesh bf16" else None,
+                                      **kw)
         launches = counts()
         _check_outputs(label, toks, cfg.vocab)
         _check_path(label, launches, eng, cfg, n_binary, kw["kv_cache"],
@@ -2597,6 +2640,11 @@ def _mesh_rank(rank: int, world: int, job: dict) -> dict:
             raise AssertionError(f"{label}: no prefix hits {eng.pool.stats}")
         if eng.graph is not None:
             raise AssertionError(f"{label}: a mesh engine built a CUDA graph")
+        if label == "mesh bf16":
+            out["bf16_trees"] = dict(params_bytes=tree_nbytes(eng.params),
+                                     cache_bytes=tree_nbytes(eng.caches))
+            out["bf16_engine_decode_all_reduces"] = dict(
+                ticks, decode_steps=eng.stats["decode_steps"])
         out["paths"].append(dict(path=label, tokens=toks, launches=launches, wall_s=wall,
                                  prefill_waves=eng.stats["prefills"],
                                  decode_steps=eng.stats["decode_steps"], kv_bytes=kv_bytes,
@@ -2762,6 +2810,10 @@ def phase_mesh(dev, card: str, serve: dict) -> dict:
                peak_mem_gib_serve=[r["peak_mem_gib_serve"] for r in ranks],
                peak_mem_gib=[r["peak_mem_gib"] for r in ranks],
                rank_seconds=[r["seconds"] for r in ranks], ranks_wall_s=ranks_s,
+               decode_all_reduces=[r["decode_all_reduces"] for r in ranks],
+               bf16_trees=[r["bf16_trees"] for r in ranks],
+               bf16_engine_decode_all_reduces=[r["bf16_engine_decode_all_reduces"]
+                                               for r in ranks],
                launcher_mesh1_equal=True, launcher_s=launcher_s, paths=paths,
                wall_s=time.perf_counter() - t0)
     log("mesh", **row)
@@ -3734,10 +3786,12 @@ def phase_train(dev, card: str) -> dict:
     # the main path, with the launch counts zeroed just before it and read
     # just after: the launcher trains 6 steps at full width
     zero_counts()
+    trees, undo = _first_step_bytes(train_cli)
     t0 = time.perf_counter()
     hist = train_cli.main(TRAIN_ARGV)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    undo()
     launches = counts()
     peak_gib = (torch.cuda.max_memory_allocated(dev) - mem0) / 2 ** 30
     if launches != _train_launches(cfg, TRAIN_STEPS):
@@ -3801,7 +3855,7 @@ def phase_train(dev, card: str) -> dict:
                launches_per_step=_train_launches(cfg, 1), losses=[h["loss"] for h in hist],
                grad_norms=[h["grad_norm"] for h in hist], step_s=[h["step_s"] for h in hist],
                step_ms_median_2_6=step_s * 1e3, tokens_per_s=8 * 128 / step_s, wall_s=wall,
-               peak_mem_gib=peak_gib, first_loss_again=float(loss),
+               peak_mem_gib=peak_gib, trees=trees, first_loss_again=float(loss),
                attn_grad_min_maxabs=attn_grad_min, latent_grad_min_maxabs=latent_grad_min,
                latent_max_after_step=latent_max, smoke_step_vs_cpu_max_rel=step_vs_cpu,
                profile=prof_row)
@@ -3914,9 +3968,39 @@ def _counted_all_reduces() -> dict:
     return stats
 
 
+@contextlib.contextmanager
+def _all_reduces_counted():
+    """_counted_all_reduces for the enclosed calls only."""
+    import torch.distributed as dist
+    real = dist.all_reduce
+    try:
+        yield _counted_all_reduces()
+    finally:
+        dist.all_reduce = real
+
+
+def _first_step_bytes(module) -> tuple[dict, object]:
+    """Wrap ``module.make_train_step`` so that the first step it makes
+    records the bytes of the params and moments it is given -> (the
+    record, a function that undoes the wrap)."""
+    make, seen = module.make_train_step, {}
+
+    def wrapped(*a, **kw):
+        step = make(*a, **kw)
+
+        def run(params, opt, batch):
+            if not seen:
+                seen.update(params_bytes=tree_nbytes(params), opt_bytes=tree_nbytes(opt))
+            return step(params, opt, batch)
+        return run
+    module.make_train_step = wrapped
+    return seen, lambda: setattr(module, "make_train_step", make)
+
+
 def _per_step(stats: dict, steps: int) -> dict:
     return {"all_reduces": stats["calls"] / steps, "all_reduce_bytes": stats["bytes"] / steps,
-            "all_reduce_ms": stats["ms"] / steps}
+            "all_reduce_ms": stats["ms"] / steps, "all_reduce_calls_total": stats["calls"],
+            "all_reduce_bytes_total": stats["bytes"]}
 
 
 def _train_mesh_rank(rank: int, world: int, job: dict) -> dict:
@@ -3940,13 +4024,15 @@ def _train_mesh_rank(rank: int, world: int, job: dict) -> dict:
     # (a) tensor parallel, full width and depth, through the launcher
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counts()
+    trees, undo = _first_step_bytes(train_cli)
     t0 = time.perf_counter()
     hist = train_cli._mesh_rank(rank, world, TP_ARGV)
     torch.cuda.synchronize()
+    undo()
     out["tp"] = dict(losses=[h["loss"] for h in hist], grad_norms=[h["grad_norm"] for h in hist],
                      step_ms=[1e3 * h["step_s"] for h in hist], launches=counts(),
                      peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
-                     wall_s=time.perf_counter() - t0,
+                     wall_s=time.perf_counter() - t0, trees=trees,
                      **_per_step(stats, TRAIN_MESH_STEPS))
     gc.collect()
     torch.cuda.empty_cache()
@@ -3958,6 +4044,7 @@ def _train_mesh_rank(rank: int, world: int, job: dict) -> dict:
                                  ShapeSpec("dp", 128, 8, "train"))
     params = plan.shard(api, api.init(SEED, device=dev, packed=False))
     opt = adamw_init(params)
+    trees = dict(params_bytes=tree_nbytes(params), opt_bytes=tree_nbytes(opt))
     step = make_train_step(api, cfg, peak_lr=3e-4, warmup=1, total=TRAIN_MESH_STEPS, plan=plan)
     data = SyntheticTokens(cfg.vocab, 128, 8, seed=SEED)
     rows = lambda b: {k: torch.from_numpy(plan.dp.rows(v)).to(dev)  # noqa: E731
@@ -3974,7 +4061,7 @@ def _train_mesh_rank(rank: int, world: int, job: dict) -> dict:
         grad_norms.append(float(m["grad_norm"]))
         step_ms.append((time.perf_counter() - t0) * 1e3)
     out["dp"] = dict(losses=losses, grad_norms=grad_norms, step_ms=step_ms, launches=counts(),
-                     peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                     peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30, trees=trees,
                      **_per_step(stats, TRAIN_MESH_STEPS))
     del opt
 
@@ -4088,6 +4175,115 @@ def phase_train_mesh(dev, card: str, train: dict) -> dict:
     launches = [{k: sum(r[what]["launches"][k] for r in ranks) for k in KERNELS}
                 for what in ("tp", "dp")]
     return {"row": row, "launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 11c: the dry run's predictions against what the card counted
+# ---------------------------------------------------------------------------
+
+def _dryrun_cells() -> dict:
+    """name -> (config, shape, (data, model), weights) of each run the dry
+    run predicts: 6f's decode step, 11b's (a) and (b), 11's step."""
+    cfg = get_config("stablelm-3b")
+    train = ShapeSpec("train 8x128", 128, 8, "train")
+    return {"mesh_decode": (cfg, ShapeSpec("decode 8x256", 256, 8, "decode"), (1, MESH_N),
+                            "packed"),
+            "train_tp": (cfg, train, (1, TRAIN_MESH_N), None),
+            "train_dp": (cfg.replace(n_layers=DP_LAYERS), train, (TRAIN_MESH_N, 1), None),
+            "train": (cfg, train, (1, 1), None)}
+
+
+def _held(got: dict, label: str, predicted, measured, exact: bool) -> None:
+    """Keep (prediction, measurement, ratio) under ``label``; an exact one
+    that misses fails the phase."""
+    got[label] = dict(predicted=predicted, measured=measured,
+                      ratio=predicted / measured if measured else None)
+    if exact and predicted != measured:
+        raise AssertionError(f"dryrun {label}: predicted {predicted}, measured {measured}")
+
+
+def phase_dryrun(card: str, mesh: dict, train: dict, train_mesh: dict) -> dict:
+    """launch/dryrun.py's predictions (module note, 11c) for the runs of
+    phases 6f, 11 and 11b, made here on fake CPU tensors, against what
+    those runs counted -> the row."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshShape
+    t0 = time.perf_counter()
+    recs = {name: dryrun.run_cell("stablelm-3b", name, cfg_override=cfg, shape=shape,
+                                  mesh=MeshShape(dims, ("data", "model")), weights=weights,
+                                  out_dir=OUT_DIR / "dryrun")
+            for name, (cfg, shape, dims, weights) in _dryrun_cells().items()}
+    dry_s = time.perf_counter() - t0
+    bad = {k: r.get("traceback", r.get("reason")) for k, r in recs.items() if r["status"] != "ok"}
+    if bad:
+        raise AssertionError(f"dry run cells not ok: {bad}")
+    got: dict = {}
+
+    def all_reduces(rec):
+        a = rec["collectives"]["all-reduce"]
+        if rec["collectives"]["total_bytes"] != a["bytes"]:
+            raise AssertionError(f"dry run: collectives other than all_reduce {rec}")
+        return a["count"], a["payload_bytes"]
+
+    # 6f: one decode step a rank, the bf16 engine's decode steps, its
+    # params and pool
+    rec = recs["mesh_decode"]
+    n, b = all_reduces(rec)
+    row = mesh["row"]
+    for i, (c, e, trees) in enumerate(zip(row["decode_all_reduces"],
+                                          row["bf16_engine_decode_all_reduces"],
+                                          row["bf16_trees"])):
+        _held(got, f"mesh decode rank {i} all_reduces", n, c["calls"], True)
+        _held(got, f"mesh decode rank {i} all_reduce bytes", b, c["bytes"], True)
+        steps = e["decode_steps"]
+        _held(got, f"mesh engine rank {i} all_reduces ({steps} decode steps)", n * steps,
+              e["calls"], True)
+        _held(got, f"mesh engine rank {i} all_reduce bytes ({steps} decode steps)", b * steps,
+              e["bytes"], True)
+        for k in ("params_bytes", "cache_bytes"):
+            _held(got, f"mesh decode rank {i} {k}", rec["memory"][k], trees[k], True)
+    # 11b (a) and (b): every step's all_reduces; the first step's trees
+    for name, what in (("train_tp", "tp"), ("train_dp", "dp")):
+        rec = recs[name]
+        n, b = all_reduces(rec)
+        for i, r in enumerate(train_mesh["row"][what]["ranks"]):
+            tag = f"{name} rank {i}"
+            _held(got, f"{tag} all_reduces ({TRAIN_MESH_STEPS} steps)", n * TRAIN_MESH_STEPS,
+                  r["all_reduce_calls_total"], True)
+            _held(got, f"{tag} all_reduce bytes ({TRAIN_MESH_STEPS} steps)",
+                  b * TRAIN_MESH_STEPS, r["all_reduce_bytes_total"], True)
+            for k in ("params_bytes", "opt_bytes"):
+                _held(got, f"{tag} {k}", rec["memory"][k], r["trees"][k], True)
+    # 11: the single device's trees
+    rec = recs["train"]
+    for k in ("params_bytes", "opt_bytes"):
+        _held(got, f"train {k}", rec["memory"][k], train["trees"][k], True)
+    # printed, not gated: the peak of live bytes beside the allocator's
+    # peak, and the analytic roofline terms as shares of the step's time
+    # (t_compute / step: the share of the bf16 / int8 peaks the step
+    # reaches, what a benchmark would call its MFU)
+    gib = 2 ** 30
+    tp_ranks = train_mesh["row"]["tp"]["ranks"]
+    for name, peak_gib, step_s in (
+            ("train", train["peak_mem_gib"], train["step_ms_median_2_6"] / 1e3),
+            ("train_tp", max(r["peak_mem_gib"] for r in tp_ranks),
+             statistics.median(ms for r in tp_ranks for ms in r["step_ms"][1:]) / 1e3)):
+        rec = recs[name]
+        _held(got, f"{name} peak GiB", rec["memory"]["peak_bytes"] / gib, peak_gib, False)
+        rl = rec["roofline"]
+        for term in ("t_compute", "t_memory", "t_collective"):
+            _held(got, f"{name} {term} s / step s", rl[term], step_s, False)
+    out_row = dict(card=card, held=got, dry_run_s=dry_s,
+                   cells={k: dict(mesh=r["mesh"], n_chips=r["n_chips"], split=r["split"],
+                                  weights=r["weights"], memory=r["memory"],
+                                  collectives={a: r["collectives"][a] for a in
+                                               ("all-reduce", "by_axis", "total_bytes")},
+                                  flops_counted=r["cost"]["flops_counted"],
+                                  analytic=r["analytic"], roofline=r["roofline"],
+                                  trace_s=r["trace_s"])
+                          for k, r in recs.items()})
+    log("dryrun", **out_row)
+    return out_row
 
 
 # ---------------------------------------------------------------------------
@@ -4208,6 +4404,7 @@ def main() -> int:
     mnist = timed("mnist", phase_mnist, dev, smi)
     train = timed("train", phase_train, dev, smi)
     train_mesh = timed("train_mesh", phase_train_mesh, dev, smi, train)
+    timed("dryrun", phase_dryrun, smi, mesh, train, train_mesh)
     log("phase_seconds", **PHASE_SECONDS, total=time.perf_counter() - t0)
 
     # launches on every path: the serving paths (bf16, int8, binary, paged

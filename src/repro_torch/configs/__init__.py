@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import SHAPES, ModelConfig, PrecisionPolicy, ShapeSpec  # noqa: F401
+from repro_torch.configs.base import (SHAPES, ModelConfig, PrecisionPolicy, ShapeSpec,  # noqa: F401
+                                     cell_is_runnable)
 
 ARCHS = ["stablelm-3b", "minicpm3-4b", "deepseek-v2-236b", "qwen3-8b", "qwen2-72b",
          "whisper-base", "llama-3.2-vision-11b", "deepseek-v3-671b", "zamba2-2.7b",

@@ -144,3 +144,12 @@ SHAPES = {
     "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
 }
+
+
+def cell_is_runnable(cfg: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
+    """Whether an (arch x shape) cell runs, else the documented skip reason
+    (repro's verdict and words)."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic():
+        return False, ("full-attention arch: 500k-token KV cache is "
+                       "infeasible; run only for SSM/hybrid (see DESIGN.md)")
+    return True, ""

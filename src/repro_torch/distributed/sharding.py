@@ -49,6 +49,10 @@ forward under autograd: ``TensorParallel``'s collectives then carry their
 gradients (Megatron's copy / reduce pair, built from all_reduce alone),
 and ``DataParallel`` holds a rank's place on the ``data`` axis: its rows
 of each batch and the f32 bucketed mean of the ranks' gradients.
+
+Every collective goes through distributed/collectives.py, which counts it
+per mesh axis and, inside its ``recording()`` scope, records it in place
+of issuing it (the dry run, launch/dryrun.py).
 """
 
 from __future__ import annotations
@@ -60,6 +64,8 @@ import re
 from dataclasses import dataclass, field
 
 import torch
+
+from repro_torch.distributed import collectives
 
 DEFAULT_MESH_RULES = {
     "batch": ("pod", "data"),
@@ -232,10 +238,8 @@ class _ReduceFromTP(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, group):
-        import torch.distributed as dist
         y = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(y, group=group)
-        return y
+        return collectives.all_reduce(y, axis="model", group=group)
 
     @staticmethod
     def backward(ctx, g):
@@ -253,10 +257,8 @@ class _CopyToTP(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        import torch.distributed as dist
         g = g.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
+        return collectives.all_reduce(g, axis="model", group=ctx.group), None
 
 
 class _GatherLast(torch.autograd.Function):
@@ -309,9 +311,7 @@ class TensorParallel:
         autograd records ``x``."""
         if _recorded(x):
             return _ReduceFromTP.apply(x, self.group)
-        import torch.distributed as dist
-        dist.all_reduce(x, group=self.group)
-        return x
+        return collectives.all_reduce(x, axis="model", group=self.group)
 
     def copy(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` (replicated) into a split region: itself; where autograd
@@ -361,7 +361,6 @@ class DataParallel:
         buckets of at most MEAN_BUCKET elements (one all_reduce each; a
         larger tensor goes alone), divided by the size, cast back to its
         dtype."""
-        import torch.distributed as dist
         out, i = [], 0
         while i < len(tensors):
             j, n = i + 1, tensors[i].numel()
@@ -369,7 +368,7 @@ class DataParallel:
                 n += tensors[j].numel()
                 j += 1
             flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors[i:j]])
-            dist.all_reduce(flat, group=self.group)
+            collectives.all_reduce(flat, axis="data", group=self.group)
             flat /= self.size
             for t, part in zip(tensors[i:j], flat.split([t.numel() for t in tensors[i:j]])):
                 out.append(part.view(t.shape).to(t.dtype))

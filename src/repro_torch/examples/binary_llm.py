@@ -7,9 +7,10 @@ all-float baseline the paper compares it with.
 
 Without ``--device`` it runs on the card (B2 in every binary FFN forward
 and B3 in every attention forward), and fails where there is none. For
-each model it prints the parameter count and the deployed weight bytes,
-both counted from the port's own tensors (models/deploy.py's int8 weights
-in place of the latents), then the first and last loss.
+each model it prints the analytic parameter count and deployed weight
+bytes (distributed/analytic_cost.py, as the reference's example prints
+them), beside both counted from the port's own tensors (models/deploy.py's
+int8 weights in place of the latents), then the first and last loss.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, PrecisionPolicy
 from repro_torch.data.synthetic import SyntheticTokens
 from repro_torch.device import resolve_device
+from repro_torch.distributed import analytic_cost, hlo_analysis
 from repro_torch.models import get_model
 from repro_torch.models.deploy import deploy_params
 from repro_torch.optim import adamw_init
@@ -76,7 +78,8 @@ def train(cfg: ModelConfig, steps: int, tag: str, ckpt_dir: str, device):
 
 
 def main(argv=None) -> dict:
-    """-> {"float" | "hybrid": {"params", "deployed_bytes", "history"}}."""
+    """-> {"float" | "hybrid": {"params", "deployed_bytes", "analytic_params",
+    "analytic_deployed_bytes", "history"}}."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=120)
     ap.add_argument("--big", action="store_true", help="the 42 M-param variant")
@@ -92,10 +95,14 @@ def main(argv=None) -> dict:
         tag = "hybrid" if binary else "float"
         params, hist = train(cfg, args.steps, tag, args.ckpt_dir, device)
         n, wb = param_count(params), weight_bytes(deploy_params(params, cfg))
-        print(f"[{tag}] params={n / 1e6:.1f}M deployed_weights={wb / 2**20:.1f} MiB")
+        an = hlo_analysis.param_count(cfg)
+        awb = analytic_cost.weight_bytes(cfg, deployed=True)
+        print(f"[{tag}] params={an / 1e6:.1f}M deployed_weights={awb / 2**20:.1f} MiB "
+              f"(analytic; tensors: {n / 1e6:.1f}M, {wb / 2**20:.1f} MiB)")
         print(f"[{tag}] loss: first={hist[0]['loss']:.3f} last={hist[-1]['loss']:.3f} "
               f"over {len(hist)} steps")
-        out[tag] = {"params": n, "deployed_bytes": wb, "history": hist}
+        out[tag] = {"params": n, "deployed_bytes": wb, "analytic_params": an,
+                    "analytic_deployed_bytes": awb, "history": hist}
     return out
 
 

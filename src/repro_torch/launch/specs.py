@@ -192,7 +192,7 @@ def _model_split(cfg: ModelConfig, mesh, rules: MeshRules) -> tuple[bool, bool, 
         if cfg.d_ff % n or (cfg.policy.binary_ffn and per % 32):
             raise ValueError(f"d_ff {cfg.d_ff} does not split into {n} shards of whole "
                              f"32-bit words (a shard of bin_out packs its K = d_ff / {n} "
-                             "along words)")
+                             "along words; uneven word-aligned shards are ROADMAP A9 (k))")
     if vocab and padded_vocab(cfg.vocab) % n:
         raise ValueError(f"the padded vocab {padded_vocab(cfg.vocab)} does not split {n} ways")
     over = {}
@@ -291,6 +291,8 @@ class TrainPlan:
         at once, so a device holds at most one shard more than its own."""
         import torch
         import torch.distributed as dist
+
+        from repro_torch.distributed import collectives
         keep = self.tp.rank == 0
 
         def one(t, spec):
@@ -301,7 +303,7 @@ class TrainPlan:
             for r in range(self.tp.size):
                 buf = t.contiguous() if r == self.tp.rank else torch.empty_like(t)
                 src = r if self.tp.group is None else dist.get_global_rank(self.tp.group, r)
-                dist.broadcast(buf, src=src, group=self.tp.group)
+                collectives.broadcast(buf, src=src, axis="model", group=self.tp.group)
                 if keep:
                     parts.append(buf.cpu())
                 del buf

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import collectives
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten_like
 
 
@@ -50,8 +51,8 @@ def onebit_psum_grads(grads, err, group=None):
     new_err = [c - s * sg.to(torch.float32) for c, s, sg in zip(cs, scales, signs)]
     sign_sum = torch.cat([sg.reshape(-1) for sg in signs])
     scale_sum = scales.clone()
-    dist.all_reduce(sign_sum, group=group)
-    dist.all_reduce(scale_sum, group=group)
+    collectives.all_reduce(sign_sum, axis="data", group=group)
+    collectives.all_reduce(scale_sum, axis="data", group=group)
     n = float(dist.get_world_size(group))
     parts = sign_sum.split([c.numel() for c in cs])
     synced = [(scale_sum[i] / n) * part.view(c.shape).to(torch.float32) / n

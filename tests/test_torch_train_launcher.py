@@ -13,7 +13,8 @@ the CPU (``--device cpu``):
     counted from the port's tensors, equal those of repro's tensors for the
     same configs (jax.eval_shape of repro's init and deploy), and relate to
     repro's analytic param_count / weight_bytes by the terms the analytic
-    count leaves out or counts otherwise;
+    count leaves out or counts otherwise; the analytic counts it prints
+    beside them (the port's analytic_cost) equal repro's;
   * the launcher keeps no reference to the state a step replaced.
 """
 
@@ -158,6 +159,9 @@ def test_binary_llm_counts_equal_repro(tmp_path, capsys):
         nb = int(binary_param_count(jcfg))
         assert out[tag]["deployed_bytes"] == 4 * (out[tag]["params"] - nb) + nb
         assert weight_bytes(jcfg, deployed=True) == 2 * (param_count(jcfg) - nb) + nb
+        # the analytic counts the example prints beside them: repro's
+        assert out[tag]["analytic_params"] == param_count(jcfg)
+        assert out[tag]["analytic_deployed_bytes"] == weight_bytes(jcfg, deployed=True)
         hist = out[tag]["history"]
         assert len(hist) == 3 and all(np.isfinite(h["loss"]) for h in hist)
         assert C.latest_step(str(tmp_path / tag)) == 3

@@ -20,6 +20,10 @@ in f32 with repro's own init carried over (models/convert.py).
 * The launcher: --mesh 1x2 for 3 steps with a checkpoint, then --mesh 2x1
   --resume for one more, against the same without --mesh (bf16, binary
   FFNs: step 0's loss within 1e-5, the later steps within the bar below).
+* The collectives each rank's train step issued, counted by the entry
+  point (distributed/collectives.py), equal the dry run's record of the
+  same step on fake tensors (launch/dryrun.py), at (1, 2), (2, 1) and
+  qwen3-8b's (2, 2).
 * The refusals: an arch outside the GQA dense family at model > 1, an
   arch with MoE layers at data > 1, a batch that does not divide over
   data, a malformed --mesh.
@@ -33,10 +37,12 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
 from repro_torch.data.synthetic import SyntheticTokens  # noqa: E402
+from repro_torch.distributed import collectives  # noqa: E402
 from repro_torch.distributed.sharding import tensor_parallel  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import specs as S  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
-from repro_torch.launch.mesh import make_mesh, spawn  # noqa: E402
+from repro_torch.launch.mesh import MeshShape, make_mesh, spawn  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.optim import adamw_init  # noqa: E402
 from repro_torch.train import checkpoint as C  # noqa: E402
@@ -73,18 +79,22 @@ def _np(tree):
 
 
 def _one_step(api, cfg, params, batch, plan=None):
-    """-> loss, gathered grads and params after one step, grad_norm."""
+    """-> loss, gathered grads and params after one step, grad_norm, and
+    the collectives the step issued (the entry point's counts)."""
     if plan is not None:
         batch = {k: plan.dp.rows(v) for k, v in batch.items()}
     with tensor_parallel(None if plan is None else plan.tp):
         _, metrics, grads = loss_and_grads(api, params, batch)
     if plan is not None:
         grads, metrics = plan.sync(grads, metrics)
+    collectives.zero_counts()
     new, _, m = make_train_step(api, cfg, plan=plan, **STEP)(params, adamw_init(params), batch)
+    issued = collectives.counts()
     if plan is not None:
         grads, new = plan.gather(api, grads), plan.gather(api, new)
     return dict(loss=float(metrics["loss"]), grads=_np(grads), params=_np(new),
-                grad_norm=float(m["grad_norm"]), step_loss=float(m["loss"]))
+                grad_norm=float(m["grad_norm"]), step_loss=float(m["loss"]),
+                collectives=issued)
 
 
 def _grads_on_a_thread(api, params, batch, plan):
@@ -212,6 +222,35 @@ def test_mesh_step_equals_single_device_and_repro(stablelm, runs2, dims):
     assert [r[dims]["grads"] is not None for r in runs2] == [True, dims[1] == 1]
     for rank_out in runs2:
         _check_step(rank_out[dims], single, jloss)
+
+
+def _dry_run_collectives(arch, cfg, dims):
+    """The dry run's collectives of the same step -> the entry point's
+    layout ({op: {axis: {"calls", "bytes"}}}, payload bytes)."""
+    rec = dryrun.run_cell(arch, "t", cfg_override=cfg, shape=ShapeSpec("t", SEQ, BATCH, "train"),
+                          mesh=MeshShape(dims, ("data", "model")), out_dir=None)
+    assert rec["status"] == "ok"
+    return {"all-reduce": {axis: {"calls": v["count"], "bytes": v["payload_bytes"]}
+                           for axis, v in rec["collectives"]["by_axis"].items()}}
+
+
+@pytest.mark.parametrize("dims", MESHES)
+def test_issued_collectives_equal_the_dry_run(stablelm, runs2, dims):
+    """What each gloo rank's train step issued through the entry point
+    (calls and payload bytes per mesh axis) = what the dry run records for
+    the same smoke config and mesh on fake tensors."""
+    want = _dry_run_collectives("stablelm-3b", stablelm[0], dims)
+    assert want["all-reduce"]
+    for rank_out in runs2:
+        assert rank_out[dims]["collectives"] == want
+    assert stablelm[4]["collectives"] == {}          # one device issues none
+
+
+def test_issued_collectives_equal_the_dry_run_on_a_2x2_mesh(qwen3):
+    want = _dry_run_collectives("qwen3-8b", _f32("qwen3-8b"), (2, 2))
+    assert set(want["all-reduce"]) == {"model", "data"}
+    for rank_out in qwen3[2]:
+        assert rank_out["collectives"] == want
 
 
 def test_recompute_reenters_the_scope_on_another_thread(stablelm, runs2):
