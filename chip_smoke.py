@@ -24,7 +24,8 @@ Phases, one output line each (or a few), every failure raising:
      and qwen2-72b (8192, 29568: K = 32 x 924) at decode and prefill;
      zamba2-2.7b's in_zx (10240, 2560) and out (2560, 5120) and rwkv6-3b's
      c_k (8960, 2560) and c_v (2560, 8960: K = 32 x 280) at decode M = 8
-     and prefill M = 1024),
+     and prefill M = 1024; a mesh rank's shards of stablelm-3b's (3456)
+     and minicpm3-4b's (3200 = 32 x 100) binary FFNs),
      a ragged case and, with activations over all of [-128, 127], a
      decode and a prefill case, required to be exactly equal; times of the
      kernel, the plain version and one cuBLAS call on unpacked operands
@@ -40,7 +41,8 @@ Phases, one output line each (or a few), every failure raising:
      scaled_dot_product_attention's (with enable_gqa for the GQA case, on
      torch >= 2.5); then MLA's head dims, q and k of width D, v of Dv:
      minicpm3-4b's (8, 128, 40 heads, 96 / 64) causal and with ragged
-     kv_len, deepseek-v2's (8, 128, 128 heads, 192 / 128) causal, and the
+     kv_len, deepseek-v2's (8, 128, 128 heads, 192 / 128) causal, a mesh
+     rank's 20 / 64 of those heads (6g), and the
      smoke configs' (2, 32, 4 heads, 24 / 16) in bf16 and f32 (2e-5), SDPA
      timed through the first backend that takes Dv != D (named); then
      non-causal, S != T, T off the 64-key tile: whisper-base's encoder (8,
@@ -201,17 +203,18 @@ Phases, one output line each (or a few), every failure raising:
      f32; printed beside them: the serving config, the VLM's binary FFNs
      in f32 and its float FFNs in f32 on the int8 pool; ms a decode step,
      tok/s, the busy share;
-  6e. recurrent: zamba2-2.7b (54 Mamba2 blocks, 50 binary: in_zx and out
-     through B2; the shared attention + MLP block, 32 heads of 80, invoked
-     9 times) and rwkv6-3b (32 Finch blocks, 28 binary: c_k and c_v
-     through B2; 40 WKV heads of 64) at full width and full depth, random
+  6e. recurrent: zamba2-2.7b cut to 27 Mamba2 blocks (23 binary: in_zx
+     and out through B2; the shared attention + MLP block, 32 heads of 80,
+     invoked 4 times) and rwkv6-3b cut to 16 Finch blocks (12 binary: c_k
+     and c_v through B2; 40 WKV heads of 64) at full width (half their
+     depth, for the script's time limit), random
      init from the seed, bf16, each freed before the next loads, served
      through BucketEngine (max_batch 8, max_len 256; repro gives them no
      slot engine) on the serve phase's 12 requests of 16 new tokens:
      zamba2 on a bf16 and an int8 pool, rwkv6 on its state. Each path's
      first run is counted: launches exactly B2 2 x binary blocks x
-     (prefills + steps), B3 9 x prefills (zamba2), on int8 the insert
-     kernel 9 x (prefills + steps) and kv_decode 9 x steps, 0 of the
+     (prefills + steps), B3 4 x prefills (zamba2), on int8 the insert
+     kernel 4 x (prefills + steps) and kv_decode 4 x steps, 0 of the
      rest; every cache the engine gets holds exactly the reckoned bytes
      per row, and init_cache(8, 256) exactly the reckoned bytes (zamba2's state
      593,436,672, its pool 188,743,680 bf16 / 96,731,136 int8; rwkv6's
@@ -263,6 +266,33 @@ Phases, one output line each (or a few), every failure raising:
      Last, launch.serve --mesh 1 on the card (NCCL, world 1) must give
      the single-device launcher's tokens (the smoke config). A rank's
      failure fails the phase; nothing falls back to one device;
+  6g. mesh_families: in 6f's two ranks (no second start-up), the MLA and
+     MoE families on the `model` mesh: minicpm3-4b at full width and depth
+     (20 of 40 MLA heads a rank, its binary FFNs' d_ff 3200 a rank) and
+     deepseek-v2-236b cut to 5 layers as the families phase serves it
+     (64 of 128 heads, 80 of 160 experts a rank; block 2 its binary MoE
+     block). Each rank builds the whole tree on the card in its turn (a
+     barrier between: two whole deepseek trees at once would pass 80 GB)
+     and keeps its shard; the reckoned peak (fake tensors) is printed
+     beside max_memory_allocated. First both smoke configs (f32, deepseek
+     at capacity_factor 16) on the mesh, as 6f's smoke LM cells: the single
+     device's tokens, the whole pool on each rank. Then, per model: block
+     2 split over the ranks bit for bit equal to the block whole on decode
+     M 8 and prefill M 1024 bf16 inputs (minicpm3's binary FFN; deepseek's routed MoE
+     output, the ranks' pair rows summed exactly); one decode step's
+     all_reduces exactly 126 / 16 by the port's own counter
+     (distributed/collectives.py); the families phase's 12 requests
+     through ServeEngine(mesh=, max_batch 8, max_len 256), eager, counted
+     from 0: the single device's launches a rank (minicpm3 B2 2 x 58 a
+     wave and step at the shard's (N, K), B3 62 a wave at 20 heads;
+     deepseek B3 5 a wave at 64 heads, B2 0), the engine's all_reduces
+     exactly 126 / 16 x (waves + steps), kv_bytes_per_device == kv_bytes
+     == 73,138,176 / 11,796,480 (MLA's compressed cache is whole on every
+     rank), no CUDA graph, the same tokens on both ranks; last, the
+     prefill logits in f32 with float FFNs and experts at full width, cut
+     to 4 / 2 layers, within 2e-3 of scale of the whole model's. B2 at
+     (3200, 2560) / (2560, 3200) and B3 at 20 heads (96 / 64) and 64
+     heads (192 / 128) are rows of phases 3 and 4;
   7. xnor: the XNOR-popcount GEMM against its plain version, exactly, at
      the MNIST net's hidden layers (M = 1, 128, 256, 512; N = K = 1024),
      ragged K (40, 100, 384) and the spec draft's shapes (gate / up 8 x
@@ -407,7 +437,7 @@ from repro_torch.kernels.ksplit import splits_for  # noqa: E402
 from repro_torch.kernels import kv_decode as kvd  # noqa: E402
 from repro_torch.kernels import kv_quant as kvq  # noqa: E402
 from repro_torch.launch.dryrun import tree_nbytes  # noqa: E402
-from repro_torch.models import get_model, lm_common as lc, mamba2, rwkv6  # noqa: E402
+from repro_torch.models import get_model, lm_common as lc, mamba2, moe, rwkv6  # noqa: E402
 from repro_torch.nn import attention as attn_lib  # noqa: E402
 from repro_torch.nn.layers import embedding_lookup, rmsnorm_apply  # noqa: E402
 from repro_torch.serving import kvcache as kvc  # noqa: E402
@@ -594,6 +624,12 @@ INT8_CASES = [  # (name, M, N, K)
     # x 128 tokens of stablelm-3b's full-width FFN
     ("train mesh 2x1 bin_in M 512", 512, 6912, 2560),
     ("train mesh 2x1 bin_out M 512", 512, 2560, 6912),
+    # a rank's shard of minicpm3-4b's binary FFN on a mesh of 2 (phase 6g):
+    # bin_in's columns and bin_out's K = 6400 / 2 = 3200 = 32 x 100
+    ("mesh 2 minicpm3 decode bin_in", 8, 3200, 2560),
+    ("mesh 2 minicpm3 decode bin_out", 8, 2560, 3200),
+    ("mesh 2 minicpm3 prefill bin_in", 1024, 3200, 2560),
+    ("mesh 2 minicpm3 prefill bin_out", 1024, 2560, 3200),
 ]
 # activations drawn from all of [-128, 127]: the kernel is exact for any
 # int8, and so are the plain f32 version and the yardsticks (|sum| < 2**24)
@@ -718,6 +754,10 @@ MLA_FLASH_CASES = [  # (name, B, S, Hq, D, Dv, kv_len or None, dtype)
     ("minicpm3 96/64, ragged kv_len", 8, 128, 40, 96, 64, [128, 100, 1, 64, 17, 128, 90, 3],
      torch.bfloat16),
     ("deepseek-v2 192/128", 8, 128, 128, 192, 128, None, torch.bfloat16),
+    # a rank's heads on a mesh of 2 (phase 6g): minicpm3's 20 of 40,
+    # deepseek-v2's 64 of 128
+    ("mesh 2 minicpm3 96/64, 20 heads", 8, 128, 20, 96, 64, None, torch.bfloat16),
+    ("mesh 2 deepseek-v2 192/128, 64 heads", 8, 128, 64, 192, 128, None, torch.bfloat16),
     ("smoke 24/16 bf16", 2, 32, 4, 24, 16, None, torch.bfloat16),
     ("smoke 24/16 f32", 2, 32, 4, 24, 16, None, torch.float32),
 ]
@@ -2155,15 +2195,17 @@ def phase_families(dev, card: str) -> dict:
 # phase 6e: the recurrent families at full width
 # ---------------------------------------------------------------------------
 
-# (arch, its paths: the shared block's pool codec, or "state"); exact bytes
-# at 8 slots and max_len 256: zamba2's Mamba state (h + conv, f32) 54 x (80
-# x 64 x 64 + 3 x 5,248) x 4 x 8, its shared block's pool 9 invocations x 8
-# x 256 x a token's bytes (bf16 2 x 32 x 80 x 2; int8 2 x 32 x (80 + 2));
-# rwkv6's state (tm_s + tm_x + cm_x, f32) 32 x (40 x 64 x 64 + 2 x 2,560) x
-# 4 x 8
-RECURRENT = [("zamba2-2.7b", ["bf16", "int8"]), ("rwkv6-3b", ["state"])]
-STATE_BYTES = {"zamba2-2.7b": 593_436_672, "rwkv6-3b": 173_015_040}
-POOL_BYTES = {"bf16": 188_743_680, "int8": 96_731_136, "state": 0}
+# (arch, the cut: half the depth of 54 and 32 blocks, full width (the
+# script's time limit), its paths: the shared block's pool codec, or
+# "state"); exact bytes at 8 slots and max_len 256: zamba2's Mamba state
+# (h + conv, f32) 27 x (80 x 64 x 64 + 3 x 5,248) x 4 x 8, its shared
+# block's pool 4 invocations x 8 x 256 x a token's bytes (bf16 2 x 32 x 80
+# x 2; int8 2 x 32 x (80 + 2)); rwkv6's state (tm_s + tm_x + cm_x, f32) 16
+# x (40 x 64 x 64 + 2 x 2,560) x 4 x 8
+RECURRENT = [("zamba2-2.7b", dict(n_layers=27), ["bf16", "int8"]),
+             ("rwkv6-3b", dict(n_layers=16), ["state"])]
+STATE_BYTES = {"zamba2-2.7b": 296_718_336, "rwkv6-3b": 86_507_520}
+POOL_BYTES = {"bf16": 83_886_080, "int8": 42_991_616, "state": 0}
 # decode parity's prompt (zamba2: two SSD chunks of 128 with a ragged tail)
 # and its bar, of the logits' scale, in f32 with float denses. rwkv6's
 # time-mix projections and c_r round to bf16 whatever the config says
@@ -2365,15 +2407,15 @@ def _recurrent_train_vs_cpu(arch, dev, binary: bool = True) -> dict:
             "grad_leaf": worst, "b2_launches": launches["int8_matmul"]}
 
 
-def _recurrent_model(arch, paths, dev, card, timer) -> tuple[list, list]:
-    """One recurrent model at full width and depth (random init from the
+def _recurrent_model(arch, cut, paths, dev, card, timer) -> tuple[list, list]:
+    """One recurrent model at full width, cut to ``cut`` (random init from the
     seed, bf16), served on each path, its empty caches' bytes at 8 slots,
     its sequence mixing timed; the decode parity in f32 (gated with float
     denses at PARITY_REL, printed with the served binary ones); the smoke
     config's loss and grads against the CPU (RECURRENT_TRAIN_TOL) ->
     (rows, launches of each path)."""
     t0 = time.perf_counter()
-    cfg = get_config(arch)
+    cfg = get_config(arch).replace(**cut)
     n_binary = sum(cfg.policy.block_is_binary(i, cfg.n_layers) for i in range(cfg.n_layers))
     n_shared = cfg.n_layers // cfg.attn_every if cfg.family == "mamba2_hybrid" else 0
     params = get_model(cfg).init(SEED, device=dev)
@@ -2433,13 +2475,13 @@ def _recurrent_model(arch, paths, dev, card, timer) -> tuple[list, list]:
 
 def phase_recurrent(dev, card: str) -> dict:
     """zamba2-2.7b (bf16 and int8 pools) and rwkv6-3b at full width and
-    depth through the bucket engine, each freed before the next loads
+    half depth through the bucket engine, each freed before the next loads
     (module note, 6e) -> {"rows", "launches"}."""
     timer = Timer(dev)
     rows, launches = [], []
-    for arch, paths in RECURRENT:
+    for arch, cut, paths in RECURRENT:
         _free(dev)
-        r, ls = _recurrent_model(arch, paths, dev, card, timer)
+        r, ls = _recurrent_model(arch, cut, paths, dev, card, timer)
         rows += r
         launches += ls
     del timer
@@ -2675,6 +2717,232 @@ def _mesh_rank(rank: int, world: int, job: dict) -> dict:
     out["logits_same_argmax"] = bool(torch.equal(got[:, :v].argmax(-1), want[:, :v].argmax(-1)))
     out["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     out["seconds"] = time.perf_counter() - t0
+    del fparams, flocal, want, got
+    _free(dev)
+    # phase 6g in the same ranks: no second start-up
+    t0 = time.perf_counter()
+    out["family_smoke"] = {arch: _family_smoke(arch, dev, job["smoke_prompts"], mesh)
+                           for arch, *_ in MESH_FAMILIES}
+    out["families"] = [_mesh_family(rank, world, mesh, dev, *fam) for fam in MESH_FAMILIES]
+    out["families_seconds"] = time.perf_counter() - t0
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6g: tensor-parallel serving of MLA and MoE, in 6f's ranks
+# ---------------------------------------------------------------------------
+
+# (arch, the cut, the pool's exact bytes at 8 x 256 (MLA's compressed cache,
+# whole on every rank: SERVED_FAMILIES'), the all_reduces of one decode
+# step, the block held to one device). The all_reduces, from the call
+# sites: a dense block 2 (wo, the FFN's down product), a MoE block 3 (wo,
+# the routed pair rows, the shared experts' down product), the embedding
+# and the logits 1 each: minicpm3-4b 62 x 2 + 2, deepseek-v2 x 5 (block 0
+# dense, 1..4 MoE) 2 + 4 x 3 + 2. Block 2: minicpm3's first binary FFN
+# (edge_blocks_float 2), deepseek-v2's binary MoE block
+MESH_FAMILIES = [("minicpm3-4b", {}, 73_138_176, 62 * 2 + 2, 2),
+                 ("deepseek-v2-236b", dict(n_layers=5), 11_796_480, 2 + 4 * 3 + 2, 2)]
+# the f32 logits check's cuts, full width with float FFNs and experts:
+# minicpm3 as 6f's 4 layers, deepseek-v2 a dense and a MoE block (~21 GB of
+# f32 params whole)
+MESH_FAMILY_LOGITS_LAYERS = {"minicpm3-4b": 4, "deepseek-v2-236b": 2}
+
+
+def _family_smoke(arch: str, dev, prompts, mesh=None) -> dict:
+    """The arch's smoke config in f32 (deepseek at capacity_factor 16, as
+    tests/test_torch_mla.py runs it), random init from the seed on this
+    card, served as 6f's smoke LM cells are -> tokens and pool bytes."""
+    cfg = smoke_config(arch).replace(compute_dtype="float32", param_dtype="float32")
+    if cfg.n_experts:
+        cfg = cfg.replace(capacity_factor=16.0)
+    api = get_model(cfg)
+    eng = ServeEngine(api, api.init(SEED, device=dev), mesh=mesh,
+                      cuda_graphs=False if mesh is None else None, **MESH_SMOKE_ENGINE)
+    rids = [eng.add_request(p, max_new=8) for p in prompts]
+    res = eng.run()
+    return dict(tokens=[res[r] for r in rids], kv_bytes=eng.stats["kv_bytes"],
+                kv_bytes_per_device=eng.stats["kv_bytes_per_device"])
+
+
+def _in_turns(rank: int, world: int, fn):
+    """fn() on each rank in turn, rank 0 first, the others waiting at a
+    barrier: two ranks that each built a whole deepseek-v2 x 5 tree (32 GiB)
+    at once and then cut their shards would need more than the card's 80
+    GB (a rank keeps only its shard after its turn)."""
+    import torch.distributed as dist
+    out = None
+    for turn in range(world):
+        if turn == rank:
+            out = fn()
+        dist.barrier()
+    return out
+
+
+def _family_block(p: dict, x, cfg):
+    """The block checked against one device: a binary FFN (bin_out's int32
+    dot summed before its cast) or a MoE layer's routed output (its shared
+    experts left out: the pair rows summed exactly)."""
+    if "bin_in" in p:
+        return lc.ffn_apply(p, x, cfg)
+    return moe.moe_apply({k: v for k, v in p.items() if k != "shared"}, x, cfg)[0]
+
+
+def _park(tree, device):
+    """``tree`` with every tensor on ``device``: a built rank's shard waits
+    in host memory while the next rank builds its whole tree, so that the
+    card holds one whole tree and one shard at most (deepseek-v2 x 5's:
+    with rank 0's 16 GiB shard on the card beside rank 1's build, 75 of the
+    H100's 79 GiB were in use)."""
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.to(device), tree)
+
+
+def _reckoned_peak(api, mesh, world: int) -> dict:
+    """A rank's reckoned peak while it builds in its turn: the whole packed
+    tree (FakeTensorMode: no storage) and its own copies of the split
+    leaves (the other ranks' shards are parked in host memory meanwhile)."""
+    from repro_torch.distributed.sharding import partition_specs
+    from repro_torch.launch import specs
+    p_abs = specs.abstract_params(api, packed=True)
+    _, rules = specs.serving_plan(api.cfg, mesh)
+    whole = split = kept = 0
+    for t, sp in zip(tree_leaves(p_abs),
+                     tree_leaves(partition_specs(p_abs, api.deployed_rules, mesh, rules))):
+        n = t.numel() * t.element_size()
+        whole += n
+        if any(sp):
+            split += n // world
+        else:
+            kept += n
+    return {"process_gib": (whole + split) / 2 ** 30, "shard_gib": (kept + split) / 2 ** 30}
+
+
+def _mesh_family(rank: int, world: int, mesh, dev, arch: str, cut: dict, kv_bytes: int,
+                 per_step: int, block: int) -> dict:
+    """One model of 6g on this rank (module note): built in turns, served
+    on the families phase's 12 requests, counted; the block split against
+    the block whole; the f32 logits at a cut depth. -> plain values."""
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import tensor_parallel
+    from repro_torch.launch import specs
+    cfg = get_config(arch).replace(**cut)
+    api = get_model(cfg)
+    label = f"mesh {arch}"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    xs = {case: torch.randn(8, s, cfg.d_model, generator=gen, device=dev).to(torch.bfloat16)
+          for case, s in (("decode M 8", 1), ("prefill M 1024", 128))}
+    reckoned = _reckoned_peak(api, mesh, world)
+
+    def build():
+        torch.cuda.reset_peak_memory_stats(dev)
+        card_free = torch.cuda.mem_get_info(dev)[0]
+        t0 = time.perf_counter()
+        params = api.init(SEED, device=dev)
+        # the block whole before the engine cuts the shard: the block's
+        # transients and the shard's copies are never on the card together
+        want = {case: _family_block(params["blocks"][block]["ffn"], x, cfg)
+                for case, x in xs.items()}
+        eng = ServeEngine(api, params, max_batch=8, max_len=256, mesh=mesh)
+        torch.cuda.synchronize()
+        built = dict(build_s=time.perf_counter() - t0, card_free_gib=card_free / 2 ** 30,
+                     peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+        del params
+        eng.params = _park(eng.params, "cpu")
+        _free(dev)
+        return eng, want, built
+    t0 = time.perf_counter()
+    eng, want, built = _in_turns(rank, world, build)
+    eng.params = _park(eng.params, dev)
+    turns_s = time.perf_counter() - t0
+    out = dict(arch=arch, cut=cut, n_layers=cfg.n_layers, split=dict(
+        attn=eng.tp.attn, ffn=eng.tp.ffn, vocab=eng.tp.vocab, experts=eng.tp.experts),
+        turns_s=turns_s, reckoned_peak=reckoned, **built)
+    # the block split over the ranks against the block whole
+    out["block"] = {}
+    for case, x in xs.items():
+        with tensor_parallel(eng.tp):
+            got = _family_block(eng.params["blocks"][block]["ffn"], x, cfg)
+        out["block"][case] = dict(same_bits=_same_bits(got, want[case]),
+                                  max_abs_diff=float((got.float() - want[case].float())
+                                                     .abs().max()))
+    # one decode step's all_reduces, by the port's own counter
+    with tensor_parallel(eng.tp):
+        caches = api.init_cache(8, 256, dev)
+    collectives.zero_counts()
+    with torch.no_grad(), tensor_parallel(eng.tp):
+        api.decode(eng.params, caches, torch.zeros((8, 1), dtype=torch.int32, device=dev))
+    one = collectives.counts()["all-reduce"]["model"]
+    if one["calls"] != per_step:
+        raise AssertionError(f"{label}: a decode step issued {one['calls']} all_reduces, want "
+                             f"{per_step}")
+    del caches
+    # the families phase's 12 requests, counted from 0
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab, int(rng.choice(PROMPT_LENS)))
+               for _ in range(N_REQUESTS)]
+    zero_counts()
+    collectives.zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [eng.add_request(p, max_new=MAX_NEW) for p in prompts]
+    res = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    ar = collectives.counts()["all-reduce"]["model"]
+    toks = [res[r] for r in rids]
+    _check_outputs(label, toks, cfg.vocab)
+    n_binary = sum(lc.block_sig(cfg, i).ffn == "binary" and not lc.block_sig(cfg, i).moe
+                   for i in range(cfg.n_layers))
+    waves, steps = eng.stats["prefills"], eng.stats["decode_steps"]
+    _check_path(label, launches, eng, cfg, n_binary, "bf16", waves)
+    _check_kv_bytes(label, eng, cfg, "bf16", kv_bytes)
+    if eng.stats["kv_bytes_per_device"] != kv_bytes:
+        raise AssertionError(f"{label}: rank {rank} holds {eng.stats['kv_bytes_per_device']} "
+                             f"pool bytes, want the whole pool {kv_bytes}")
+    # every prefill wave and decode step issues one step's all_reduces
+    if ar["calls"] != per_step * (waves + steps):
+        raise AssertionError(f"{label}: {ar['calls']} all_reduces for {waves} waves + {steps} "
+                             f"steps, want {per_step} each")
+    if eng.graph is not None:
+        raise AssertionError(f"{label}: a mesh engine built a CUDA graph")
+    n_tok = sum(len(o) for o in toks)
+    out.update(tokens=toks, launches=launches, wall_s=wall, tok_per_s=n_tok / wall,
+               prefill_waves=waves, decode_steps=steps, kv_bytes=eng.stats["kv_bytes"],
+               kv_bytes_per_device=eng.stats["kv_bytes_per_device"],
+               decode_step_all_reduces=one, engine_all_reduces=ar,
+               params_gib=tree_nbytes(eng.params) / 2 ** 30,
+               peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    del eng, res
+    _free(dev)
+
+    # the f32 logits at a cut depth, float FFNs and experts, split and whole
+    fcfg = get_config(arch).replace(n_layers=MESH_FAMILY_LOGITS_LAYERS[arch],
+                                    policy=PrecisionPolicy(), compute_dtype="float32",
+                                    param_dtype="float32")
+    fapi = get_model(fcfg)
+    ftoks = torch.as_tensor(np.stack([np.resize(p, 64) for p in prompts[:8]]), device=dev)
+
+    def build_f32():
+        fparams = fapi.init(SEED, device=dev)
+        fwant = fapi.prefill(fparams, {"tokens": ftoks}, max_len=64)[0]
+        ftp, frules = specs.mesh_tensor_parallel(fcfg, mesh)
+        flocal = specs.shard_params(fapi, fparams, mesh, ftp, frules)
+        del fparams
+        _free(dev)
+        return ftp, flocal, fwant
+    ftp, flocal, fwant = _in_turns(rank, world, build_f32)
+    with tensor_parallel(ftp):
+        fgot, _ = fapi.prefill(flocal, {"tokens": ftoks}, max_len=64)
+    v = cfg.vocab
+    out["logits_rel"] = (float((fgot[:, :v] - fwant[:, :v]).abs().max())
+                         / float(fwant[:, :v].abs().max()))
+    out["logits_same_argmax"] = bool(torch.equal(fgot[:, :v].argmax(-1),
+                                                 fwant[:, :v].argmax(-1)))
+    out["logits_layers"] = fcfg.n_layers
+    del flocal, fwant, fgot
+    _free(dev)
     return out
 
 
@@ -2739,6 +3007,7 @@ def phase_mesh(dev, card: str, serve: dict) -> dict:
     scfg, sparams, loss = _smoke_lm(dev)
     sprompts = [_markov(3 + i, 7 + (i % 4), scfg.vocab) for i in range(5)]
     single = _smoke_cells(get_model(scfg), sparams, sprompts)
+    family_single = {arch: _family_smoke(arch, dev, sprompts) for arch, *_ in MESH_FAMILIES}
     path = OUT_DIR / "mesh" / "smoke_lm.pt"
     path.parent.mkdir(parents=True, exist_ok=True)
     torch.save(tree_map(lambda t: t.cpu(), sparams), path)
@@ -2747,6 +3016,7 @@ def phase_mesh(dev, card: str, serve: dict) -> dict:
     job = dict(smoke_cfg=scfg, smoke_path=str(path), smoke_prompts=sprompts,
                prompts=[p.tolist() for p in serve["prompts"]],
                shared=[p.tolist() for p in serve["shared"]])
+    parent_gib = torch.cuda.memory_allocated(dev) / 2 ** 30
     t_ranks = time.perf_counter()
     ranks = spawn(_mesh_rank, MESH_N, backend="gloo", args=(job,), timeout=900)
     ranks_s = time.perf_counter() - t_ranks
@@ -2810,6 +3080,7 @@ def phase_mesh(dev, card: str, serve: dict) -> dict:
                peak_mem_gib_serve=[r["peak_mem_gib_serve"] for r in ranks],
                peak_mem_gib=[r["peak_mem_gib"] for r in ranks],
                rank_seconds=[r["seconds"] for r in ranks], ranks_wall_s=ranks_s,
+               parent_mem_gib=parent_gib,
                decode_all_reduces=[r["decode_all_reduces"] for r in ranks],
                bf16_trees=[r["bf16_trees"] for r in ranks],
                bf16_engine_decode_all_reduces=[r["bf16_engine_decode_all_reduces"]
@@ -2819,7 +3090,48 @@ def phase_mesh(dev, card: str, serve: dict) -> dict:
     log("mesh", **row)
     launches = [{k: sum(r["paths"][i]["launches"][k] for r in ranks) for k in KERNELS}
                 for i in range(len(MESH_PATHS))]
+    launches += _mesh_families_rows(ranks, card, family_single)
     return {"row": row, "launches": launches}
+
+
+def _mesh_families_rows(ranks, card: str, single: dict) -> list[dict]:
+    """Phase 6g's gates across the ranks and its lines (the exact counts
+    and bytes are gated inside each rank; ``single``: the smoke configs'
+    tokens on one device) -> each model's launches, both ranks' summed."""
+    launches = []
+    for i, (arch, *_) in enumerate(MESH_FAMILIES):
+        for r in ranks:
+            got, want = r["family_smoke"][arch], single[arch]
+            if got["tokens"] != want["tokens"]:
+                raise AssertionError(f"mesh {arch} smoke: rank {r['rank']} tokens "
+                                     f"{got['tokens']} != the single device's {want['tokens']}")
+            if not got["kv_bytes_per_device"] == got["kv_bytes"] == want["kv_bytes"]:
+                raise AssertionError(f"mesh {arch} smoke: bytes {got}, one device {want}")
+        got = [r["families"][i] for r in ranks]
+        if any(g["tokens"] != got[0]["tokens"] for g in got):
+            raise AssertionError(f"mesh {arch}: the ranks gave other tokens")
+        for g, r in zip(got, ranks):
+            for case, b in g["block"].items():
+                if not b["same_bits"]:
+                    raise AssertionError(f"mesh {arch} block {case}: rank {r['rank']} differs "
+                                         f"from the single device by {b['max_abs_diff']}")
+            if not g["logits_rel"] <= MESH_LOGITS_REL:
+                raise AssertionError(f"mesh {arch} f32 logits: {g['logits_rel']} of scale")
+        n_tok = sum(len(o) for o in got[0]["tokens"])
+        log("mesh_families", card=card, world=MESH_N, backend="gloo", arch=arch,
+            **{k: got[0][k] for k in ("cut", "n_layers", "split", "prefill_waves",
+                                      "decode_steps", "kv_bytes", "logits_layers")},
+            tokens=n_tok, tok_per_s=n_tok / max(g["wall_s"] for g in got),
+            smoke_tokens_as_single_device=True,
+            **{k: [g[k] for g in got] for k in (
+                "launches", "kv_bytes_per_device", "decode_step_all_reduces",
+                "engine_all_reduces", "block", "logits_rel", "logits_same_argmax", "wall_s",
+                "build_s", "turns_s", "card_free_gib", "reckoned_peak", "peak_gib",
+                "params_gib",
+                "peak_mem_gib")},
+            rank_seconds=[r["families_seconds"] for r in ranks])
+        launches.append({k: sum(g["launches"][k] for g in got) for k in KERNELS})
+    return launches
 
 
 # ---------------------------------------------------------------------------

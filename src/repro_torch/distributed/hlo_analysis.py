@@ -78,10 +78,13 @@ class Roofline:
 
 
 def _part_cost(cfg, shape, part: str):
-    """The global analytic cost of one part of a GQA dense model's step
+    """The global analytic cost of one part of a dense or MoE model's step
     (analytic_cost's terms for it): ``attn`` (projections, scores, the KV
-    cache or its chunked re-reads), ``ffn`` or ``vocab`` (the head's
-    product, the embedding and head weights)."""
+    cache or its chunked re-reads), ``mla_whole`` (what MLA keeps whole
+    where its heads split: the down projections and the compressed
+    cache), ``ffn`` (the dense FFNs and the MoE layers' shared experts),
+    ``router`` (its products) or ``vocab`` (the head's product, the
+    embedding and head weights)."""
     from repro_torch.distributed import analytic_cost as AC
     b, train, decode = shape.global_batch, shape.kind == "train", shape.kind == "decode"
     s = 1 if decode else shape.seq_len
@@ -90,8 +93,23 @@ def _part_cost(cfg, shape, part: str):
     # backward, grads) and, in training, AdamW's p / m / v traffic
     mdt = 2.0 if cfg.opt_moment_dtype == "bfloat16" else 4.0
     per_param = 3 * 2.0 + 2 * 2.0 + 2 * 2 * mdt if train else 2.0
+    moe_layers = [i for i in range(L) if cfg.family == "moe" and i >= cfg.first_dense_layers]
+    binary = [cfg.policy.block_is_binary(i, L) for i in range(L)]
+    qc, c, dr = cfg.q_lora_rank, cfg.kv_lora_rank, cfg.qk_rope_dim
+
+    def mla_cache_bytes():
+        if decode:
+            return AC.kv_cache_bytes(cfg, shape)
+        return (3 if train else 1) * L * max(s // cfg.attn_chunk, 1) * b * s * c * 2.0
     cost = AC.StepCost()
-    if part == "attn":
+    if part == "attn" and cfg.use_mla:
+        for _ in range(L):
+            cost.add(AC._attn_mla(cfg, b, s, shape.seq_len, decode=decode))
+        h, dn, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim
+        qp = d * qc + qc * h * (dn + dr) if qc else d * h * (dn + dr)
+        cost.hbm_bytes = (L * (qp + d * (c + dr) + c * h * (dn + dv) + h * dv * d) * per_param
+                          + mla_cache_bytes())
+    elif part == "attn":
         for _ in range(L):
             cost.add(AC._attn_gqa(cfg, b, s, shape.seq_len, causal=not decode))
         dh = cfg.head_dim or d // cfg.n_heads
@@ -101,16 +119,25 @@ def _part_cost(cfg, shape, part: str):
         else:
             kv = b * s * cfg.n_kv_heads * cfg.kv_head_dim() * 2 * 2.0
             cost.hbm_bytes += (3 if train else 1) * L * max(s // cfg.attn_chunk, 1) * kv
+    elif part == "mla_whole":
+        cost.flops_bf16 = L * 2 * b * s * d * (qc + c + dr)
+        cost.hbm_bytes = L * d * (qc + c + dr) * per_param + mla_cache_bytes()
     elif part == "ffn":
-        for i in range(L):
-            cost.add(AC._ffn(cfg, b * s, binary=cfg.policy.block_is_binary(i, L)))
-        n = L * 3 * d * cfg.d_ff
-        nb = AC.binary_param_count(cfg)
+        dense = [i for i in range(L) if i not in moe_layers]
+        for i in dense:
+            cost.add(AC._ffn(cfg, b * s, binary=binary[i]))
+        shared = cfg.n_shared_experts * cfg.moe_d_ff
+        cost.flops_bf16 += len(moe_layers) * 2 * b * s * d * shared * 3
+        n = len(dense) * 3 * d * cfg.d_ff
+        nb = sum(binary[i] for i in dense) * 2 * d * cfg.d_ff
         if not train and cfg.policy.binary_ffn and cfg.policy.binary_mode != "bf16":
             per = 0.125 if cfg.policy.binary_mode == "xnor" else 1.0
             cost.hbm_bytes = (n - nb) * 2.0 + nb * per
         else:
             cost.hbm_bytes = n * per_param
+        cost.hbm_bytes += len(moe_layers) * 3 * d * shared * per_param
+    elif part == "router":
+        cost.flops_bf16 = len(moe_layers) * 2 * b * s * d * cfg.n_experts
     elif part == "vocab":
         cost.add(AC._head(cfg, b * s if train else b))
         cost.hbm_bytes = cfg.vocab * d * (1 if cfg.tie_embeddings else 2) * per_param
@@ -128,18 +155,24 @@ def card_cost(cfg, shape, *, data: int, model: int, split: dict):
     FLOPs by bucket, HBM bytes). repro divides the global cost by the card
     count, as GSPMD splits every part. Here a rank holds 1 / ``data`` of
     the rows; a part that the ``model`` axis splits (``split``: {"attn",
-    "ffn", "vocab"} -> bool, the plan's) is 1 / ``model`` of that, but a
-    part it keeps whole (attention where the cache heads cannot split) is
-    computed and read whole by every rank of the axis. The rest (the
-    residual stream, norms) is divided by the card count, as repro's."""
+    "ffn", "vocab"} -> bool, the plan's; a MoE layer's routed experts always
+    split) is 1 / ``model`` of that, but a part it keeps whole (attention where the cache heads
+    cannot split; MLA's down projections and compressed cache; a MoE
+    layer's router) is computed and read whole by every rank of the axis.
+    The rest (the residual stream, norms) is divided by the card count, as
+    repro's."""
     from repro_torch.distributed import analytic_cost as AC
     total, n = AC.step_cost(cfg, shape), data * model
-    whole = [p for p, on in split.items() if not on]
+    whole = [p for p in ("attn", "ffn", "vocab") if not split[p]]
+    if cfg.n_experts:
+        whole.append("router")       # the routed experts always split (_model_split)
+    if cfg.use_mla and split["attn"]:
+        whole.append("mla_whole")
     if model == 1 or not whole:
         return total.scaled(1 / n)
-    if cfg.family != "dense" or cfg.use_mla:
-        raise ValueError(f"the plans split a `model` axis over the GQA dense family only, "
-                         f"not {cfg.name!r}")
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"the plans split a `model` axis over the dense and MoE families "
+                         f"only, not {cfg.name!r}")
     rep = AC.StepCost()
     for p in whole:
         rep.add(_part_cost(cfg, shape, p))

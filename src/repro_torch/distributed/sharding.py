@@ -281,17 +281,25 @@ class TensorParallel:
     there (launch/specs.serving_plan / train_plan decide it from the mesh
     rules):
 
-      attn   attention heads: wq / wk / wv column-parallel, wo row-parallel,
-             each rank attending with its heads against its own cache
-             heads; else the attention block runs whole on every rank
-      ffn    the FFN hidden width: w_gate / w_up / bin_in column-parallel,
-             w_down / bin_out row-parallel
-      vocab  embedding rows and head columns
+      attn     attention heads: wq / wk / wv column-parallel, wo
+               row-parallel, each rank attending with its heads against its
+               own cache heads; MLA's w_uq / w_uk / w_uv column-parallel
+               by heads and wo row-parallel, its down projections and its
+               compressed cache whole on every rank; else the attention
+               block runs whole on every rank
+      ffn      the FFN hidden width: w_gate / w_up / bin_in column-parallel,
+               w_down / bin_out row-parallel (a MoE layer's shared experts
+               too)
+      vocab    embedding rows and head columns
+      experts  the routed expert stacks of a MoE layer: a rank holds
+               E / N whole experts and runs their slots of the dispatch,
+               which every rank computes whole; ``gather_pairs`` sums the
+               ranks' gated pair rows
 
     Each row-parallel product is summed over the axis with one all_reduce;
-    the embedding and the logits are gathered by an all_reduce of
-    zero-filled buffers, which is exact (gloo carries only broadcast and
-    all_reduce for CUDA tensors).
+    the embedding, the logits and the MoE pair rows are gathered by an
+    all_reduce of zero-filled buffers, which is exact (gloo carries only
+    broadcast and all_reduce for CUDA tensors).
 
     Training (Megatron's pair): where autograd records the forward, each
     split region's input goes through ``copy`` (identity; its gradient is
@@ -305,6 +313,7 @@ class TensorParallel:
     attn: bool = False
     ffn: bool = False
     vocab: bool = False
+    experts: bool = False
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """Sum ``x`` over the axis: in place, or into a new tensor where
@@ -328,6 +337,15 @@ class TensorParallel:
         full = x.new_zeros((*x.shape[:-1], n * self.size))
         full[..., self.rank * n:(self.rank + 1) * n] = x
         return self.all_reduce(full)
+
+    def gather_pairs(self, rows: torch.Tensor, mine: torch.Tensor) -> torch.Tensor:
+        """A MoE layer's gated pair rows (T k, d), this rank's where ``mine``
+        (T k,) holds (the pairs routed to its experts), from every rank:
+        one all_reduce of the rows zero-filled elsewhere. Each pair is one
+        rank's, so the sum adds only zeros to it: exact, every rank holds
+        the same bits in any dtype. Serving only: its backward, a gradient
+        cut to the rank's own pairs, is ROADMAP A9 (l)."""
+        return self.all_reduce(torch.where(mine[:, None], rows, rows.new_zeros(())))
 
 
 # elements in one all_reduce of DataParallel.mean: 256 MiB of f32

@@ -46,14 +46,17 @@ included; the plain attention builds score blocks that B3 does not) and
 
 Statuses: a cell that configs.cell_is_runnable refuses, or that the port
 refuses (a NotImplementedError of its own: ROADMAP A9 (f) for a model
-axis over the families other than GQA dense, A9 (j) for MoE on data; or
+axis over the recurrent families, whisper and the VLM, A9 (l) for
+training MLA or MoE on one, A9 (j) for MoE on data; or
 a plan's ValueError: A9 (k) for an FFN whose shard would not hold whole
 packed words, as qwen2-72b's d_ff 29568 over 8), is ``skipped`` with the
 reason; anything else raised is ``error`` with its traceback.
 
 The roofline is one card's share of the analytic step
 (hlo_analysis.card_cost): a part the plan keeps whole on the ``model``
-axis counts whole on every rank of it.
+axis (MLA's down projections and compressed cache, a MoE router) counts
+whole on every rank of it, a split one (the routed experts among them)
+1 / ``model``.
 """
 
 from __future__ import annotations
@@ -314,7 +317,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                                            weights=weights)
         t_lower = time.time() - t0
         traced = trace_step(low)
-        split = {"attn": low.tp.attn, "ffn": low.tp.ffn, "vocab": low.tp.vocab}
+        split = {"attn": low.tp.attn, "ffn": low.tp.ffn, "vocab": low.tp.vocab,
+                 "experts": low.tp.experts}
         stats = hlo_analysis.analyze_step(traced, cfg=cfg, shape=shape,
                                           data=shape.global_batch // low.rows,
                                           model=mesh.shape.get("model", 1), split=split)

@@ -54,17 +54,21 @@ dense added at load.
 
 ``--mesh N`` serves tensor-parallel over N ranks (launch/mesh.spawn, one
 process each, a ``model`` mesh of N): attention heads, the FFN hidden
-width, the vocab and the KV pool's heads are split, the GQA dense family
-only (stablelm-3b, qwen3-8b, qwen2-72b). ``--backend`` picks the process
+width, the routed experts, the vocab and a GQA pool's heads are split
+(an MLA pool's compressed cache is whole on every rank), for the dense
+and MoE families: stablelm-3b, qwen3-8b, qwen2-72b, minicpm3-4b,
+deepseek-v2-236b and deepseek-v3-671b. ``--backend`` picks the process
 group: ``nccl`` (the default on cuda) takes a card per rank and refuses N
 above the cards there are; ``gloo`` (the default on cpu) also lets ranks
 share a card. Rank 0 logs what the single-device launcher logs and
 writes the telemetry files. A mesh runs eagerly, and refuses
---spec-decode, --interleave and --http (ROADMAP A9 (g)) and the other
-families (A9 (f)):
+--spec-decode, --interleave and --http (ROADMAP A9 (g)) and the
+recurrent families (A9 (f)):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
       --requests 8 --mesh 2 --prefill-chunk 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \\
+      --smoke --device cpu --mesh 2
 """
 
 from __future__ import annotations
@@ -186,7 +190,9 @@ def _parser() -> argparse.ArgumentParser:
                          "(requires --kv-block-size > 0)")
     ap.add_argument("--mesh", type=int, default=0, metavar="N",
                     help="tensor-parallel serving over N ranks, one process each (0 = "
-                         "one device, no ranks)")
+                         "one device, no ranks): the dense and MoE families, GQA or MLA; "
+                         "the recurrent families, whisper and the VLM are refused "
+                         "(ROADMAP A9 (f))")
     ap.add_argument("--backend", default=None, choices=list(BACKENDS),
                     help="process group of --mesh: nccl (a card per rank; the default on "
                          "cuda) or gloo (the default on cpu; ranks may share a card)")

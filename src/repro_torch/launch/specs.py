@@ -173,19 +173,25 @@ def input_specs(arch_or_cfg, shape: ShapeSpec, *, kind=None):
 # tensor-parallel serving: the plan of a `model` mesh and each rank's shard
 # ---------------------------------------------------------------------------
 
-def _model_split(cfg: ModelConfig, mesh, rules: MeshRules) -> tuple[bool, bool, bool]:
-    """(attn, ffn, vocab): what the ``model`` axis splits under ``rules``
-    (mesh_rules_for's), whose entries for the parts it does not split are
-    set to None here. A split FFN must give each rank whole packed words of
-    bin_out (d_ff / N a multiple of 32) and the vocab must divide: else
-    this raises, naming the shape."""
+def _model_split(cfg: ModelConfig, mesh, rules: MeshRules) -> dict[str, bool]:
+    """{"attn", "ffn", "vocab", "experts"}: what the ``model`` axis splits
+    under ``rules`` (mesh_rules_for's), whose entries for the parts it does
+    not split are set to None here. GQA attention splits where its heads,
+    flattened K/V and cache heads all do; MLA's where its heads do (its
+    down projections and its compressed cache have no head axis and stay
+    whole on every rank). ``ffn`` covers the dense FFNs and the MoE layers'
+    shared experts, ``experts`` the routed expert stacks. A split FFN must
+    give each rank whole packed words of bin_out (d_ff / N a multiple of
+    32), the experts and the vocab must divide: else this raises, naming
+    the shape."""
     n = axis_sizes(mesh).get("model", 1)
     names = axis_names(mesh)
 
     def on_model(*logical):
         return n > 1 and all(rules.mesh_axes(a, names) == "model" for a in logical)
-    attn = on_model("heads", "kv_heads", "cache_heads")
+    attn = on_model("heads") if cfg.use_mla else on_model("heads", "kv_heads", "cache_heads")
     ffn, vocab = on_model("mlp"), on_model("vocab")
+    experts = bool(cfg.n_experts) and on_model("expert")
     from repro_torch.models.lm_common import padded_vocab
     if ffn:
         per = cfg.d_ff // n
@@ -193,6 +199,9 @@ def _model_split(cfg: ModelConfig, mesh, rules: MeshRules) -> tuple[bool, bool, 
             raise ValueError(f"d_ff {cfg.d_ff} does not split into {n} shards of whole "
                              f"32-bit words (a shard of bin_out packs its K = d_ff / {n} "
                              "along words; uneven word-aligned shards are ROADMAP A9 (k))")
+    if experts and cfg.n_experts % n:
+        raise ValueError(f"n_experts {cfg.n_experts} does not split into {n} shards of "
+                         "whole experts")
     if vocab and padded_vocab(cfg.vocab) % n:
         raise ValueError(f"the padded vocab {padded_vocab(cfg.vocab)} does not split {n} ways")
     over = {}
@@ -200,30 +209,35 @@ def _model_split(cfg: ModelConfig, mesh, rules: MeshRules) -> tuple[bool, bool, 
         over.update(heads=None, kv_heads=None, cache_heads=None)
     if not ffn:
         over["mlp"] = None
+    if not experts:
+        over["expert"] = None
     if not vocab:
         over["vocab"] = None
     rules.rules = dict(rules.rules, **over)
-    return attn, ffn, vocab
+    return dict(attn=attn, ffn=ffn, vocab=vocab, experts=experts)
 
 
 def _refuse_family(cfg: ModelConfig, what: str) -> None:
-    if cfg.family != "dense" or cfg.use_mla:
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{what} covers the GQA dense family; {cfg.name!r} "
-            f"({cfg.family}{', MLA' if cfg.use_mla else ''}) is not ported yet (ROADMAP A9 "
-            "(f): TP for MLA, MoE, the recurrent families, whisper and the VLM)")
+            f"{what} covers the dense and MoE families (GQA or MLA); {cfg.name!r} "
+            f"({cfg.family}) is not ported yet (ROADMAP A9 (f): TP for the recurrent "
+            "families, whisper and the VLM)")
 
 
 def serving_plan(cfg: ModelConfig, mesh, *, rank: int = 0, group=None
                  ) -> tuple[TensorParallel, MeshRules]:
     """-> (what rank ``rank`` of the ``model`` axis splits, the rules that
-    place its params and caches), for the GQA dense family.
+    place its params and caches), for the dense and MoE families, GQA or
+    MLA.
 
     mesh_rules_for decides; where it splits the flattened K/V projection
     but not the cache heads (fewer KV heads than ranks), a rank would hold
     part of a head, so the attention block is replicated whole instead
-    (GSPMD would gather the split heads back). A split FFN must give each
-    rank whole packed words of bin_out (d_ff / N a multiple of 32) and the
+    (GSPMD would gather the split heads back). MLA splits its heads alone
+    (_model_split), and MoE layers their routed experts (``experts``) and
+    shared experts (``ffn``). A split FFN must give each rank whole packed
+    words of bin_out (d_ff / N a multiple of 32), and the experts and the
     vocab must divide: else this raises, naming the shape. A mesh of one
     splits nothing: the forward is the single-device one."""
     _refuse_family(cfg, "tensor-parallel serving")
@@ -233,9 +247,8 @@ def serving_plan(cfg: ModelConfig, mesh, *, rank: int = 0, group=None
                          "reference serves on a `model` mesh only "
                          "(src/repro/launch/serve.py:211-219)")
     rules = mesh_rules_for(cfg, mesh)
-    attn, ffn, vocab = _model_split(cfg, mesh, rules)
-    return TensorParallel(size=sizes["model"], rank=rank, group=group, attn=attn, ffn=ffn,
-                          vocab=vocab), rules
+    split = _model_split(cfg, mesh, rules)
+    return TensorParallel(size=sizes["model"], rank=rank, group=group, **split), rules
 
 
 def mesh_tensor_parallel(cfg: ModelConfig, mesh) -> tuple[TensorParallel, MeshRules]:
@@ -336,10 +349,10 @@ class TrainPlan:
 def train_plan(cfg: ModelConfig, mesh, shape: ShapeSpec | None = None) -> TrainPlan:
     """-> the TrainPlan of rank 0 of a mesh with ``data`` and ``model``
     axes. ``model`` splits as serving_plan does (the GQA dense family
-    only, where it is > 1); ``data`` splits the batch by mesh_rules_for's
-    ``batch`` rule, and a ``shape`` whose global batch does not divide over
-    it is refused, as is a ``data`` axis > 1 for a config with MoE layers
-    (ROADMAP A9 (j)). fsdp configs keep their params replicated over
+    only, where it is > 1: MLA and MoE are ROADMAP A9 (l)); ``data``
+    splits the batch by mesh_rules_for's ``batch`` rule, and a ``shape``
+    whose global batch does not divide over it is refused, as is a
+    ``data`` axis > 1 for a config with MoE layers (ROADMAP A9 (j)). fsdp configs keep their params replicated over
     ``data`` (ZeRO-3 over it is not ported: the same numbers, more
     memory)."""
     sizes = axis_sizes(mesh)
@@ -349,6 +362,11 @@ def train_plan(cfg: ModelConfig, mesh, shape: ShapeSpec | None = None) -> TrainP
     n, d = sizes.get("model", 1), sizes.get("data", 1)
     if n > 1:
         _refuse_family(cfg, "tensor-parallel training")
+        if cfg.use_mla or cfg.n_experts:
+            raise NotImplementedError(
+                f"tensor-parallel training of {cfg.name!r} (MLA or MoE) is not ported: the "
+                "backward of the MoE pair rows' gather, with a gradient cut to the rank's "
+                "own pairs, and of MLA's replicated down projections (ROADMAP A9 (l))")
     if d > 1 and cfg.n_experts:
         raise NotImplementedError(
             f"data-parallel training of {cfg.name!r}'s MoE layers is not ported: each rank "
@@ -359,9 +377,9 @@ def train_plan(cfg: ModelConfig, mesh, shape: ShapeSpec | None = None) -> TrainP
     if d > 1 and shape is not None and "data" not in _entry_axes(rules.rules["batch"]):
         raise ValueError(f"a global batch of {shape.global_batch} rows does not split over "
                          f"data {d}")
-    attn, ffn, vocab = _model_split(cfg, mesh, rules)
-    return TrainPlan(tp=TensorParallel(size=n, rank=0, attn=attn, ffn=ffn, vocab=vocab),
-                     dp=DataParallel(size=d), rules=rules, mesh=mesh)
+    split = _model_split(cfg, mesh, rules)
+    return TrainPlan(tp=TensorParallel(size=n, rank=0, **split), dp=DataParallel(size=d),
+                     rules=rules, mesh=mesh)
 
 
 def mesh_train_plan(cfg: ModelConfig, mesh, shape: ShapeSpec | None = None) -> TrainPlan:

@@ -25,14 +25,18 @@ the family's memory optimization) and has no paged layout, as in repro.
 The decode writes ``c``, ``kr`` and ``len`` in place, so that a decode tick
 replays as a CUDA graph.
 
-Tensor parallelism (serving on a ``model`` mesh, GQA dense family): inside
-a ``distributed.sharding.tensor_parallel`` scope each rank holds its shard
-of every leaf (launch/specs.shard_params) and runs this same forward on it.
-The head counts come from the weights' shapes, the caches hold the rank's
-own KV heads, and the row-parallel products (wo, w_down, bin_out) are
-summed over the axis: the float ones as f32 partial products, rounded once
-after the sum; bin_out's as its exact integer dot, before the cast and the
-scale, so that a split binary FFN equals the single device's bit for bit.
+Tensor parallelism (serving on a ``model`` mesh; the dense and MoE
+families, GQA or MLA): inside a ``distributed.sharding.tensor_parallel``
+scope each rank holds its shard of every leaf (launch/specs.shard_params)
+and runs this same forward on it. The head counts come from the weights'
+shapes, a GQA cache holds the rank's own KV heads, and the row-parallel
+products (wo, w_down, bin_out) are summed over the axis: the float ones as
+f32 partial products, rounded once after the sum; bin_out's as its exact
+integer dot, before the cast and the scale, so that a split binary FFN
+equals the single device's bit for bit. MLA splits by heads (w_uq, w_uk,
+w_uv, wo); its down projections, their norms and its compressed cache are
+whole on every rank, which all write the same cache. A MoE layer's experts
+split over the axis (models/moe.py).
 Trained on a mesh (train/step.py), each split region's input goes through
 ``TensorParallel.copy``, whose gradient is summed over the axis: the
 attention input of wq / wk / wv, the FFN input of w_gate / w_up / bin_in,
@@ -299,14 +303,25 @@ def mla_init(cfg: ModelConfig, *, generator, device) -> dict:
     return p
 
 
+def _mla_heads(p: dict, cfg: ModelConfig) -> int:
+    """The heads these MLA weights hold: a rank's share where they are
+    split (w_uk's columns are its heads' nope dims)."""
+    return p["w_uk"]["w"].shape[1] // cfg.qk_nope_dim
+
+
 def _mla_q(p: dict, x: torch.Tensor, cfg: ModelConfig, positions):
+    """-> (q_nope, q_rope) of this rank's heads. Where the heads are split,
+    the down projection and its norm run whole and their output enters
+    the split w_uq through ``copy``."""
     b, s, _ = x.shape
-    h, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    tp = split_tp("attn")
     if "w_dq" in p:
-        q = _dense(p["w_uq"], nn.rmsnorm_apply(p["q_norm"], _dense(p["w_dq"], x, cfg)), cfg)
+        lat = nn.rmsnorm_apply(p["q_norm"], _dense(p["w_dq"], x, cfg))
+        q = _dense(p["w_uq"], lat if tp is None else tp.copy(lat), cfg)
     else:
         q = _dense(p["w_q"], x, cfg)
-    q = q.reshape(b, s, h, dn + dr)
+    q = q.reshape(b, s, _mla_heads(p, cfg), dn + dr)
     return q[..., :dn], nn.apply_rope(q[..., dn:], positions, base=cfg.rope_base)
 
 
@@ -320,17 +335,21 @@ def _mla_ckv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions):
 
 def _mla_expanded(p: dict, x: torch.Tensor, cfg: ModelConfig, positions, kv_len=None):
     """Full-sequence MLA with expanded K/V (causal, through the flash kernel
-    on a card) -> (the block's output, c_kv, k_rope)."""
+    on a card) -> (the block's output, c_kv, k_rope). Where the heads are
+    split, a rank expands and attends with its own heads and wo sums the
+    ranks' outputs; c_kv and k_rope, whole on every rank, fill its cache."""
     b, s, _ = x.shape
-    h, dn, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim
+    h, dn, dv = _mla_heads(p, cfg), cfg.qk_nope_dim, cfg.v_head_dim
     q_nope, q_rope = _mla_q(p, x, cfg, positions)
     c_kv, k_rope = _mla_ckv(p, x, cfg, positions)
-    k_nope = _dense(p["w_uk"], c_kv, cfg).reshape(b, s, h, dn)
-    v = _dense(p["w_uv"], c_kv, cfg).reshape(b, s, h, dv)
-    kr = k_rope[:, :, None, :].expand(b, s, h, k_rope.shape[-1])
+    tp = split_tp("attn")
+    c_in, kr = (c_kv, k_rope) if tp is None else (tp.copy(c_kv), tp.copy(k_rope))
+    k_nope = _dense(p["w_uk"], c_in, cfg).reshape(b, s, h, dn)
+    v = _dense(p["w_uv"], c_in, cfg).reshape(b, s, h, dv)
+    kr = kr[:, :, None, :].expand(b, s, h, k_rope.shape[-1])
     o = attn_lib.mla_prefill_attention(q_nope, q_rope, k_nope, kr, v, chunk=cfg.attn_chunk,
                                        kv_len=kv_len, impl=cfg.attn_impl)
-    return _dense(p["wo"], o.reshape(b, s, -1), cfg), c_kv, k_rope
+    return _out_proj(p["wo"], o.reshape(b, s, -1), cfg), c_kv, k_rope
 
 
 def mla_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, positions) -> torch.Tensor:
@@ -340,9 +359,11 @@ def mla_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, positions) -> torch
 
 def mla_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict):
     """Matrix-absorbed one-token decode against the compressed cache; its
-    leaves are written in place (never rebound: a captured tick replays)."""
+    leaves are written in place (never rebound: a captured tick replays).
+    Where the heads are split, every rank writes the same whole cache and
+    absorbs and attends with its own heads."""
     b = x.shape[0]
-    h, dn, dv, c = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim, cfg.kv_lora_rank
+    h, dn, dv, c = _mla_heads(p, cfg), cfg.qk_nope_dim, cfg.v_head_dim, cfg.kv_lora_rank
     positions = cache["len"][:, None]
     q_nope, q_rope = _mla_q(p, x, cfg, positions)              # (B, 1, H, dn / dr)
     c_kv, k_rope = _mla_ckv(p, x, cfg, positions)              # (B, 1, c), (B, 1, dr)
@@ -354,7 +375,7 @@ def mla_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict):
                                        sm_scale=1.0 / (dn + cfg.qk_rope_dim) ** 0.5)
     w_uv = p["w_uv"]["w"].reshape(c, h, dv).to(cdt(cfg))
     o = torch.einsum("bshc,chv->bshv", ctx, w_uv).reshape(b, 1, -1)
-    return _dense(p["wo"], o, cfg), cache
+    return _out_proj(p["wo"], o, cfg), cache
 
 
 # ---------------------------------------------------------------------------

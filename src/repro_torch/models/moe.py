@@ -5,8 +5,20 @@ Dispatch sorts the (token, expert) pairs by expert, keeps the first
 ``capacity`` of each expert (GShard-style: the overflow is dropped),
 gathers the kept tokens into an (E, C, d) buffer, runs the experts as
 batched products, and combines each token's gated expert rows. The expert
-weights are stacks (E, K, N) on one device (the reference shards them over
-its mesh; the port's expert axis is ROADMAP A9 (f)).
+weights are stacks (E, K, N).
+
+On a ``model`` mesh (``TensorParallel.experts``, the reference's
+``expert`` axis) a rank holds E / N whole experts (its ``*`` / ``*_q``
+stacks, ``s_mid``, ``s_out``). The tokens are replicated over the axis,
+so routing, the capacity (from the global token count) and the dispatch
+table are computed whole and alike on every rank; a rank gathers and runs
+only its experts' slots, builds the gated pair rows of its pairs (zeros
+for the others') and ``gather_pairs`` sums them over the axis. Each pair
+is one rank's, so the sum is exact and the fixed-order combine then runs
+on one device's bits: a binary MoE layer's routed output equals one
+device's bit for bit. The shared experts split as a float FFN (``ffn``):
+column-parallel, their down product row-parallel, added after the routed
+sum, as on one device.
 
 Binary experts: the paper's technique where it pays most. The routed
 expert stacks are most of an MoE model's bytes; the router, the shared
@@ -111,7 +123,9 @@ def _expert_ffn(p: dict, xe: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig):
-    """x (B, S, d) -> (y (B, S, d), aux loss)."""
+    """x (B, S, d) -> (y (B, S, d), aux loss); on a mesh, this rank's
+    experts' share of the dispatch (module note)."""
+    from repro_torch.models.lm_common import row_parallel, split_tp
     b, s, d = x.shape
     t = b * s
     x2d = x.reshape(t, d)
@@ -134,17 +148,33 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig):
     # slot at the end takes every dropped pair and is cut off)
     tok_for_slot = torch.full((e * cap + 1,), t, dtype=torch.int64, device=dev)
     tok_for_slot = tok_for_slot.index_put((slot,), t_flat[order])[:-1]
+    # on a mesh: this rank's experts' slots, lo .. lo + n_slots - 1
+    tp = split_tp("experts")
+    n_slots = e * cap if tp is None else e // tp.size * cap
+    lo = 0 if tp is None else tp.rank * n_slots
     x_pad = torch.cat([x2d, x2d.new_zeros((1, d))], dim=0)
-    ye = _expert_ffn(p, x_pad[tok_for_slot].reshape(e, cap, d), cfg).reshape(e * cap, d)
+    xe = x_pad[tok_for_slot[lo:lo + n_slots]].reshape(-1, cap, d)
+    ye = _expert_ffn(p, xe if tp is None else tp.copy(xe), cfg).reshape(n_slots, d)
 
     # combine: pair (token, j) reads its slot's row (the zero row when
-    # dropped), times its gate in ye's dtype, and each token sums its k rows
-    slot_of_pair = torch.empty_like(slot).index_put((order,), slot)
+    # dropped, or another rank's), times its gate in ye's dtype, and each
+    # token sums its k rows
+    slot_of_pair = torch.empty_like(slot).index_put((order,), slot) - lo
     gate_of_pair = torch.where(keep, gates.reshape(-1)[order], 0.0)
     gate_of_pair = torch.empty_like(gate_of_pair).index_put((order,), gate_of_pair)
+    mine = (slot_of_pair >= 0) & (slot_of_pair < n_slots)
     ye_pad = torch.cat([ye, ye.new_zeros((1, d))], dim=0)
-    y = (ye_pad[slot_of_pair] * gate_of_pair[:, None].to(ye.dtype)).reshape(t, k, d).sum(1)
+    rows = ye_pad[torch.where(mine, slot_of_pair, n_slots)] * gate_of_pair[:, None].to(ye.dtype)
+    if tp is not None:
+        rows = tp.gather_pairs(rows, mine)
+    y = rows.reshape(t, k, d).sum(1)
 
     if "shared" in p:
-        y = y + nn.swiglu_apply(p["shared"], x2d, compute_dtype=getattr(torch, cfg.compute_dtype))
+        cd = getattr(torch, cfg.compute_dtype)
+        tp = split_tp("ffn")
+        if tp is None:
+            y = y + nn.swiglu_apply(p["shared"], x2d, compute_dtype=cd)
+        else:
+            y = y + nn.swiglu_apply(p["shared"], tp.copy(x2d), compute_dtype=cd,
+                                    down=lambda pd, h: row_parallel(pd, h, cfg, tp))
     return y.reshape(b, s, d).to(x.dtype), aux

@@ -19,8 +19,8 @@ bits (serving/sampling.py), so the tokens equal repro's.
 ``mesh=`` (a DeviceMesh with one ``model`` axis, one process a rank) serves
 tensor-parallel as ServeEngine's does (serving/engine.py): each rank cuts
 its shard of ``params`` and runs the sharded forward, and every rank gets
-the same tokens. GQA dense family only; the recurrent families on a mesh
-are ROADMAP A9 (f).
+the same tokens. The dense and MoE families, GQA or MLA; the recurrent
+families on a mesh are ROADMAP A9 (f) and refused, naming it.
 """
 
 from __future__ import annotations

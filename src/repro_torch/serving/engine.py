@@ -83,11 +83,13 @@ graphs, and TTFT / ITL are stamped after the tick's existing token read.
 a callback (the HTTP front door's seam, launch/server.py).
 
 Tensor-parallel serving (``mesh=``, a DeviceMesh with one ``model`` axis
-from launch/mesh.make_mesh, one process a rank; GQA dense family): each
-rank cuts its shard of ``params`` by the rules (launch/specs.shard_params:
-attention heads, the FFN hidden width and the vocab split, the rest
-replicated) and allocates its own heads of the pool; the model runs the
-sharded forward (models/lm_common.py) with its all_reduces over the
+from launch/mesh.make_mesh, one process a rank; the dense and MoE
+families, GQA or MLA): each rank cuts its shard of ``params`` by the rules
+(launch/specs.shard_params: attention heads, the FFN hidden width, the
+routed experts and the vocab split, the rest replicated) and allocates its
+own heads of a GQA pool, or the whole compressed cache of an MLA one (the
+contiguous pool: MLA has no paged layout); the model runs the sharded
+forward (models/lm_common.py, models/moe.py) with its all_reduces over the
 ``model`` group. The logits are gathered whole on every rank and every
 rank runs the same host scheduling, so the ticks, the tokens and the
 results are the same on every rank. ``stats["kv_bytes"]`` stays the whole
@@ -96,8 +98,9 @@ engine runs eagerly: gloo's collectives cannot be captured in a CUDA
 graph, so ``cuda_graphs=None`` (the default) means graphs without a mesh
 and none with one, and ``cuda_graphs=True`` with a mesh raises. Not ported
 yet on a mesh, and refused with the ROADMAP item that ports them:
-speculative decoding, interleaved prefill and graphs (A9 (g)), and every
-family but the GQA dense one (A9 (f)).
+speculative decoding, interleaved prefill and graphs (A9 (g)). The
+families this engine refuses on one device (no slot-indexed insert:
+whisper, the VLM, the recurrent ones) it refuses on a mesh too.
 """
 
 from __future__ import annotations

@@ -173,7 +173,8 @@ def kv_pool_bytes_per_device(caches: list, mesh=None, mesh_rules=None) -> int:
     """The bytes of kv_pool_bytes that each device holds of the whole pool
     ``caches`` (shapes suffice) under cache_partition_specs: kv_pool_bytes
     itself without a mesh, about kv_bytes / N with the head axis split N
-    ways."""
+    ways, and kv_bytes for an all-MLA pool, whose compressed leaves every
+    rank holds whole."""
     if mesh is None:
         return kv_pool_bytes(caches)
     from repro_torch.distributed.sharding import shard_shape

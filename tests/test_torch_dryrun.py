@@ -32,7 +32,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
 from repro_torch.distributed import analytic_cost as AC  # noqa: E402
-from repro_torch.distributed import collectives  # noqa: E402
+from repro_torch.distributed import collectives, hlo_analysis  # noqa: E402
 from repro_torch.distributed import sharding  # noqa: E402
 from repro_torch.distributed.sharding import tensor_parallel  # noqa: E402
 from repro_torch.launch import dryrun, perf  # noqa: E402
@@ -111,7 +111,7 @@ def test_qwen2_72b_over_8_is_skipped_by_its_plan(shape):
 def test_roofline_counts_a_whole_part_on_every_rank(shard_kv):
     cfg = smoke_config("stablelm-3b").replace(shard_kv_heads=shard_kv)
     rec = _cell("stablelm-3b", PREFILL, (1, 2), cfg)
-    assert rec["split"] == {"attn": shard_kv, "ffn": True, "vocab": True}
+    assert rec["split"] == {"attn": shard_kv, "ffn": True, "vocab": True, "experts": False}
     total = AC.step_cost(cfg, PREFILL)
     rl = rec["roofline"]
     # the rank's counted products are its analytic share
@@ -206,11 +206,38 @@ def test_flops_counted_near_the_analytic_count(arch, shape):
 
 
 @pytest.mark.parametrize("arch,shape,dims,item", [
-    ("minicpm3-4b", DECODE, (1, 2), "A9 (f)"), ("zamba2-2.7b", TRAIN, (1, 2), "A9 (f)"),
-    ("whisper-base", PREFILL, (2, 1), "A9 (f)"), ("deepseek-v2-236b", TRAIN, (2, 1), "A9 (j)")])
+    ("rwkv6-3b", DECODE, (1, 2), "A9 (f)"), ("zamba2-2.7b", TRAIN, (1, 2), "A9 (f)"),
+    ("whisper-base", PREFILL, (2, 1), "A9 (f)"), ("deepseek-v2-236b", TRAIN, (2, 1), "A9 (j)"),
+    ("minicpm3-4b", TRAIN, (1, 2), "A9 (l)")])
 def test_refused_cells_are_skipped_naming_the_roadmap(arch, shape, dims, item):
     rec = _cell(arch, shape, dims)
     assert rec["status"] == "skipped" and f"ROADMAP {item}" in rec["reason"]
+
+
+@pytest.mark.parametrize("arch,shape", [("minicpm3-4b", DECODE), ("deepseek-v2-236b", PREFILL)],
+                         ids=["mla_decode", "moe_prefill"])
+def test_mla_and_moe_cells_run_on_a_model_axis(arch, shape):
+    """A decode step of MLA and a MoE prefill on a model axis of 2: the
+    all_reduces are the call sites (wo and the FFN a dense block; wo, the
+    routed pair rows and the shared experts a MoE one; the embedding and
+    the logits), and the roofline counts what MLA keeps whole (its down
+    projections, the compressed cache) and the router on every rank, the
+    routed experts (every int8 FLOP here: the binary ones) 1 / model."""
+    cfg = smoke_config(arch)
+    rec = _cell(arch, shape, (1, 2), cfg)
+    assert rec["status"] == "ok"
+    moe_blocks = cfg.n_layers - cfg.first_dense_layers if cfg.n_experts else 0
+    assert rec["split"] == {"attn": True, "ffn": True, "vocab": True, "experts": bool(moe_blocks)}
+    want = 2 * (cfg.n_layers - moe_blocks) + 3 * moe_blocks + 2
+    assert rec["collectives"]["all-reduce"]["count"] == want
+    total, rl = AC.step_cost(cfg, shape), rec["roofline"]
+    card = hlo_analysis.card_cost(cfg, shape, data=1, model=2, split=rec["split"])
+    assert card.flops_int8 == total.flops_int8 / 2 > 0
+    assert rl["flops"] > total.flops_total / 2 and rl["hbm_bytes"] > total.hbm_bytes / 2
+    if shape.kind == "decode":
+        # the whole compressed cache is held and read on each rank
+        assert rl["hbm_bytes"] - total.hbm_bytes / 2 >= AC.kv_cache_bytes(cfg, shape) / 2
+        assert rec["memory"]["cache_bytes"] >= AC.kv_cache_bytes(cfg, shape)
 
 
 @pytest.mark.parametrize("arch", DENSE)

@@ -13,9 +13,17 @@
   integer dot is summed before the cast), and its engine tokens equal the
   single device's.
 * BucketEngine(mesh=) tokens equal its single-device tokens.
+* The MLA and MoE families (minicpm3-4b, deepseek-v2-236b,
+  deepseek-v3-671b) at their smoke configs in f32 (deepseek at
+  capacity_factor 16, as tests/test_torch_mla.py runs it): engine tokens
+  equal the single device's, the whole compressed pool on every rank
+  (kv_bytes_per_device == kv_bytes), deepseek-v2's tokens equal repro's
+  ServeEngine's directly, and a MoE layer's routed output over a rank's
+  experts (binary and float) equals one device's exactly (tolerance 0:
+  each pair row is one rank's, so the sum over the ranks adds zeros).
 * The launcher: --mesh 2 --device cpu (gloo) gives --mesh 0's tokens;
   --backend nccl refuses more ranks than cards; --spec-decode, --http and
-  an arch outside the GQA dense family refuse a mesh.
+  a recurrent arch refuse a mesh.
 
 Repro's own mesh engine is not run here: tests/test_engine_parity.py runs
 it. Each rank runs one thread and its process group's timeout bounds it.
@@ -47,6 +55,9 @@ CELLS = [("bf16", dict(kv_cache="bf16"), "plain"),
          ("int8 paged prefix chunk 8", dict(kv_cache="int8", kv_block_size=8,
                                             prefix_cache=True, prefill_chunk=8), "shared")]
 REPRO_CELL = "int8 paged"
+TP_ARCHS = ("minicpm3-4b", "deepseek-v2-236b", "deepseek-v3-671b")
+REPRO_ARCH = "deepseek-v2-236b"
+MOE_ARCH, MOE_X = "deepseek-v2-236b", (2, 6)     # its blocks 1 (binary) and 2 (float) are MoE
 
 
 def _markov(start, n, vocab):
@@ -85,9 +96,35 @@ def _binary_ffn_inputs(cfg):
                            dtype=torch.float32).to(torch.bfloat16)
 
 
-def _ranks(rank, world, lm, binary):
-    """One rank: every cell on the trained LM, the bucket engine, and the
-    binary smoke config's FFN and tokens."""
+def _family_cfg(arch):
+    kw = dict(compute_dtype="float32", param_dtype="float32")
+    if smoke_config(arch).n_experts:
+        kw["capacity_factor"] = 16.0
+    return smoke_config(arch).replace(**kw)
+
+
+def _routed(fam, tp=None) -> dict:
+    """{block: the routed output of each MoE block of MOE_ARCH} (shared
+    experts left out), on this rank's shard where ``tp`` splits."""
+    from repro_torch.models import moe
+    cfg, params = fam[MOE_ARCH]
+    if tp is not None:
+        params = S.shard_params(get_model(cfg), params, make_mesh((tp.size,), ("model",)), tp,
+                                S.serving_plan(cfg, make_mesh((tp.size,), ("model",)))[1])
+    x = torch.as_tensor(np.random.default_rng(7).standard_normal((*MOE_X, cfg.d_model)),
+                        dtype=torch.float32)
+    out = {}
+    for i in range(cfg.first_dense_layers, cfg.n_layers):
+        p = {k: v for k, v in params["blocks"][i]["ffn"].items() if k != "shared"}
+        with tensor_parallel(tp):
+            out[i] = moe.moe_apply(p, x, cfg)[0].numpy()
+    return out
+
+
+def _ranks(rank, world, lm, binary, fam):
+    """One rank: every cell on the trained LM, the bucket engine, the
+    binary smoke config's FFN and tokens, and the MLA / MoE families'
+    tokens and routed MoE outputs."""
     torch.set_num_threads(1)
     mesh = make_mesh((world,), ("model",))
     cfg, params = lm
@@ -111,6 +148,9 @@ def _ranks(rank, world, lm, binary):
         # numpy across the process boundary: the bf16 bits as int16
         out["ffn"][mode] = (str(y.dtype), y.view(torch.int16).numpy())
     out["binary_tokens"] = _serve(bapi, bparams, prompts["plain"], mesh, kv_cache="int8")[0]
+    out["families"] = {arch: _serve(get_model(cfg), params, _prompts(cfg.vocab)["plain"], mesh)
+                       for arch, (cfg, params) in fam.items()}
+    out["routed"] = _routed(fam, S.mesh_tensor_parallel(fam[MOE_ARCH][0], mesh)[0])
     return out
 
 
@@ -129,19 +169,56 @@ def lms(trained_lm):
 
 
 @pytest.fixture(scope="module")
-def single(lms):
+def repro_family():
+    """REPRO_ARCH's (cfg, api, params) in repro, f32, as _family_cfg."""
+    import jax
+
+    from repro.configs import smoke_config as j_smoke
+    from repro.models import get_model as j_get_model
+    cfg = _family_cfg(REPRO_ARCH)
+    jcfg = j_smoke(REPRO_ARCH).replace(compute_dtype="float32", param_dtype="float32",
+                                       capacity_factor=cfg.capacity_factor)
+    japi = j_get_model(jcfg)
+    return jcfg, japi, jax.jit(japi.init)(jax.random.PRNGKey(0))
+
+
+@pytest.fixture(scope="module")
+def families(repro_family):
+    """{arch: (cfg, params)}: REPRO_ARCH on repro's params, the rest on
+    the port's init."""
+    import jax
+
+    from repro_torch.models.convert import params_from_jax
+    out = {}
+    for arch in TP_ARCHS:
+        cfg = _family_cfg(arch)
+        if arch == REPRO_ARCH:
+            params = params_from_jax(jax.tree.map(np.asarray, repro_family[2]), cfg,
+                                     device="cpu")
+        else:
+            params = get_model(cfg).init(0, device="cpu")
+        out[arch] = (cfg, params)
+    return out
+
+
+@pytest.fixture(scope="module")
+def single(lms, families):
     (cfg, params), (bcfg, bparams) = lms
     api, prompts = get_model(cfg), _prompts(cfg.vocab)
     return {"cells": {name: _serve(api, params, prompts[which], **kw)
                       for name, kw, which in CELLS},
             "bucket": _bucket(api, params, prompts["plain"]),
             "binary_tokens": _serve(get_model(bcfg), bparams, prompts["plain"],
-                                    kv_cache="int8")[0]}
+                                    kv_cache="int8")[0],
+            "families": {arch: _serve(get_model(fcfg), fparams, _prompts(fcfg.vocab)["plain"])
+                         for arch, (fcfg, fparams) in families.items()},
+            "routed": _routed(families)}
 
 
 @pytest.fixture(scope="module")
-def runs(lms):
-    return {n: spawn(_ranks, n, backend="gloo", args=lms, timeout=240) for n in WORLDS}
+def runs(lms, families):
+    return {n: spawn(_ranks, n, backend="gloo", args=(*lms, families), timeout=240)
+            for n in WORLDS}
 
 
 @pytest.mark.parametrize("world", WORLDS)
@@ -193,6 +270,38 @@ def test_mesh_binary_ffn_bit_for_bit(lms, runs, single, world):
 
 
 @pytest.mark.parametrize("world", WORLDS)
+def test_mesh_mla_moe_tokens_and_whole_pool(runs, single, world):
+    for rank_out in runs[world]:
+        for arch in TP_ARCHS:
+            got, want = rank_out["families"][arch], single["families"][arch]
+            assert got[0] == want[0], (world, arch)
+            assert all(len(o) == 6 for o in got[0])
+            # MLA's compressed cache is whole on every rank
+            assert got[1] == got[2] == want[1] == want[2], (world, arch)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_mesh_moe_routed_output_exact(runs, single, world):
+    want = single["routed"]
+    assert len(want) == 2
+    for rank_out in runs[world]:
+        for i, y in rank_out["routed"].items():
+            assert y.dtype == np.float32 and np.array_equal(y, want[i]), (world, i)
+
+
+def test_mesh_mla_moe_cell_equals_repro(repro_family, runs):
+    """REPRO_ARCH's mesh tokens held to repro's single-device ServeEngine."""
+    from repro.serving import ServeEngine as JaxEngine
+    jcfg, japi, jparams = repro_family
+    eng = JaxEngine(japi, jparams, **ENGINE)
+    rids = [eng.add_request(p, max_new=6) for p in _prompts(jcfg.vocab)["plain"]]
+    res = eng.run()
+    want = [res[r] for r in rids]
+    for world in WORLDS:
+        assert runs[world][0]["families"][REPRO_ARCH][0] == want, world
+
+
+@pytest.mark.parametrize("world", WORLDS)
 def test_mesh_bucket_engine(runs, single, world):
     for rank_out in runs[world]:
         assert rank_out["bucket"] == single["bucket"], world
@@ -217,7 +326,7 @@ def test_launcher_mesh_gloo_equals_single(tmp_path):
 def test_launcher_mesh_refusals():
     with pytest.raises(RuntimeError, match="nccl takes one card per rank"):
         serve.main(LAUNCH + ["--mesh", "2", "--backend", "nccl"])
-    for extra in (["--spec-decode", "2"], ["--http", "0"], ["--arch", "minicpm3-4b"],
+    for extra in (["--spec-decode", "2"], ["--http", "0"], ["--arch", "rwkv6-3b"],
                   ["--arch", "zamba2-2.7b"]):
         with pytest.raises(NotImplementedError, match="ROADMAP A9"):
             serve.main(LAUNCH + ["--mesh", "2"] + extra)

@@ -155,8 +155,9 @@ def test_synthetic_mnist_is_repro_s():
 
 def test_quickstart_training_beats_chance_on_cpu():
     """The port's own training loop (2 epochs, SGD lr 0.05, batch 128) on the
-    CPU clears test_core_mlp.py's bar for the hybrid net: > 0.6."""
-    data = SyntheticMnist(n_train=2048, n_test=512, seed=0)
+    CPU clears test_core_mlp.py's bar for the hybrid net: > 0.6 (0.90 on
+    these 1,024 training images, 0.97 on 2,048)."""
+    data = SyntheticMnist(n_train=1024, n_test=512, seed=0)
     params = H.mlp_init(0, hybrid=True, device="cpu")
     params, accs = Q.train(params, data)
     assert accs[-1] > 0.6, accs

@@ -7,13 +7,14 @@ uses): no process group, no second process.
   2, `model` 4), with and without fsdp: each param leaf's spec equals
   repro's partition_specs for its counterpart (repro's leading layer-stack
   entry dropped: the port keeps a list of layers), latent, and deployed
-  for the GQA dense family, which a mesh serves;
+  for the dense and MoE families, which a mesh serves;
 * mesh_rules_for gives repro's overrides, batch cells included;
 * the cache rule covers test_cache_sharding's cases (every codec x pool,
   the 2-kv-head fallback at mesh 4, MLA latents replicated, prefill
   outputs), leaf for leaf equal to repro's, and the per-device bytes;
-* the serving plan: what it splits, what it refuses, and each shard an
-  allocation of its own.
+* the serving plan: what it splits (the MLA and MoE families too: heads,
+  experts, shared experts), what it refuses, and each shard an allocation
+  of its own.
 """
 
 import collections
@@ -100,8 +101,8 @@ def _assert_specs_match(cfg, port_tree, port_specs, repro_tree, repro_specs, wha
 def test_param_specs_equal_repro(arch):
     api, japi = get_model(get_config(arch)), jax_get_model(jax_get_config(arch))
     # the deployed trees (DEPLOYED_RULES first) where a mesh serves them
-    gqa_dense = api.cfg.family == "dense" and not api.cfg.use_mla
-    for deployed in (False, True) if gqa_dense else (False,):
+    served = api.cfg.family in ("dense", "moe")
+    for deployed in (False, True) if served else (False,):
         p_abs = S.abstract_params(api, deployed=deployed)
         jp = jax.eval_shape(lambda: japi.init_deployed(jax.random.PRNGKey(0)) if deployed
                             else japi.init(jax.random.PRNGKey(0)))
@@ -295,10 +296,58 @@ def test_serving_plan_refuses():
     # d_ff 128 over 8 ranks leaves 16 bits of bin_out's K a rank: no whole word
     with pytest.raises(ValueError, match="d_ff 128"):
         S.serving_plan(cfg, FakeMesh(("model",), {"model": 8}))
-    for arch in ("minicpm3-4b", "deepseek-v2-236b", "zamba2-2.7b", "rwkv6-3b",
-                 "whisper-base", "llama-3.2-vision-11b"):
+    for arch in ("zamba2-2.7b", "rwkv6-3b", "whisper-base", "llama-3.2-vision-11b"):
         with pytest.raises(NotImplementedError, match="ROADMAP A9 \\(f\\)"):
             S.serving_plan(smoke_config(arch), MESH2)
+    # the experts must divide: 8 smoke experts over 16 ranks (the smoke
+    # widths at 16 ranks otherwise split: d_ff 512 is 32 bits a rank)
+    moe = smoke_config("deepseek-v2-236b").replace(d_ff=512, n_heads=16, n_kv_heads=16,
+                                                    vocab=4096)
+    with pytest.raises(ValueError, match="n_experts 8 does not split into 16"):
+        S.serving_plan(moe, FakeMesh(("model",), {"model": 16}))
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "deepseek-v2-236b", "deepseek-v3-671b"])
+def test_serving_plan_splits_mla_and_moe(arch):
+    """MLA splits by its heads alone (no KV-head axis: its compressed cache
+    is replicated), a MoE layer's routed experts over `expert` and its
+    shared experts as an FFN; at full width too. Each rank's shard of a
+    split leaf is its own allocation, and the shards tile the leaf: a
+    rank holds E / N whole experts and its heads' columns of w_uq / w_uk /
+    w_uv."""
+    cfg = smoke_config(arch)
+    moe = bool(cfg.n_experts)
+    for c in (cfg, get_config(arch)):
+        tp, _ = S.serving_plan(c, MESH2)
+        assert (tp.attn, tp.ffn, tp.vocab, tp.experts) == (True, True, True, moe), c.name
+    api = get_model(cfg)
+    params = api.init(0, device="cpu")
+    tp, rules = S.serving_plan(cfg, MESH4)
+    specs = shd.partition_specs(params, api.deployed_rules, MESH4, rules)
+    shards = [S.shard_params(api, params, MESH4, shd.TensorParallel(4, r), rules)
+              for r in range(4)]
+    split = {}
+    for (path, full), spec, *parts in zip(tree_leaves_with_path(params), tree_leaves(specs),
+                                          *(tree_leaves(s) for s in shards)):
+        dims = [d for d, e in enumerate(spec) if e == "model"]
+        split[path] = dims
+        if not dims:
+            assert all(p is full for p in parts), path
+            continue
+        assert torch.equal(torch.cat(parts, dim=dims[0]), full), path
+        for p in parts:
+            assert p.is_contiguous() and p.data_ptr() % 16 == 0, path
+            assert p.untyped_storage().data_ptr() != full.untyped_storage().data_ptr(), path
+    a = "blocks/1/attn/"
+    assert [split[a + k + "/w"] for k in ("w_uq", "w_uk", "w_uv", "wo")] == [[1], [1], [1], [0]]
+    assert all(split[a + k] == [] for k in ("w_dq/w", "w_dkv/w", "q_norm/scale",
+                                            "kv_norm/scale"))
+    if moe:
+        f = "blocks/1/ffn/"
+        assert [split[f + k] for k in ("w_gate", "w_up", "w_down", "s_mid", "s_out")] == \
+            [[0]] * 5
+        assert split[f + "router/w"] == [] and split[f + "shared/w_down/w"] == [0]
+        assert tuple(shards[0]["blocks"][1]["ffn"]["w_gate"].shape)[0] == cfg.n_experts // 4
     with pytest.raises(ValueError, match="serves on a `model` mesh only"):
         S.serving_plan(cfg, MESHES[2])
 
