@@ -89,8 +89,9 @@ Phases, one output line each (or a few), every failure raising:
      call, beside its plain version, bound and SDPA with the same masks,
      and the same at an interleaved prefill slice's S 8 (one launch) and
      S 16 (two launches of 8 query rows, each query keeping its length);
-  6. serve: stablelm-3b at full width (32 layers, d_model 2560, bf16,
-     random init from a seeded torch.Generator on the card) through
+  6. serve: stablelm-3b at full width (d_model 2560, bf16, cut to 16 of
+     its 32 layers for the script's time limit; random init
+     from a seeded torch.Generator on the card) through
      ServeEngine(max_batch=8, max_len=256), 12 requests of 16 new tokens,
      on five paths, each with the launch counts zeroed just before it and
      read just after. Each decode tick is one CUDA graph replay (one replay
@@ -105,12 +106,12 @@ Phases, one output line each (or a few), every failure raising:
      on prompts that share a 64-token header with the first request served
      alone before the rest, the int8 pool and a paged int8 pool (block 16)
      with the radix prefix cache. On each: every request gets 16 tokens in
-     range; launches are exactly 2 x 28 per wave and per step (int8 GEMM),
-     32 per wave without a cached prefix (flash), 32 per wave and per step
-     of the codec's insert kernel, 32 per step of its kv_decode, 2 x 32 of
+     range; launches are exactly 2 x 12 per wave and per step (int8 GEMM),
+     16 per wave without a cached prefix (flash), 16 per wave and per step
+     of the codec's insert kernel, 16 per step of its kv_decode, 2 x 16 of
      its dequantizer per wave on a cached prefix (its context), 0 of the
-     rest; the pool's bytes are exact (671,088,640
-     / 343,932,928 / 58,720,256); a second run gives the same tokens; the
+     rest; the pool's bytes are exact (335,544,320
+     / 171,966,464 / 29,360,128); a second run gives the same tokens; the
      paged run hits the prefix cache. Logits are finite;
      layer 0 agrees with the plain attention on a small batch, and its
      int8 and binary caches decode as their materialized copies do (2e-2).
@@ -125,13 +126,13 @@ Phases, one output line each (or a few), every failure raising:
      header prompts, and int8 sampled (temperature 0.8, beside a plain
      sampled int8 run), each wave one graph replay whose counts are held to
      the graph's kernel nodes as in 6: every request gets 16
-     tokens in range; launches exactly, per wave, B1 3 x 4 x k, B2 2 x 28
-     x (k + 1), the codec's insert kernel and kv_decode 32 x (k + 1) each
+     tokens in range; launches exactly, per wave, B1 3 x 4 x k, B2 2 x 12
+     x (k + 1), the codec's insert kernel and kv_decode 16 x (k + 1) each
      (and per prefill wave as on the plain paths); one draft launch and one
      replay a wave; a second run's tokens and the eager waves' tokens equal;
      acceptance > 0 over the five paths (random weights: the greedy draft
      may never agree with the target, whose top-2 gaps are small; the
-     sampled paths share the target's stream); layer 0's and layer 31's
+     sampled paths share the target's stream); layer 0's and layer 15's
      verify output within 2e-2 of 4 sequential decodes (bf16 and int8
      pools). Printed, not gated: the
      share of tokens equal to the plain graph path's, the plain model's
@@ -143,7 +144,7 @@ Phases, one output line each (or a few), every failure raising:
      int8 with the prefix cache on the header prompts at prefill_chunk 32.
      Each path's tokens equal the chunked blocking engine's at the same
      chunk, exactly; both runs' launches are held exactly to what their
-     slices or chunks (B2 2 x 28, the insert kernel 32, kv_decode 32 x
+     slices or chunks (B2 2 x 12, the insert kernel 16, kv_decode 16 x
      ceil(c / 8), B3 0 each), their cached-prefix suffix prefills and
      their replays imply, with each replay's counts held to its graph's
      kernel nodes; the share of tokens equal to the monolithic blocking
@@ -255,10 +256,9 @@ Phases, one output line each (or a few), every failure raising:
      a wave without a cached prefix, the insert 32 a wave and step,
      kv_decode 32 a step), kv_bytes_per_device x 2 == kv_bytes == the
      pool's exact bytes, prefix hits, no CUDA graph, the same tokens on
-     both ranks; the share of tokens equal to the single device's serve
-     paths printed, not gated (random weights: row-parallel float sums
-     round apart, and a binary FFN's signs amplify it), beside the served
-     model's prefill logits split and whole; a decode step's ms (int8,
+     both ranks; the served model's prefill logits split and whole
+     printed, not gated (random weights: row-parallel float sums round
+     apart, and a binary FFN's signs amplify it); a decode step's ms (int8,
      median of the ticks without a prefill), one gloo all_reduce's ms and
      peak memory;
      then at 4 layers with float FFNs in f32 the mesh prefill's logits
@@ -293,6 +293,25 @@ Phases, one output line each (or a few), every failure raising:
      to 4 / 2 layers, within 2e-3 of scale of the whole model's. B2 at
      (3200, 2560) / (2560, 3200) and B3 at 20 heads (96 / 64) and 64
      heads (192 / 128) are rows of phases 3 and 4;
+  6h. mesh_families_2: in the same ranks, the recurrent families,
+     whisper and the VLM on the `model` mesh at full width: zamba2-2.7b
+     cut to 12 Mamba2 blocks (40 of 80 heads a rank, two shared-block
+     calls at 16 of 32 heads; int8 pool), rwkv6-3b cut to 8 blocks (20 of
+     40 heads), whisper-base whole, llama-3.2-vision-11b cut to 10 layers
+     (16 / 4 of 32 / 8 heads, two cross blocks; int8 pool), each built in
+     turns. Per model: its binary layer (Mamba2 out, RWKV6 c_v, whisper's
+     and the VLM's binary FFN) split bit for bit equal to whole on decode
+     M 8 and prefill M 1024 inputs; a rank's cache bytes at 8 x 256 and
+     kv_pool_bytes_per_device exactly MESH2_CACHE_BYTES; one decode step's
+     all_reduces exactly MESH2_STEP_ALL_REDUCES; zamba2 and rwkv6 serve 8
+     requests through BucketEngine(mesh=), whisper and the VLM a prefill
+     and 8 greedy decodes under scoped_api, counted from 0: one device's
+     launches a rank, the all_reduces exactly the prediction x (prefills
+     + steps), the cache bytes a row exactly, the same tokens on both
+     ranks; last the f32 prefill logits with float denses cut to 6 / 1 /
+     6 + 6 / 5 layers within 2e-3 of scale of the whole model's. B2, B3,
+     the insert kernel and kv_decode at the shard shapes are rows of
+     phases 3, 4, 5b and 6f;
   7. xnor: the XNOR-popcount GEMM against its plain version, exactly, at
      the MNIST net's hidden layers (M = 1, 128, 256, 512; N = K = 1024),
      ragged K (40, 100, 384) and the spec draft's shapes (gate / up 8 x
@@ -630,6 +649,26 @@ INT8_CASES = [  # (name, M, N, K)
     ("mesh 2 minicpm3 decode bin_out", 8, 2560, 3200),
     ("mesh 2 minicpm3 prefill bin_in", 1024, 3200, 2560),
     ("mesh 2 minicpm3 prefill bin_out", 1024, 2560, 3200),
+    # a rank's shards on a mesh of 2 (phase 6h): zamba2's binary in_zx (its
+    # heads' z and x, 2 x 2560) and out (K 2560), rwkv6's c_k and c_v (K
+    # 4480 = 32 x 140), whisper's bin_in / bin_out (K 1024), the VLM's (K
+    # 7168); prefill at M 8 x 128 (whisper's 8 x 32)
+    ("mesh 2 zamba2 decode in_zx", 8, 5120, 2560),
+    ("mesh 2 zamba2 decode out", 8, 2560, 2560),
+    ("mesh 2 rwkv6 decode c_k", 8, 4480, 2560),
+    ("mesh 2 rwkv6 decode c_v", 8, 2560, 4480),
+    ("mesh 2 whisper decode bin_in", 8, 1024, 512),
+    ("mesh 2 whisper decode bin_out", 8, 512, 1024),
+    ("mesh 2 vlm decode bin_in", 8, 7168, 4096),
+    ("mesh 2 vlm decode bin_out", 8, 4096, 7168),
+    ("mesh 2 zamba2 prefill in_zx", 1024, 5120, 2560),
+    ("mesh 2 zamba2 prefill out", 1024, 2560, 2560),
+    ("mesh 2 rwkv6 prefill c_k", 1024, 4480, 2560),
+    ("mesh 2 rwkv6 prefill c_v", 1024, 2560, 4480),
+    ("mesh 2 whisper prefill bin_in", 256, 1024, 512),
+    ("mesh 2 whisper prefill bin_out", 256, 512, 1024),
+    ("mesh 2 vlm prefill bin_in", 1024, 7168, 4096),
+    ("mesh 2 vlm prefill bin_out", 1024, 4096, 7168),
 ]
 # activations drawn from all of [-128, 127]: the kernel is exact for any
 # int8, and so are the plain f32 version and the yardsticks (|sum| < 2**24)
@@ -726,10 +765,13 @@ FLASH_CASES = [  # (name, B, S, T, Hq, Hkv, D, q_offset, kv_len or None)
     ("GQA 8/2, D 64", 2, 96, 96, 8, 2, 64, 0, [96, 50]),
     ("D 128", 2, 96, 96, 8, 8, 128, 0, [96, 1]),
     ("S = T = 256, largest bucket", 8, 256, 256, 32, 32, 80, 0, None),
-    # a rank's 16 of the 32 heads on a mesh of 2 (phase 6f)
+    # a rank's 16 of the 32 heads on a mesh of 2 (phase 6f; zamba2's shared
+    # block in 6h)
     ("mesh 2 shard, 16 heads", 8, 128, 128, 16, 16, 80, 0, None),
     ("mesh 2 shard, 16 heads, ragged kv_len", 8, 128, 128, 16, 16, 80, 0,
      [128, 100, 1, 64, 17, 128, 90, 3]),
+    # the VLM's self prefill on a mesh of 2 (phase 6h): 16 / 4 heads of 128
+    ("mesh 2 vlm self, 16 / 4 heads of 128", 8, 128, 128, 16, 4, 128, 0, None),
 ]
 
 
@@ -771,6 +813,13 @@ CROSS_FLASH_CASES = [  # (name, B, S, T, Hq, Hkv, D)
     ("whisper cross decode", 8, 1, 1500, 8, 8, 64),
     ("vlm cross prefill", 8, 128, 1601, 32, 8, 128),
     ("vlm cross decode", 8, 1, 1601, 32, 8, 128),
+    # a rank's heads on a mesh of 2 (phase 6h): whisper's 4 of 8, the
+    # VLM's 16 / 4 of 32 / 8
+    ("mesh 2 whisper encoder, 4 heads", 8, 1500, 1500, 4, 4, 64),
+    ("mesh 2 whisper cross prefill, 4 heads", 8, 32, 1500, 4, 4, 64),
+    ("mesh 2 whisper cross decode, 4 heads", 8, 1, 1500, 4, 4, 64),
+    ("mesh 2 vlm cross prefill, 16 / 4 heads", 8, 128, 1601, 16, 4, 128),
+    ("mesh 2 vlm cross decode, 16 / 4 heads", 8, 1, 1601, 16, 4, 128),
 ]
 TOLS = {torch.bfloat16: BF16_TOL, torch.float32: 2e-5}   # tests/test_attention.py TOLS
 # bf16 is also held to each batch row's own scale: over T 1500 an output's
@@ -897,8 +946,14 @@ def phase_flash(dev, gen, timer) -> list[dict]:
 N_REQUESTS, PROMPT_LENS, MAX_NEW = 12, (16, 48, 100, 128), 16
 HEADER = 64           # tokens of the header the paged run's prompts share
 # exact pool bytes of stablelm-3b at max_batch 8, max_len 256 (32 layers x
-# 32 KV heads of 80: 327,680 / 167,936 / 28,672 bytes per token)
+# 32 KV heads of 80: 327,680 / 167,936 / 28,672 bytes per token), served
+# whole on the mesh (6f)
 KV_BYTES = {"bf16": 671_088_640, "int8": 343_932_928, "binary": 58_720_256}
+# the single-device serve path (6, 6b, 6c) at full width, cut to half its
+# depth to keep the script's phases within 1,000 s: 16 layers,
+# blocks 2..13 binary, half of KV_BYTES
+SERVE_LAYERS = 16
+SERVE_KV_BYTES = {"bf16": 335_544_320, "int8": 171_966_464, "binary": 29_360_128}
 # the further serving paths: (label, ServeEngine options, header prompts).
 # On the header prompts the first request runs alone, so the rest find its
 # header on the radix tree; the contiguous int8 run on them is the paged
@@ -1197,7 +1252,7 @@ def _device_time(label, profiles, families) -> None:
 
 
 def phase_serve(dev, card: str) -> dict:
-    cfg = get_config("stablelm-3b")
+    cfg = get_config("stablelm-3b").replace(n_layers=SERVE_LAYERS)
     api = get_model(cfg)
     t0 = time.perf_counter()
     params = api.init(SEED, device=dev)
@@ -1218,7 +1273,7 @@ def phase_serve(dev, card: str) -> dict:
     waves, steps = eng.stats["prefills"], eng.stats["decode_steps"]
     _check_outputs("bf16", out, cfg.vocab)
     _check_path("bf16", launches, eng, cfg, n_binary, "bf16", waves)
-    _check_kv_bytes("bf16", eng, cfg, "bf16", KV_BYTES["bf16"])
+    _check_kv_bytes("bf16", eng, cfg, "bf16", SERVE_KV_BYTES["bf16"])
     _check_replays("bf16", eng)
     out2, wall2, _ = _serve_once(api, params, prompts)
     if out2 != out:
@@ -1242,7 +1297,7 @@ def phase_serve(dev, card: str) -> dict:
         # a cached prefix: every later request matches the header
         _check_path(label, k_launches, k_eng, cfg, n_binary, kw["kv_cache"],
                     1 if kw.get("prefix_cache") else k_eng.stats["prefills"])
-        _check_kv_bytes(label, k_eng, cfg, kw["kv_cache"], KV_BYTES[kw["kv_cache"]])
+        _check_kv_bytes(label, k_eng, cfg, kw["kv_cache"], SERVE_KV_BYTES[kw["kv_cache"]])
         _check_replays(label, k_eng)
         if kw.get("prefix_cache") and not (k_eng.pool.stats["hits"] > 0 and
                                            k_eng.stats["cached_prompt_tokens"] > 0):
@@ -1257,7 +1312,7 @@ def phase_serve(dev, card: str) -> dict:
                    decode_steps=k_eng.stats["decode_steps"], launches=k_launches,
                    graph_replays=k_eng.graph.replays,
                    kv_bytes=k_eng.stats["kv_bytes"],
-                   kv_bytes_vs_bf16=KV_BYTES["bf16"] / k_eng.stats["kv_bytes"],
+                   kv_bytes_vs_bf16=SERVE_KV_BYTES["bf16"] / k_eng.stats["kv_bytes"],
                    prefilled_tokens=k_eng.stats["prefilled_tokens"],
                    cached_prompt_tokens=k_eng.stats["cached_prompt_tokens"],
                    wall_s_first=k_wall, wall_s=k_wall2, wall_s_eager=k_wall_eager,
@@ -1381,7 +1436,7 @@ def _top2_gaps(api, params, prompts, out, plain_out, dev) -> list:
 
 
 def _verify_vs_decode(params, cfg, dev) -> dict:
-    """Layer 0's and layer 31's verify pass (float FFNs, k + 1 = 4 tokens,
+    """Layer 0's and the last layer's verify pass (float FFNs, k + 1 = 4 tokens,
     the bf16 and the int8 pool) against 4 sequential decodes from the same
     prefilled cache: the span insert and the attend with q_lens against the
     decode insert and attend, within 2e-2 (absolute and relative, as the
@@ -1431,7 +1486,7 @@ def phase_spec(api, params, cfg, prompts, shared, plain, n_binary, card) -> dict
     _check_outputs("int8 sampled", s_out, cfg.vocab)
     _check_path("int8 sampled", s_launches, s_eng, cfg, n_binary, "int8",
                 s_eng.stats["prefills"])
-    _check_kv_bytes("int8 sampled", s_eng, cfg, "int8", KV_BYTES["int8"])
+    _check_kv_bytes("int8 sampled", s_eng, cfg, "int8", SERVE_KV_BYTES["int8"])
     _check_replays("int8 sampled", s_eng)
     s_out2, s_wall2, _ = _serve_once(api, params, prompts, kv_cache="int8", temperature=0.8,
                                      seed=SEED)
@@ -1530,11 +1585,12 @@ def _prefill_calls(eng, calls: dict) -> None:
 
 def _check_prefill_path(label, launches, eng, cfg, n_binary, kv, calls) -> None:
     """Every kernel's launches on a chunked or interleaved path: per chunk
-    or slice B2 2 x binary blocks, the insert kernel 32 (its span mode into
-    the transient cache), kv_decode 32 x ceil(c / 8), B3 0; per suffix
-    prefill on a cached prefix B2, the insert kernel and the dequantizer's
-    2 x 32 (its context); per monolithic prefill B3 32; per decode step (a
-    replay) B2, the insert kernel and kv_decode as on the plain paths."""
+    or slice B2 2 x binary blocks, the insert kernel one a layer (its span
+    mode into the transient cache), kv_decode layers x ceil(c / 8), B3 0;
+    per suffix prefill on a cached prefix B2, the insert kernel and the
+    dequantizer's 2 a layer (its context); per monolithic prefill B3 one a
+    layer; per decode step (a replay) B2, the insert kernel and kv_decode
+    as on the plain paths."""
     steps, L = eng.stats["decode_steps"], cfg.n_layers
     waves = calls["chunks"] + calls["ctx"] + calls["monolithic"]
     want = {k: 0 for k in KERNELS}
@@ -2043,6 +2099,53 @@ def _decode_parity(label, api, params, batch: dict, max_len: int, vocab: int,
     return {"max_abs_err": err, "scale": scale, "same_argmax": same, "top2_gaps": gaps}
 
 
+def _encdec_launches(cfg, steps: int) -> dict[str, int]:
+    """whisper's or the VLM's launches in a prefill and ``steps`` decodes:
+    B2 2 x binary FFNs a call; B3 whisper's encoder, causal and cross
+    layers a prefill and its cross layers a step, the VLM's self layers a
+    prefill and its cross blocks a call; the VLM's int8 pool its insert a
+    layer and call, kv_decode a layer and step; all else 0."""
+    n_binary = sum(cfg.policy.block_is_binary(i, cfg.n_layers) for i in range(cfg.n_layers))
+    want = {k: 0 for k in KERNELS}
+    want["int8_matmul"] = 2 * n_binary * (1 + steps)
+    if cfg.family == "whisper":
+        want["flash_attention"] = cfg.enc_layers + 2 * cfg.n_layers + cfg.n_layers * steps
+    else:
+        n_cross = cfg.n_layers // cfg.cross_every
+        want["flash_attention"] = cfg.n_layers + n_cross * (1 + steps)
+        want["kv_quant_int8"] = cfg.n_layers * (1 + steps)
+        want["kv_decode_int8"] = cfg.n_layers * steps
+    return want
+
+
+def _encdec_batch(cfg, dev, rng, gen) -> tuple[dict, int, int]:
+    """whisper's or the VLM's batch of ENCDEC_BATCH rows -> (the batch,
+    its prompt length, max_len): whisper WHISPER_PROMPT tokens and its
+    frames, the VLM the serve prompts each repeated out to VLM_PROMPT
+    tokens and its patches."""
+    b = ENCDEC_BATCH
+    if cfg.family == "whisper":
+        s, max_len = WHISPER_PROMPT, 64
+        toks = rng.integers(0, cfg.vocab, (b, s))
+        ctx = {"frames": torch.randn((b, cfg.n_audio_frames, cfg.d_model), generator=gen,
+                                     device=dev).to(lc.cdt(cfg))}
+    else:
+        s, max_len = VLM_PROMPT, VLM_PROMPT + ENCDEC_STEPS + 16
+        toks = np.stack([np.resize(rng.integers(0, cfg.vocab, int(rng.choice(PROMPT_LENS))), s)
+                         for _ in range(b)])
+        ctx = {"patches": torch.randn((b, cfg.n_patches, cfg.d_model), generator=gen,
+                                      device=dev).to(lc.cdt(cfg))}
+    return {"tokens": torch.as_tensor(toks, device=dev), **ctx}, s, max_len
+
+
+def _open_gates(params) -> None:
+    """Random init leaves every VLM cross gate at 0, and tanh(0) = 0 would
+    make each cross block add nothing: open them."""
+    for blk in params.get("cross", []):
+        blk["gate_attn"].fill_(0.5)
+        blk["gate_ffn"].fill_(0.5)
+
+
 def _encdec(arch, dev, card) -> tuple[dict, dict]:
     """whisper-base or llama-3.2-vision-11b at full width through
     get_model's prefill and decode (repro gives them no slot engine): batch
@@ -2061,40 +2164,16 @@ def _encdec(arch, dev, card) -> tuple[dict, dict]:
     param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    rng = np.random.default_rng(SEED)
     b = ENCDEC_BATCH
-    if cfg.family == "whisper":
-        s, max_len = WHISPER_PROMPT, 64
-        toks = rng.integers(0, cfg.vocab, (b, s))
-        ctx = {"frames": torch.randn((b, cfg.n_audio_frames, cfg.d_model), generator=gen,
-                                     device=dev).to(lc.cdt(cfg))}
-    else:
-        # the serve prompts, each repeated out to 128 tokens
-        s, max_len = VLM_PROMPT, VLM_PROMPT + ENCDEC_STEPS + 16
-        toks = np.stack([np.resize(rng.integers(0, cfg.vocab, int(rng.choice(PROMPT_LENS))), s)
-                         for _ in range(b)])
-        ctx = {"patches": torch.randn((b, cfg.n_patches, cfg.d_model), generator=gen,
-                                      device=dev).to(lc.cdt(cfg))}
-        # random init leaves every gate at 0, and tanh(0) = 0 would make
-        # each cross block add nothing: open them
-        for blk in params["cross"]:
-            blk["gate_attn"].fill_(0.5)
-            blk["gate_ffn"].fill_(0.5)
-    batch = {"tokens": torch.as_tensor(toks, device=dev), **ctx}
+    batch, s, max_len = _encdec_batch(cfg, dev, np.random.default_rng(SEED), gen)
+    ctx = {k: v for k, v in batch.items() if k != "tokens"}
+    _open_gates(params)
     n_binary = sum(cfg.policy.block_is_binary(i, cfg.n_layers) for i in range(cfg.n_layers))
     steps = ENCDEC_STEPS
     zero_counts()
     out, prefill_s, decode_s = _greedy(api, params, batch, steps, max_len)
     launches = counts()
-    want = {k: 0 for k in KERNELS}
-    want["int8_matmul"] = 2 * n_binary * (1 + steps)
-    if cfg.family == "whisper":
-        want["flash_attention"] = cfg.enc_layers + 2 * cfg.n_layers + cfg.n_layers * steps
-    else:
-        n_cross = cfg.n_layers // cfg.cross_every
-        want["flash_attention"] = cfg.n_layers + n_cross * (1 + steps)
-        want["kv_quant_int8"] = cfg.n_layers * (1 + steps)
-        want["kv_decode_int8"] = cfg.n_layers * steps
+    want = _encdec_launches(cfg, steps)
     if launches != want:
         raise AssertionError(f"{arch}: launches {launches}, want {want}")
     if not (out.shape == (b, steps + 1) and bool(((out >= 0) & (out < cfg.vocab)).all())):
@@ -2144,9 +2223,7 @@ def _encdec(arch, dev, card) -> tuple[dict, dict]:
     f32_float = f32.replace(policy=PrecisionPolicy(binary_ffn=False))
     f_api = get_model(f32_float)
     f_params = f_api.init(SEED, device=dev)
-    for blk in f_params.get("cross", []):
-        blk["gate_attn"].fill_(0.5)
-        blk["gate_ffn"].fill_(0.5)
+    _open_gates(f_params)
     parity = _decode_parity(f"{arch} f32, float FFNs", f_api, f_params, batch, max_len,
                             cfg.vocab)
     parity_int8_f32 = None
@@ -2494,13 +2571,11 @@ def phase_recurrent(dev, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 MESH_N = 2
-# (label, ServeEngine options, header prompts, the single-device serve path
-# whose tokens it is compared with)
-MESH_PATHS = [("mesh bf16", dict(kv_cache="bf16"), False, "bf16"),
-              ("mesh int8", dict(kv_cache="int8"), False, "int8"),
+# (label, ServeEngine options, header prompts)
+MESH_PATHS = [("mesh bf16", dict(kv_cache="bf16"), False),
+              ("mesh int8", dict(kv_cache="int8"), False),
               ("mesh paged int8 + prefix cache", dict(kv_cache="int8", kv_block_size=16,
-                                                      prefix_cache=True), True,
-               "paged int8 + prefix cache")]
+                                                      prefix_cache=True), True)]
 # the trained smoke LM's cells, each held to the single device's tokens
 MESH_SMOKE_CELLS = [("bf16", dict(kv_cache="bf16")),
                     ("bf16 paged", dict(kv_cache="bf16", kv_block_size=8)),
@@ -2511,7 +2586,9 @@ SMOKE_LM_STEPS = 200
 MESH_LOGITS_LAYERS = 4        # the f32 logits check's depth (full width)
 MESH_LOGITS_REL = 2e-3        # of the logits' scale: the decode parity bar
 MESH_BINARY_BLOCK = 2         # stablelm-3b's first binary block (edge_blocks_float 2)
-MESH_INSERT_H = 16            # a rank's share of stablelm-3b's 32 kv heads
+# (Hq, Hkv, D) of a rank on a mesh of 2: stablelm-3b's and zamba2's shared
+# block's 16 of 32 heads of 80 (6f, 6h), the VLM's 16 / 4 of 32 / 8 of 128
+MESH_INSERT_SHAPES = [(16, 16, 80), (16, 4, 128)]
 
 
 def _markov(start: int, n: int, vocab: int) -> list[int]:
@@ -2649,7 +2726,7 @@ def _mesh_rank(rank: int, world: int, job: dict) -> dict:
 
     # the serving paths, each counted from 0
     out["paths"] = []
-    for label, kw, on_header, _ in MESH_PATHS:
+    for label, kw, on_header in MESH_PATHS:
         batch = job["shared"] if on_header else job["prompts"]
         zero_counts()
         ticks = {"calls": 0, "bytes": 0}
@@ -2725,6 +2802,10 @@ def _mesh_rank(rank: int, world: int, job: dict) -> dict:
                            for arch, *_ in MESH_FAMILIES}
     out["families"] = [_mesh_family(rank, world, mesh, dev, *fam) for fam in MESH_FAMILIES]
     out["families_seconds"] = time.perf_counter() - t0
+    # phase 6h in the same ranks
+    t0 = time.perf_counter()
+    out["families_2"] = [_mesh2_family(rank, world, mesh, dev, *fam) for fam in MESH2_FAMILIES]
+    out["families_2_seconds"] = time.perf_counter() - t0
     return out
 
 
@@ -2946,48 +3027,327 @@ def _mesh_family(rank: int, world: int, mesh, dev, arch: str, cut: dict, kv_byte
     return out
 
 
-def _mesh_kernels_16_heads(dev, gen, timer) -> dict:
-    """The insert kernel (B4a / B4c) and kv_decode at a rank's 16 of
-    stablelm-3b's 32 kv heads, against their plain versions on CPU copies
-    of the same inputs: the decode insert bit for bit, the decode within
-    DECODE_TOL (bf16 q); the insert's time beside its byte bound. (B2, B3
-    and kv_decode at the shard shapes are timed as rows of phases 3, 4
-    and 5b.)"""
+# ---------------------------------------------------------------------------
+# phase 6h: the recurrent families, whisper and the VLM on the mesh, in 6f's
+# ranks
+# ---------------------------------------------------------------------------
+
+# (arch, the cut (depth only), the pool's codec, the f32 logits check's
+# depth). zamba2 x 12: two shared invocations, blocks 2..9 binary; the VLM
+# x 10: two cross blocks; whisper whole (6 + 6). rwkv6's f32 check is one
+# block: its time-mix products round their inputs to bf16 whatever the
+# config says (models/rwkv6.py, as repro), so a float c_v's row-parallel
+# partials, which round apart from one device's sum in f32, flip some of
+# the next block's bf16 roundings, and each flip moves a product by 2^-8 of
+# itself. tools/rwkv6_split_rounding.py holds deeper cuts to one device
+# that sums c_v as the mesh does, and to the mesh with c_v applied whole
+# (PERF.md section 6; the CPU test: tests/test_torch_mesh_families.py)
+MESH2_FAMILIES = [("zamba2-2.7b", dict(n_layers=12), "int8", 6),
+                  ("rwkv6-3b", dict(n_layers=8), None, 1),
+                  ("whisper-base", {}, None, 6),
+                  ("llama-3.2-vision-11b", dict(n_layers=10), "int8", 5)]
+# the predictions (PERF.md section 6), a rank of 2. All_reduces of one decode
+# step, from the call sites: a Mamba2 block 2 (out, gnorm's mean square), a
+# shared-block call 2 (wo, the FFN's down product), an RWKV6 block 4 (y and
+# g gathered, w_o's columns gathered, c_v, the channel-mix's columns
+# gathered), a whisper decoder block 3 (wo, the cross wo, the FFN), a VLM
+# self or cross block 2; the embedding and the logits 1 each. A prefill
+# issues as many, but whisper's also its encoder's 6 x 2
+MESH2_STEP_ALL_REDUCES = {"zamba2-2.7b": 12 * 2 + 2 * 2 + 2, "rwkv6-3b": 8 * 4 + 2,
+                          "whisper-base": 6 * 3 + 2, "llama-3.2-vision-11b": 10 * 2 + 2 * 2 + 2}
+MESH2_PREFILL_ALL_REDUCES = dict(MESH2_STEP_ALL_REDUCES, **{"whisper-base": 6 * 3 + 6 * 2 + 2})
+# a rank's cache bytes at 8 rows x 256: (the recurrent state, or the
+# context's: whisper's cross K / V at its 4 of 8 heads, the VLM's patches
+# whole; the attention pool at the rank's KV heads). zamba2: h 12 x 8 x 40
+# heads x 64 x 64 x 4 + conv 12 x 8 x 3 x (2,560 + 128) x 4; its int8 pool
+# 2 calls x 8 x 256 x 2 x 16 x (80 + 2). rwkv6: tm_s 8 x 8 x 20 x 64 x 64 x 4
+# + tm_x, cm_x 8 x 8 x 2 x 2,560 x 4. whisper: ek / ev 6 x 2 x 8 x 1,500 x 4 x
+# 64 x 2, k / v 6 x 2 x 8 x 256 x 4 x 64 x 2. The VLM: patches 8 x 1,601 x
+# 4,096 x 2, its int8 pool 10 x 8 x 256 x 2 x 4 x (128 + 2)
+MESH2_CACHE_BYTES = {"zamba2-2.7b": (66_011_136, 10_747_904), "rwkv6-3b": (22_282_240, 0),
+                     "whisper-base": (73_728_000, 12_582_912),
+                     "llama-3.2-vision-11b": (104_923_136, 21_299_200)}
+MESH2_REQUESTS, MESH2_PROMPT_LENS, MESH2_NEW = 8, (16, 48), 8
+MESH2_STEPS = 8           # whisper's and the VLM's decodes after the prefill
+
+
+def _mesh2_cache_bytes(cfg, caches) -> tuple[int, int]:
+    """(state or context bytes, attention pool bytes) of a cache tree (the
+    keys of MESH2_CACHE_BYTES)."""
+    nbytes = lambda tree: sum(t.numel() * t.element_size() for t in tree_leaves(tree))  # noqa: E731
+    if cfg.family in ("mamba2_hybrid", "rwkv6"):
+        return _recurrent_bytes(cfg, caches)
+    if cfg.family == "whisper":
+        return (sum(nbytes([c["ek"], c["ev"]]) for c in caches),
+                sum(nbytes([c["k"], c["v"]]) for c in caches))
+    return nbytes(caches["cross"]), kvc.kv_pool_bytes(caches["self"])
+
+
+def _mesh2_layer(cfg, params, x, tp=None):
+    """The split binary layer held to one device: Mamba2's out of block 2
+    over y (the rank's columns where the mixer splits), RWKV6's c_v of
+    block 2 over the squared relu (the rank's columns where the FFN
+    splits), whisper's decoder FFN 1 and the VLM's FFN 2 (bin_out's int32
+    dot summed before its cast)."""
+    def cols(t, split):
+        if tp is None or not split:
+            return t
+        n = t.shape[-1] // tp.size
+        return t[..., tp.rank * n:(tp.rank + 1) * n].contiguous()
+    if cfg.family == "mamba2_hybrid":
+        return mamba2.out_proj(params["blocks"][2], cols(x, tp is not None and tp.mixer), cfg)
+    if cfg.family == "rwkv6":
+        return rwkv6.c_v(params["blocks"][2], cols(x, tp is not None and tp.ffn), cfg)
+    blocks = params["dec_blocks"] if cfg.family == "whisper" else params["blocks"]
+    return lc.ffn_apply(blocks[1 if cfg.family == "whisper" else 2]["ffn"], x, cfg)
+
+
+def _mesh2_layer_width(cfg) -> int:
+    if cfg.family == "mamba2_hybrid":
+        return cfg.expand * cfg.d_model
+    return cfg.d_ff if cfg.family == "rwkv6" else cfg.d_model
+
+
+def _mesh2_family(rank: int, world: int, mesh, dev, arch: str, cut: dict, kv, f32_layers: int
+                  ) -> dict:
+    """One model of 6h on this rank (module note): built in turns and cut
+    to the rank's shard, the binary layer split against whole, one decode
+    step's all_reduces, then served (zamba2 and rwkv6 through
+    BucketEngine(mesh=), whisper and the VLM by a prefill and MESH2_STEPS
+    greedy decodes under scoped_api) with its launches, all_reduces and
+    cache bytes exact; last the f32 prefill logits with float denses at
+    ``f32_layers``, split against whole. -> plain values."""
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import scoped_api, tensor_parallel
+    from repro_torch.launch import specs
+    cfg = get_config(arch).replace(**cut)
+    if kv:
+        cfg = cfg.replace(kv_cache=kv)
+    api = get_model(cfg)
+    label = f"mesh {arch}"
+    recurrent = cfg.family in ("mamba2_hybrid", "rwkv6")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    width = _mesh2_layer_width(cfg)
+    xs = {case: torch.randn(8, s, width, generator=gen, device=dev).to(torch.bfloat16)
+          for case, s in (("decode M 8", 1), ("prefill M 1024", 128))}
+    if not recurrent:
+        batch, _, max_len = _encdec_batch(cfg, dev, np.random.default_rng(SEED), gen)
+
+    def build():
+        # the layer whole before the cut; zamba2 and rwkv6 cut through the
+        # engine, whisper and the VLM through shard_params
+        t0 = time.perf_counter()
+        params = api.init(SEED, device=dev)
+        _open_gates(params)
+        want = {case: _mesh2_layer(cfg, params, x) for case, x in xs.items()}
+        tp, rules = specs.mesh_tensor_parallel(cfg, mesh)
+        eng = calls = None
+        if recurrent:
+            calls = _Calls(api)
+            eng = BucketEngine(calls.api, params, max_batch=8, max_len=256, mesh=mesh)
+            local = eng.params
+        else:
+            local = specs.shard_params(api, params, mesh, tp, rules)
+        torch.cuda.synchronize()
+        built = dict(build_s=time.perf_counter() - t0,
+                     peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+        del params
+        local = _park(local, "cpu")
+        _free(dev)
+        return tp, local, want, built, eng, calls
+    t0 = time.perf_counter()
+    tp, local, want, built, eng, calls = _in_turns(rank, world, build)
+    local = _park(local, dev)
+    if eng is not None:
+        eng.params = local
+    out = dict(arch=arch, cut=cut, n_layers=cfg.n_layers, kv_cache=cfg.kv_cache,
+               split=dict(attn=tp.attn, ffn=tp.ffn, vocab=tp.vocab, mixer=tp.mixer),
+               turns_s=time.perf_counter() - t0, **built)
+    out["layer"] = {}
+    for case, x in xs.items():
+        with tensor_parallel(tp):
+            got = _mesh2_layer(cfg, local, x, tp)
+        out["layer"][case] = dict(same_bits=_same_bits(got, want[case]),
+                                  max_abs_diff=float((got.float() - want[case].float())
+                                                     .abs().max()))
+    sapi = scoped_api(api, tp)
+    caches = sapi.init_cache(8, 256, dev)
+    out["cache_bytes"] = _mesh2_cache_bytes(cfg, caches)
+    whole = api.init_cache(8, 256, "meta")
+    out["cache_bytes_per_device"] = kvc.kv_pool_bytes_per_device(
+        whole, mesh, specs.mesh_tensor_parallel(cfg, mesh)[1])
+    if out["cache_bytes"] != MESH2_CACHE_BYTES[arch] or \
+            out["cache_bytes_per_device"] != sum(MESH2_CACHE_BYTES[arch]):
+        raise AssertionError(f"{label}: a rank's cache holds {out['cache_bytes']} bytes "
+                             f"(per device {out['cache_bytes_per_device']}), want "
+                             f"{MESH2_CACHE_BYTES[arch]}")
+    collectives.zero_counts()
+    with torch.no_grad():
+        sapi.decode(local, caches, torch.zeros((8, 1), dtype=torch.int32, device=dev))
+    one = collectives.counts()["all-reduce"]["model"]
+    if one["calls"] != MESH2_STEP_ALL_REDUCES[arch]:
+        raise AssertionError(f"{label}: a decode step issued {one['calls']} all_reduces, want "
+                             f"{MESH2_STEP_ALL_REDUCES[arch]}")
+    del caches
+    zero_counts()
+    collectives.zero_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    if recurrent:
+        rng = np.random.default_rng(SEED)
+        prompts = [rng.integers(0, cfg.vocab, int(rng.choice(MESH2_PROMPT_LENS)))
+                   for _ in range(MESH2_REQUESTS)]
+        rids = [eng.add_request(p, max_new=MESH2_NEW) for p in prompts]
+        res = eng.run()
+        toks = [res[r] for r in rids]
+        prefills, steps = calls.n["prefill"], calls.n["decode"]
+        n_shared = cfg.n_layers // cfg.attn_every if cfg.family == "mamba2_hybrid" else 0
+        n_binary = sum(cfg.policy.block_is_binary(i, cfg.n_layers) for i in range(cfg.n_layers))
+        want_launches = _recurrent_launches("int8" if kv else "state", calls, n_binary, n_shared)
+        row_bytes = {(a // 8, b // 8) for a, b in [MESH2_CACHE_BYTES[arch]]}
+        if calls.row_bytes != row_bytes:
+            raise AssertionError(f"{label}: the engine's caches hold {calls.row_bytes} bytes a "
+                                 f"row, want {row_bytes}")
+        ok = all(len(o) == MESH2_NEW and all(0 <= t < cfg.vocab for t in o) for o in toks)
+    else:
+        with torch.no_grad():
+            got, _, _ = _greedy(sapi, local, batch, MESH2_STEPS, max_len)
+        toks = got.tolist()
+        prefills, steps = 1, MESH2_STEPS
+        want_launches = _encdec_launches(cfg, MESH2_STEPS)
+        ok = bool(((got >= 0) & (got < cfg.vocab)).all())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = counts()
+    ar = collectives.counts()["all-reduce"]["model"]
+    if not ok:
+        raise AssertionError(f"{label}: bad tokens {toks}")
+    if launches != want_launches:
+        raise AssertionError(f"{label}: launches {launches}, want {want_launches} for "
+                             f"{prefills} prefills + {steps} steps")
+    want_ar = MESH2_PREFILL_ALL_REDUCES[arch] * prefills + MESH2_STEP_ALL_REDUCES[arch] * steps
+    if ar["calls"] != want_ar:
+        raise AssertionError(f"{label}: {ar['calls']} all_reduces for {prefills} prefills + "
+                             f"{steps} steps, want {want_ar}")
+    n_tok = sum(len(o) for o in toks)
+    out.update(tokens=toks, launches=launches, wall_s=wall, tok_per_s=n_tok / wall,
+               prefills=prefills, decode_steps=steps, decode_step_all_reduces=one,
+               engine_all_reduces=ar, params_gib=tree_nbytes(local) / 2 ** 30,
+               peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    del local, eng
+    _free(dev)
+
+    # the f32 prefill logits with float denses at a cut depth, split and whole
+    fcfg = get_config(arch).replace(**({"n_layers": f32_layers}
+                                       if cfg.family != "whisper" else {}),
+                                    policy=PrecisionPolicy(), compute_dtype="float32",
+                                    param_dtype="float32")
+    fapi = get_model(fcfg)
+    if recurrent:
+        fbatch = {"tokens": torch.as_tensor(np.random.default_rng(SEED).integers(
+            0, cfg.vocab, (8, 64)), device=dev)}
+    else:
+        fbatch = {k: v.float() if v.is_floating_point() else v for k, v in batch.items()}
+
+    def build_f32():
+        fparams = fapi.init(SEED, device=dev)
+        _open_gates(fparams)
+        fwant = fapi.prefill(fparams, fbatch, max_len=256)[0]
+        ftp, frules = specs.mesh_tensor_parallel(fcfg, mesh)
+        flocal = specs.shard_params(fapi, fparams, mesh, ftp, frules)
+        del fparams
+        _free(dev)
+        return ftp, flocal, fwant
+    ftp, flocal, fwant = _in_turns(rank, world, build_f32)
+    with torch.no_grad():
+        fgot = scoped_api(fapi, ftp).prefill(flocal, fbatch, max_len=256)[0]
+    v = cfg.vocab
+    out["logits_rel"] = (float((fgot[:, :v] - fwant[:, :v]).abs().max())
+                         / float(fwant[:, :v].abs().max()))
+    out["logits_same_argmax"] = bool(torch.equal(fgot[:, :v].argmax(-1), fwant[:, :v].argmax(-1)))
+    out["logits_layers"] = fcfg.n_layers
+    del flocal, fwant, fgot
+    _free(dev)
+    return out
+
+
+def _mesh2_rows(ranks, card: str) -> list[dict]:
+    """Phase 6h's gates across the ranks and its lines (the exact counts
+    and bytes are gated inside each rank) -> each model's launches, both
+    ranks' summed."""
+    launches = []
+    for i, (arch, *_) in enumerate(MESH2_FAMILIES):
+        got = [r["families_2"][i] for r in ranks]
+        if any(g["tokens"] != got[0]["tokens"] for g in got):
+            raise AssertionError(f"mesh {arch}: the ranks gave other tokens")
+        for g, r in zip(got, ranks):
+            for case, b in g["layer"].items():
+                if not b["same_bits"]:
+                    raise AssertionError(f"mesh {arch} layer {case}: rank {r['rank']} differs "
+                                         f"from the single device by {b['max_abs_diff']}")
+            if not g["logits_rel"] <= MESH_LOGITS_REL:
+                raise AssertionError(f"mesh {arch} f32 logits: {g['logits_rel']} of scale")
+        n_tok = sum(len(o) for o in got[0]["tokens"])
+        log("mesh_families_2", card=card, world=MESH_N, backend="gloo", arch=arch,
+            **{k: got[0][k] for k in ("cut", "n_layers", "kv_cache", "split", "prefills",
+                                      "decode_steps", "logits_layers")},
+            tokens=n_tok, tok_per_s=n_tok / max(g["wall_s"] for g in got),
+            predicted=dict(step_all_reduces=MESH2_STEP_ALL_REDUCES[arch],
+                           prefill_all_reduces=MESH2_PREFILL_ALL_REDUCES[arch],
+                           cache_bytes=MESH2_CACHE_BYTES[arch]),
+            **{k: [g[k] for g in got] for k in (
+                "launches", "cache_bytes", "cache_bytes_per_device", "decode_step_all_reduces",
+                "engine_all_reduces", "layer", "logits_rel", "logits_same_argmax", "wall_s",
+                "build_s", "turns_s", "peak_gib", "params_gib", "peak_mem_gib")},
+            rank_seconds=[r["families_2_seconds"] for r in ranks])
+        launches.append({k: sum(g["launches"][k] for g in got) for k in KERNELS})
+    return launches
+
+
+def _mesh_kernels_shard_heads(dev, gen, timer) -> dict:
+    """The insert kernel (B4a / B4c) and kv_decode at a rank's heads on a
+    mesh of 2 (MESH_INSERT_SHAPES), against their plain versions on CPU
+    copies of the same inputs: the decode insert bit for bit, the decode
+    within DECODE_TOL (bf16 q); the insert's time beside its byte bound.
+    (B2, B3 and kv_decode at the shard shapes are timed as rows of phases
+    3, 4 and 5b.)"""
     out = {}
     lens = torch.tensor([min(n, DECODE_T - 1) for n in DECODE_LENS], dtype=torch.int32,
                         device=dev)
-    for kv in ("int8", "binary"):
-        codec = kvc.get_codec(kv)
-        cache = codec.init(DECODE_B, DECODE_T, MESH_INSERT_H, INSERT_D, device=dev)
-        cache["len"].copy_(lens)
-        k, v = (torch.randn(DECODE_B, 1, MESH_INSERT_H, INSERT_D, generator=gen, device=dev)
-                .to(torch.bfloat16) for _ in range(2))
-        plain = {n: t.cpu() for n, t in cache.items()}
-        zero_counts()
-        codec.insert_span(cache, k, v)
-        codec.insert_span(plain, k.cpu(), v.cpu())
-        torch.cuda.synchronize()
-        if counts()[f"kv_quant_{kv}"] != 1:
-            raise AssertionError(f"16 heads: the {kv} insert did not launch its kernel once")
-        bad = [n for n in cache if not _same_bits(cache[n].cpu(), plain[n])]
-        if bad:
-            raise AssertionError(f"16 heads: the {kv} insert kernel differs from plain in {bad}")
-        q = torch.randn(DECODE_B, 1, MESH_INSERT_H, INSERT_D, generator=gen,
-                        device=dev).to(torch.bfloat16)
-        got = codec.decode_attention(q, cache)
-        want = codec.decode_attention(q.cpu(), plain)
-        err = float((got.float().cpu() - want.float()).abs().max())
-        if not err <= DECODE_TOL[torch.bfloat16]:
-            raise AssertionError(f"16 heads: kv_decode {kv} vs plain: {err}")
-        leaves = {n: t for n, t in cache.items() if n != "len"}
-        ms = timer(lambda: kvq.kv_insert(kv, leaves, k, v, lens))
-        work = {n: t.clone() for n, t in leaves.items()}
-        plain_ms = timer(lambda: kvq.kv_insert_plain(kv, work, k, v, lens), reps=10)
-        nbytes, ops = _insert_bytes_ops(kv, DECODE_B * MESH_INSERT_H, INSERT_D, 2,
-                                        DECODE_B * MESH_INSERT_H)
-        b_ms, b_by = bound(nbytes, ops, F32_FLOPS)
-        out[kv] = dict(insert_same_bits=True, insert_ms=ms, insert_plain_ms=plain_ms,
-                       insert_bound_ms=b_ms, insert_bound_by=b_by, kv_decode_max_abs_err=err)
+    for hq, hkv, d in MESH_INSERT_SHAPES:
+        for kv in ("int8", "binary"):
+            label = f"{kv}, {hq} / {hkv} heads of {d}"
+            codec = kvc.get_codec(kv)
+            cache = codec.init(DECODE_B, DECODE_T, hkv, d, device=dev)
+            cache["len"].copy_(lens)
+            k, v = (torch.randn(DECODE_B, 1, hkv, d, generator=gen, device=dev)
+                    .to(torch.bfloat16) for _ in range(2))
+            plain = {n: t.cpu() for n, t in cache.items()}
+            zero_counts()
+            codec.insert_span(cache, k, v)
+            codec.insert_span(plain, k.cpu(), v.cpu())
+            torch.cuda.synchronize()
+            if counts()[f"kv_quant_{kv}"] != 1:
+                raise AssertionError(f"{label}: the insert did not launch its kernel once")
+            bad = [n for n in cache if not _same_bits(cache[n].cpu(), plain[n])]
+            if bad:
+                raise AssertionError(f"{label}: the insert kernel differs from plain in {bad}")
+            q = torch.randn(DECODE_B, 1, hq, d, generator=gen, device=dev).to(torch.bfloat16)
+            got = codec.decode_attention(q, cache)
+            want = codec.decode_attention(q.cpu(), plain)
+            err = float((got.float().cpu() - want.float()).abs().max())
+            if not err <= DECODE_TOL[torch.bfloat16]:
+                raise AssertionError(f"{label}: kv_decode vs plain: {err}")
+            leaves = {n: t for n, t in cache.items() if n != "len"}
+            ms = timer(lambda: kvq.kv_insert(kv, leaves, k, v, lens))
+            work = {n: t.clone() for n, t in leaves.items()}
+            plain_ms = timer(lambda: kvq.kv_insert_plain(kv, work, k, v, lens), reps=10)
+            nbytes, ops = _insert_bytes_ops(kv, DECODE_B * hkv, d, 2, DECODE_B * hkv)
+            b_ms, b_by = bound(nbytes, ops, F32_FLOPS)
+            out[label] = dict(insert_same_bits=True, insert_ms=ms, insert_plain_ms=plain_ms,
+                              insert_bound_ms=b_ms, insert_bound_by=b_by,
+                              kv_decode_max_abs_err=err)
     return out
 
 
@@ -3002,7 +3362,7 @@ def phase_mesh(dev, card: str, serve: dict) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     timer = Timer(dev)
-    kernels_16 = _mesh_kernels_16_heads(dev, gen, timer)
+    kernels_shard = _mesh_kernels_shard_heads(dev, gen, timer)
     del timer
     scfg, sparams, loss = _smoke_lm(dev)
     sprompts = [_markov(3 + i, 7 + (i % 4), scfg.vocab) for i in range(5)]
@@ -3050,9 +3410,8 @@ def phase_mesh(dev, card: str, serve: dict) -> dict:
         raise AssertionError(f"launch.serve --mesh 1 gave {got}, without a mesh {want}")
 
     paths = []
-    for i, (label, kw, _, single_label) in enumerate(MESH_PATHS):
+    for i, (label, kw, _) in enumerate(MESH_PATHS):
         p0 = ranks[0]["paths"][i]
-        plain = serve["plain"][single_label]
         n_tok = sum(len(o) for o in p0["tokens"])
         paths.append(dict(path=label, tokens=n_tok, prefill_waves=p0["prefill_waves"],
                           decode_steps=p0["decode_steps"],
@@ -3062,9 +3421,7 @@ def phase_mesh(dev, card: str, serve: dict) -> dict:
                                                for r in ranks],
                           cached_prompt_tokens=p0["cached_prompt_tokens"],
                           wall_s_per_rank=[r["paths"][i]["wall_s"] for r in ranks],
-                          tok_per_s=n_tok / max(r["paths"][i]["wall_s"] for r in ranks),
-                          tokens_as_single_device=sum(a == b for o, w in zip(p0["tokens"], plain)
-                                                      for a, b in zip(o, w)) / n_tok))
+                          tok_per_s=n_tok / max(r["paths"][i]["wall_s"] for r in ranks)))
     row = dict(card=card, world=MESH_N, backend="gloo", devices=[r["device"] for r in ranks],
                arch="stablelm-3b", smoke_lm_loss=loss, smoke_cells=[c for c, _ in
                                                                     MESH_SMOKE_CELLS],
@@ -3074,7 +3431,7 @@ def phase_mesh(dev, card: str, serve: dict) -> dict:
                logits_layers=MESH_LOGITS_LAYERS,
                served_logits_rel=[r["served_logits_rel"] for r in ranks],
                served_first_tokens_equal_of_8=[r["served_first_tokens_equal"] for r in ranks],
-               kernels_16_heads=kernels_16,
+               kernels_shard_heads=kernels_shard,
                decode_step_ms_int8=[r["decode_step_ms_int8"] for r in ranks],
                all_reduce_ms=[r["all_reduce_ms"] for r in ranks],
                peak_mem_gib_serve=[r["peak_mem_gib_serve"] for r in ranks],
@@ -3091,6 +3448,7 @@ def phase_mesh(dev, card: str, serve: dict) -> dict:
     launches = [{k: sum(r["paths"][i]["launches"][k] for r in ranks) for k in KERNELS}
                 for i in range(len(MESH_PATHS))]
     launches += _mesh_families_rows(ranks, card, family_single)
+    launches += _mesh2_rows(ranks, card)
     return {"row": row, "launches": launches}
 
 
@@ -3461,6 +3819,8 @@ DECODE_CASES = [  # (name, Hq, Hkv, D, q dtype) at B 8, T 256, S 1
     ("D 64, bf16 q", 32, 32, 64, torch.bfloat16),
     ("D 128, f32 q", 32, 32, 128, torch.float32),
     ("mesh 2 shard (8, 1, 16, 80), bf16 q", 16, 16, 80, torch.bfloat16),
+    # the VLM's self decode on a mesh of 2 (phase 6h): 16 / 4 heads of 128
+    ("mesh 2 vlm shard (8, 1, 16 / 4 x 128), bf16 q", 16, 4, 128, torch.bfloat16),
     # the families phase's decode: qwen3-8b (G 4) and qwen2-72b (G 8), D 128
     ("qwen3-8b (8, 1, 32 / 8 x 128), bf16 q", 32, 8, 128, torch.bfloat16),
     ("qwen2-72b (8, 1, 64 / 8 x 128), bf16 q", 64, 8, 128, torch.bfloat16),

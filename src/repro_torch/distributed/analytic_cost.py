@@ -164,17 +164,39 @@ def _mamba(cfg, b, s, *, binary, decode=False):
     return cost
 
 
-def _rwkv_block(cfg, b, s, *, binary):
-    d, ff = cfg.d_model, cfg.d_ff
+def _rwkv_mix(cfg, b, s):
+    """An RWKV6 block's products over its heads: the time-mix's
+    projections, decay LoRA and WKV state ops, and the channel-mix's c_r."""
+    d = cfg.d_model
     hd = cfg.head_dim or 64
     toks = b * s
     tm_proj = 2 * toks * 5 * d * d + 2 * toks * (d * 64 + 64 * d)
     wkv = 7 * toks * d * hd          # state ops per token per channel
     cm_r = 2 * toks * d * d
-    cm = 2 * toks * d * ff * 2
-    cost = StepCost(flops_bf16=tm_proj + wkv + cm_r)
-    cost.add(_bin_bucket(cfg, cm) if binary else StepCost(flops_bf16=cm))
+    return StepCost(flops_bf16=tm_proj + wkv + cm_r)
+
+
+def _rwkv_ffn(cfg, b, s, *, binary):
+    """An RWKV6 block's channel-mix FFN, c_k and c_v."""
+    cm = 2 * b * s * cfg.d_model * cfg.d_ff * 2
+    return _bin_bucket(cfg, cm) if binary else StepCost(flops_bf16=cm)
+
+
+def _rwkv_block(cfg, b, s, *, binary):
+    cost = _rwkv_mix(cfg, b, s)
+    cost.add(_rwkv_ffn(cfg, b, s, binary=binary))
     return cost
+
+
+def _cross_attn(cfg, b, s, t_ctx, *, kv=True):
+    """One cross-attention layer: the queries and output over b x s
+    tokens, the context's K / V over b x t_ctx (``kv``: projected this
+    step) and the scores."""
+    d, dh = cfg.d_model, cfg.kv_head_dim()
+    mats = 2 * b * s * d * cfg.n_heads * dh * 2 \
+        + (2 * b * t_ctx * d * cfg.n_kv_heads * dh * 2 if kv else 0)
+    scores = 2 * b * cfg.n_heads * s * t_ctx * dh * 2
+    return StepCost(flops_bf16=mats + scores)
 
 
 def _head(cfg, tokens):
@@ -208,13 +230,8 @@ def forward_cost(cfg: ModelConfig, shape: ShapeSpec) -> StepCost:
             else:
                 total.add(_ffn(cfg, toks, binary=binary))
         if cfg.family == "vlm":
-            pt = cfg.n_patches
-            dh = cfg.kv_head_dim()
             for _ in range(cfg.n_layers // cfg.cross_every):
-                x_mats = 2 * toks * cfg.d_model * cfg.n_heads * dh * 2 \
-                    + 2 * b * pt * cfg.d_model * cfg.n_kv_heads * dh * 2
-                x_scores = 2 * b * cfg.n_heads * s * pt * dh * 2
-                total.add(StepCost(flops_bf16=x_mats + x_scores))
+                total.add(_cross_attn(cfg, b, s, cfg.n_patches))
                 total.add(_ffn(cfg, toks, binary=False))
         if cfg.use_mtp and shape.kind == "train":
             total.add(_attn_mla(cfg, b, s, t) if cfg.use_mla
@@ -233,12 +250,7 @@ def forward_cost(cfg: ModelConfig, shape: ShapeSpec) -> StepCost:
             binary = cfg.policy.block_is_binary(i, cfg.n_layers)
             total.add(_attn_gqa(cfg, b, s, t, causal=not decode))
             # cross attention (kv over enc frames recomputed per layer)
-            dh = cfg.kv_head_dim()
-            x = 2 * toks * cfg.d_model * cfg.n_heads * dh * 2 \
-                + (0 if decode else 2 * b * te * cfg.d_model
-                   * cfg.n_kv_heads * dh * 2) \
-                + 2 * b * cfg.n_heads * s * te * dh * 2
-            total.add(StepCost(flops_bf16=x))
+            total.add(_cross_attn(cfg, b, s, te, kv=not decode))
             total.add(_ffn(cfg, toks, binary=binary))
     elif cfg.family == "mamba2_hybrid":
         for i in range(cfg.n_layers):
@@ -345,17 +357,23 @@ def kv_cache_bytes(cfg: ModelConfig, shape: ShapeSpec) -> float:
         nh = cfg.d_model // hd
         return cfg.n_layers * b * (nh * hd * hd + 2 * cfg.d_model) * 4.0
     if cfg.family == "mamba2_hybrid":
-        di = cfg.expand * cfg.d_model
-        per = b * (di // 64 * 64 * cfg.d_state
-                   + (cfg.d_conv - 1) * (di + 2 * cfg.d_state)) * 4.0
-        attn = (cfg.n_layers // cfg.attn_every) * b * t * \
-            cfg.n_kv_heads * cfg.kv_head_dim() * 2 * 2.0
-        return cfg.n_layers * per + attn
+        attn = (cfg.n_layers // cfg.attn_every) * _attn_kv_bytes(cfg, b, t)
+        return cfg.n_layers * _mamba_state_bytes(cfg, b) + attn
     if cfg.use_mla:
         per = b * t * (cfg.kv_lora_rank + cfg.qk_rope_dim) * 2.0
         return cfg.n_layers * per
-    dh = cfg.kv_head_dim()
-    return cfg.n_layers * b * t * cfg.n_kv_heads * dh * 2 * 2.0
+    return cfg.n_layers * _attn_kv_bytes(cfg, b, t)
+
+
+def _attn_kv_bytes(cfg, b, t):
+    """One attention layer's bf16 K and V over b x t."""
+    return b * t * cfg.n_kv_heads * cfg.kv_head_dim() * 2 * 2.0
+
+
+def _mamba_state_bytes(cfg, b):
+    """One Mamba2 block's f32 SSM state and conv window over b rows."""
+    di = cfg.expand * cfg.d_model
+    return b * (di // 64 * 64 * cfg.d_state + (cfg.d_conv - 1) * (di + 2 * cfg.d_state)) * 4.0
 
 
 def hbm_bytes(cfg: ModelConfig, shape: ShapeSpec) -> float:

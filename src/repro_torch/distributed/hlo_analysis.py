@@ -77,14 +77,68 @@ class Roofline:
         }
 
 
+def _other_part_cost(cfg, shape, part: str, per_param: float):
+    """_part_cost's ``attn`` and ``mixer`` of whisper, the VLM and the
+    recurrent families, from analytic_cost's per-layer terms: whisper's
+    encoder, decoder and cross attention, the VLM's self and cross
+    attention, zamba2's shared block's invocations (one set of weights),
+    the Mamba2 blocks or RWKV6's products over heads (``mixer``: their
+    products, weights and state)."""
+    from repro_torch.distributed import analytic_cost as AC
+    b, decode = shape.global_batch, shape.kind == "decode"
+    s, t, L = 1 if decode else shape.seq_len, shape.seq_len, cfg.n_layers
+    cost = AC.StepCost()
+    if part == "mixer" and cfg.family == "mamba2_hybrid":
+        for i in range(L):
+            cost.add(AC._mamba(cfg, b, s, binary=cfg.policy.block_is_binary(i, L),
+                               decode=decode))
+        cost.hbm_bytes = L * _mamba_params(cfg) * per_param
+        if decode:
+            cost.hbm_bytes += L * AC._mamba_state_bytes(cfg, b)
+        return cost
+    if part == "mixer" and cfg.family == "rwkv6":
+        for _ in range(L):
+            cost.add(AC._rwkv_mix(cfg, b, s))
+        cost.hbm_bytes = L * _rwkv_mix_params(cfg) * per_param
+        if decode:
+            cost.hbm_bytes += AC.kv_cache_bytes(cfg, shape)
+        return cost
+    if part != "attn" or cfg.family not in ("whisper", "vlm", "mamba2_hybrid"):
+        raise ValueError(f"no analytic cost of {cfg.name!r}'s {part!r} kept whole")
+    if cfg.family == "whisper":
+        te, layers, calls = cfg.n_audio_frames, cfg.enc_layers + 2 * L, L
+        if not decode:
+            for _ in range(cfg.enc_layers):
+                cost.add(AC._attn_gqa(cfg, b, te, te, causal=False))
+        for _ in range(L):
+            cost.add(AC._attn_gqa(cfg, b, s, t, causal=not decode))
+            cost.add(AC._cross_attn(cfg, b, s, te, kv=not decode))
+    elif cfg.family == "vlm":
+        n_cross = L // cfg.cross_every
+        layers, calls = L + n_cross, L
+        for _ in range(L):
+            cost.add(AC._attn_gqa(cfg, b, s, t, causal=not decode))
+        for _ in range(n_cross):
+            cost.add(AC._cross_attn(cfg, b, s, cfg.n_patches))
+    else:
+        layers, calls = 1, L // cfg.attn_every    # zamba2: one shared block, invoked L // attn_every
+        for _ in range(calls):
+            cost.add(AC._attn_gqa(cfg, b, s, t, causal=not decode))
+    cost.hbm_bytes = layers * _attn_params(cfg) * per_param
+    if decode:
+        cost.hbm_bytes += calls * AC._attn_kv_bytes(cfg, b, t)
+    return cost
+
+
 def _part_cost(cfg, shape, part: str):
-    """The global analytic cost of one part of a dense or MoE model's step
+    """The global analytic cost of one part of a model's step
     (analytic_cost's terms for it): ``attn`` (projections, scores, the KV
     cache or its chunked re-reads), ``mla_whole`` (what MLA keeps whole
     where its heads split: the down projections and the compressed
     cache), ``ffn`` (the dense FFNs and the MoE layers' shared experts),
     ``router`` (its products) or ``vocab`` (the head's product, the
-    embedding and head weights)."""
+    embedding and head weights); ``mixer``, and ``attn`` of the other
+    families: _other_part_cost."""
     from repro_torch.distributed import analytic_cost as AC
     b, train, decode = shape.global_batch, shape.kind == "train", shape.kind == "decode"
     s = 1 if decode else shape.seq_len
@@ -102,7 +156,11 @@ def _part_cost(cfg, shape, part: str):
             return AC.kv_cache_bytes(cfg, shape)
         return (3 if train else 1) * L * max(s // cfg.attn_chunk, 1) * b * s * c * 2.0
     cost = AC.StepCost()
-    if part == "attn" and cfg.use_mla:
+    if part == "mixer" or (part == "attn" and cfg.family not in ("dense", "moe")):
+        cost = _other_part_cost(cfg, shape, part, per_param)
+    elif part == "ffn" and cfg.family not in ("dense", "moe"):
+        raise ValueError(f"no analytic cost of {cfg.name!r}'s FFNs kept whole")
+    elif part == "attn" and cfg.use_mla:
         for _ in range(L):
             cost.add(AC._attn_mla(cfg, b, s, shape.seq_len, decode=decode))
         h, dn, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim
@@ -112,8 +170,7 @@ def _part_cost(cfg, shape, part: str):
     elif part == "attn":
         for _ in range(L):
             cost.add(AC._attn_gqa(cfg, b, s, shape.seq_len, causal=not decode))
-        dh = cfg.head_dim or d // cfg.n_heads
-        cost.hbm_bytes = L * d * dh * (cfg.n_heads * 2 + cfg.n_kv_heads * 2) * per_param
+        cost.hbm_bytes = L * _attn_params(cfg) * per_param
         if decode:
             cost.hbm_bytes += AC.kv_cache_bytes(cfg, shape)
         else:
@@ -155,24 +212,26 @@ def card_cost(cfg, shape, *, data: int, model: int, split: dict):
     FLOPs by bucket, HBM bytes). repro divides the global cost by the card
     count, as GSPMD splits every part. Here a rank holds 1 / ``data`` of
     the rows; a part that the ``model`` axis splits (``split``: {"attn",
-    "ffn", "vocab"} -> bool, the plan's; a MoE layer's routed experts always
-    split) is 1 / ``model`` of that, but a part it keeps whole (attention where the cache heads
-    cannot split; MLA's down projections and compressed cache; a MoE
-    layer's router) is computed and read whole by every rank of the axis.
+    "ffn", "vocab", "mixer"} -> bool, the plan's; a MoE layer's routed
+    experts always split) is 1 / ``model`` of that, but a part it keeps
+    whole (attention where the cache heads cannot split; MLA's down
+    projections and compressed cache; a MoE layer's router; a recurrent
+    family's mixer where its heads cannot split) is computed and read
+    whole by every rank of the axis.
     The rest (the residual stream, norms) is divided by the card count, as
     repro's."""
     from repro_torch.distributed import analytic_cost as AC
     total, n = AC.step_cost(cfg, shape), data * model
-    whole = [p for p in ("attn", "ffn", "vocab") if not split[p]]
+    parts = [p for p in ("attn", "ffn", "vocab") if p != "attn" or cfg.family != "rwkv6"]
+    if cfg.family in ("mamba2_hybrid", "rwkv6"):
+        parts.append("mixer")
+    whole = [p for p in parts if not split.get(p, False)]
     if cfg.n_experts:
         whole.append("router")       # the routed experts always split (_model_split)
     if cfg.use_mla and split["attn"]:
         whole.append("mla_whole")
     if model == 1 or not whole:
         return total.scaled(1 / n)
-    if cfg.family not in ("dense", "moe"):
-        raise ValueError(f"the plans split a `model` axis over the dense and MoE families "
-                         f"only, not {cfg.name!r}")
     rep = AC.StepCost()
     for p in whole:
         rep.add(_part_cost(cfg, shape, p))
@@ -239,8 +298,7 @@ def param_count(cfg, *, active_only: bool = False) -> float:
                 d * h * (dn + dr)
             attn += d * (c + dr) + c * h * dn + c * h * dv + h * dv * d
         else:
-            dh = cfg.head_dim or d // cfg.n_heads
-            attn = d * dh * (cfg.n_heads * 2 + cfg.n_kv_heads * 2)
+            attn = _attn_params(cfg)
         per_block = attn
     if cfg.family == "moe":
         dense_ffn = 3 * d * cfg.d_ff
@@ -257,9 +315,7 @@ def param_count(cfg, *, active_only: bool = False) -> float:
         total = emb + L * (per_block + ffn)
         if cfg.family == "vlm":
             n_cross = L // cfg.cross_every
-            dh = cfg.head_dim or d // cfg.n_heads
-            cross = d * dh * (cfg.n_heads * 2 + cfg.n_kv_heads * 2) \
-                + 3 * d * cfg.d_ff
+            cross = _attn_params(cfg) + 3 * d * cfg.d_ff
             total += n_cross * cross
         return total
     if cfg.family == "whisper":
@@ -269,12 +325,28 @@ def param_count(cfg, *, active_only: bool = False) -> float:
         dec = L * (2 * attn + ffn)
         return emb + enc + dec
     if cfg.family == "mamba2_hybrid":
-        di = cfg.expand * d
-        mamba = d * 2 * di + d * (2 * cfg.d_state + di // 64) + di * d
         shared = 4 * d * d + 3 * d * cfg.d_ff
-        return emb + L * mamba + shared
+        return emb + L * _mamba_params(cfg) + shared
     if cfg.family == "rwkv6":
-        tm = 5 * d * d + 2 * d * 64
-        cm = 2 * d * cfg.d_ff + d * d
-        return emb + L * (tm + cm)
+        return emb + L * (_rwkv_mix_params(cfg) + 2 * d * cfg.d_ff)
     raise ValueError(cfg.family)
+
+
+def _attn_params(cfg) -> int:
+    """One GQA attention layer's q, k, v and o weights."""
+    d = cfg.d_model
+    dh = cfg.head_dim or d // cfg.n_heads
+    return d * dh * (cfg.n_heads * 2 + cfg.n_kv_heads * 2)
+
+
+def _mamba_params(cfg) -> int:
+    """One Mamba2 block's in_zx, in_bcdt and out weights."""
+    d, di = cfg.d_model, cfg.expand * cfg.d_model
+    return d * 2 * di + d * (2 * cfg.d_state + di // 64) + di * d
+
+
+def _rwkv_mix_params(cfg) -> int:
+    """One RWKV6 block's weights over its heads: the time-mix's five
+    projections and decay LoRA, and the channel-mix's c_r."""
+    d = cfg.d_model
+    return 5 * d * d + 2 * d * 64 + d * d

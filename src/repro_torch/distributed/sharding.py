@@ -89,8 +89,20 @@ DEFAULT_MESH_RULES = {
 
 @dataclass
 class MeshRules:
+    """The logical -> mesh table (``rules``) and ``cuts``: [(path regex,
+    segments)], where a leaf's split dim is not cut contiguously
+    (``local_shard``); launch/specs.serving_plan sets them."""
     rules: dict = field(default_factory=lambda: dict(DEFAULT_MESH_RULES))
     fsdp: bool = False
+    cuts: list = field(default_factory=list)
+
+    def segments(self, path: str):
+        """The segments of the first cut whose regex ``path`` matches, else
+        None (the spec's contiguous cut)."""
+        for rx, segs in self.cuts:
+            if re.search(rx, path):
+                return segs
+        return None
 
     def mesh_axes(self, logical, axis_names):
         """logical axis name -> mesh axis entry valid for this mesh."""
@@ -189,35 +201,56 @@ def _shard_index(entry, coords: dict, sizes: dict) -> tuple[int, int]:
     return idx, n
 
 
-def shard_shape(shape, spec: tuple, mesh) -> tuple:
-    """The shape each device holds of a leaf of ``shape`` under ``spec``."""
+def _pieces(size: int, segments, idx: int, n: int, where) -> list[tuple[int, int]]:
+    """[(start, length)] of shard ``idx`` of ``n`` along a dim of ``size``:
+    one contiguous block, or with ``segments`` ([(length, split)] covering
+    the dim) each split segment's block and each other segment whole."""
+    segments = segments if segments is not None else ((size, True),)
+    if sum(length for length, _ in segments) != size:
+        raise ValueError(f"segments {segments} do not cover {size} ({where})")
+    out, off = [], 0
+    for length, split in segments:
+        if split and length % n:
+            raise ValueError(f"{length} of {size} does not split {n} ways ({where})")
+        out.append((off + idx * (length // n), length // n) if split else (off, length))
+        off += length
+    return out
+
+
+def shard_shape(shape, spec: tuple, mesh, segments=None) -> tuple:
+    """The shape each device holds of a leaf of ``shape`` under ``spec``
+    (``segments``: local_shard's)."""
+    if segments == ():
+        return tuple(shape)
     sizes = axis_sizes(mesh)
     out = list(shape)
     for d, e in enumerate(spec):
         _, n = _shard_index(e, {a: 0 for a in sizes}, sizes)
-        if out[d] % n:
-            raise ValueError(f"dim {d} of {tuple(shape)} does not split {n} ways ({spec})")
-        out[d] //= n
+        if n > 1:
+            out[d] = sum(k for _, k in _pieces(out[d], segments, 0, n, spec))
     return tuple(out)
 
 
-def local_shard(t: torch.Tensor, spec: tuple, mesh, coords: dict) -> torch.Tensor:
+def local_shard(t: torch.Tensor, spec: tuple, mesh, coords: dict,
+                segments=None) -> torch.Tensor:
     """The shard of ``t`` at mesh coordinates ``coords`` ({axis: index}),
     in an allocation of its own (never an offset view: the kernel wrappers
     refuse a base pointer off 16-byte alignment). A replicated leaf is
-    ``t`` itself."""
+    ``t`` itself. ``segments`` (MeshRules.segments) replaces the split
+    dim's contiguous cut: [(length, split)] along it, each split segment
+    cut as that dim would be and the others kept whole (Mamba2's packed
+    [z | x] takes the rank's heads of each half); () keeps ``t`` whole."""
     sizes = axis_sizes(mesh)
-    if not any(_entry_axes(e) for e in spec):
+    if segments == () or not any(_entry_axes(e) for e in spec):
         return t
     out = t
     for d, e in enumerate(spec):
         if not _entry_axes(e):
             continue
         idx, n = _shard_index(e, coords, sizes)
-        if out.shape[d] % n:
-            raise ValueError(f"dim {d} of {tuple(t.shape)} does not split {n} ways ({spec})")
-        step = out.shape[d] // n
-        out = out.narrow(d, idx * step, step)
+        parts = [out.narrow(d, start, k)
+                 for start, k in _pieces(out.shape[d], segments, idx, n, spec)]
+        out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=d)
     return out.clone(memory_format=torch.contiguous_format)
 
 
@@ -295,6 +328,13 @@ class TensorParallel:
                E / N whole experts and runs their slots of the dispatch,
                which every rank computes whole; ``gather_pairs`` sums the
                ranks' gated pair rows
+      mixer    a recurrent family's heads: Mamba2's (its z and x columns
+               of in_zx, their conv channels beside the shared B and C
+               whole, its state heads, gnorm over the split width through
+               ``sum_last``, out row-parallel) or RWKV6's time-mix heads
+               (w_r / w_k / w_v / w_g columns, the WKV state, y and g
+               gathered for gn, the rank's output columns of w_o and c_r
+               gathered)
 
     Each row-parallel product is summed over the axis with one all_reduce;
     the embedding, the logits and the MoE pair rows are gathered by an
@@ -314,6 +354,7 @@ class TensorParallel:
     ffn: bool = False
     vocab: bool = False
     experts: bool = False
+    mixer: bool = False
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """Sum ``x`` over the axis: in place, or into a new tensor where
@@ -337,6 +378,12 @@ class TensorParallel:
         full = x.new_zeros((*x.shape[:-1], n * self.size))
         full[..., self.rank * n:(self.rank + 1) * n] = x
         return self.all_reduce(full)
+
+    def sum_last(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., n) rank-local columns of a split axis -> (..., 1) f32, the
+        sum over the whole axis: each rank's partial sum, one all_reduce (a
+        norm's statistic; only its order differs from one device's)."""
+        return self.all_reduce(x.to(torch.float32).sum(dim=-1, keepdim=True))
 
     def gather_pairs(self, rows: torch.Tensor, mine: torch.Tensor) -> torch.Tensor:
         """A MoE layer's gated pair rows (T k, d), this rank's where ``mine``

@@ -45,18 +45,21 @@ included; the plain attention builds score blocks that B3 does not) and
 ``output_bytes``.
 
 Statuses: a cell that configs.cell_is_runnable refuses, or that the port
-refuses (a NotImplementedError of its own: ROADMAP A9 (f) for a model
-axis over the recurrent families, whisper and the VLM, A9 (l) for
-training MLA or MoE on one, A9 (j) for MoE on data; or
-a plan's ValueError: A9 (k) for an FFN whose shard would not hold whole
+refuses (a NotImplementedError of its own: A9 (l) for training any family
+but the GQA dense one on a model axis, A9 (j) for MoE on data; or a
+plan's ValueError: A9 (k) for an FFN whose shard would not hold whole
 packed words, as qwen2-72b's d_ff 29568 over 8), is ``skipped`` with the
-reason; anything else raised is ``error`` with its traceback.
+reason; anything else raised is ``error`` with its traceback. Every
+family's serving cells lower (the recurrent families, whisper and the VLM
+since their mesh port: a rank holds the cut specs.shard_shapes gives, e.g.
+Mamba2's conv channels beside B and C whole and its in_bcdt whole).
 
 The roofline is one card's share of the analytic step
 (hlo_analysis.card_cost): a part the plan keeps whole on the ``model``
 axis (MLA's down projections and compressed cache, a MoE router) counts
 whole on every rank of it, a split one (the routed experts among them)
-1 / ``model``.
+1 / ``model``; the record's ``split`` carries ``mixer`` for the recurrent
+families.
 """
 
 from __future__ import annotations
@@ -121,11 +124,9 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False, cfg_overr
     (init(packed=False)), packed (latents and the serving copy of the sign
     words, what launch.serve serves) or deployed (models/deploy.py).
     Raises the plans' refusals."""
-    from repro_torch.distributed.sharding import partition_specs, shard_shape
     from repro_torch.launch import specs as S
     from repro_torch.launch.mesh import MeshShape
     from repro_torch.models import get_model
-    from repro_torch.tree import tree_map
     cfg = cfg_override or get_config(arch)
     shape = shape or SHAPES[shape_name]
     serving = shape.kind != "train"
@@ -149,8 +150,7 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False, cfg_overr
         rows = shape.global_batch // plan.dp.size
         weights = weights or "latent"
     p_abs = S.abstract_params(api, deployed=weights == "deployed", packed=weights == "packed")
-    specs = partition_specs(p_abs, api.deployed_rules, spec_mesh, rules)
-    params = tree_map(lambda t, s: (shard_shape(t.shape, s, spec_mesh), t.dtype), p_abs, specs)
+    params = S.shard_shapes(api, p_abs, spec_mesh, rules)
     return (Lowered(cfg=cfg, shape=shape, mesh=mesh, api=api, rows=rows, tp=tp, plan=plan,
                     weights=weights, params=params), mesh, cfg, shape)
 
@@ -319,6 +319,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         traced = trace_step(low)
         split = {"attn": low.tp.attn, "ffn": low.tp.ffn, "vocab": low.tp.vocab,
                  "experts": low.tp.experts}
+        if cfg.family in ("mamba2_hybrid", "rwkv6"):
+            split["mixer"] = low.tp.mixer
         stats = hlo_analysis.analyze_step(traced, cfg=cfg, shape=shape,
                                           data=shape.global_batch // low.rows,
                                           model=mesh.shape.get("model", 1), split=split)
@@ -359,6 +361,12 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
 
 def sweep(*, multi_pod_values=(False, True), out_dir=OUT_DIR, only_arch=None,
           skip_existing=True) -> list[dict]:
+    """Every (arch, shape, mesh) cell, in order. The cells not yet recorded
+    trace in parallel, one process each, as many at a time as this process
+    may use cores (a trace is one Python thread's work: rwkv6's prefill_32k
+    runs its WKV loop token by token); their configs are resolved here."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
     cells = []
     for arch in ARCHS:
         if only_arch and arch != only_arch:
@@ -367,8 +375,9 @@ def sweep(*, multi_pod_values=(False, True), out_dir=OUT_DIR, only_arch=None,
         for shape_name in ("decode_32k", "long_500k", "prefill_32k", "train_4k"):
             for mp in multi_pod_values:
                 cells.append((arch, shape_name, mp))
-    results = []
-    for arch, shape_name, mp in cells:
+    results: list = [None] * len(cells)
+    todo = []
+    for i, (arch, shape_name, mp) in enumerate(cells):
         mesh_name = production_mesh(mp)[0]
         out_path = os.path.join(out_dir, f"{arch}__{shape_name}__{mesh_name}.json")
         if skip_existing and os.path.exists(out_path):
@@ -376,9 +385,17 @@ def sweep(*, multi_pod_values=(False, True), out_dir=OUT_DIR, only_arch=None,
                 rec = json.load(f)
             if rec.get("status") in ("ok", "skipped"):
                 print(f"[dryrun] CACHED {arch}__{shape_name}__{mesh_name} ({rec['status']})")
-                results.append(rec)
+                results[i] = rec
                 continue
-        results.append(run_cell(arch, shape_name, multi_pod=mp, out_dir=out_dir))
+        todo.append(i)
+    if todo:
+        n = min(len(os.sched_getaffinity(0)), len(todo))
+        with ProcessPoolExecutor(n, mp_context=multiprocessing.get_context("spawn")) as ex:
+            futures = {i: ex.submit(run_cell, cells[i][0], cells[i][1], multi_pod=cells[i][2],
+                                    out_dir=out_dir, cfg_override=get_config(cells[i][0]))
+                       for i in todo}
+            for i, fut in futures.items():
+                results[i] = fut.result()
     ok = sum(r["status"] == "ok" for r in results)
     sk = sum(r["status"] == "skipped" for r in results)
     er = sum(r["status"] == "error" for r in results)

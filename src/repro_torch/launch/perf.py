@@ -9,9 +9,11 @@ the roofline terms printed side by side.
 The variants and their hypotheses are repro's; the terms are the port's
 dry run's (launch/dryrun.py: the analytic roofline at the H100's peaks,
 the recorder's collective bytes over NVLink and the NIC). Where the port
-refuses a cell or a knob, the row says so: whisper's and deepseek-v3's
-cells are skipped (a ``model`` axis over them is ROADMAP A9 (f)), and
-``remat="dots"`` raises in the port (models/lm_common._maybe_remat).
+refuses a cell or a knob, the row says so: ``remat="dots"`` raises in the
+port (models/lm_common._maybe_remat). whisper's and deepseek-v3's decode
+cells lower on their model axis (A9 (f)); ``cache_update``,
+``serve_cache_sharding`` and ``serve_fsdp`` have no counterpart in the
+port's forward, so those rows repeat their base.
 Under fake tensors ``attn_chunk`` changes only the plain attention's
 blocks (B3 tiles its own), which the analytic terms do not see either.
 """

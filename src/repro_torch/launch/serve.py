@@ -55,19 +55,20 @@ dense added at load.
 ``--mesh N`` serves tensor-parallel over N ranks (launch/mesh.spawn, one
 process each, a ``model`` mesh of N): attention heads, the FFN hidden
 width, the routed experts, the vocab and a GQA pool's heads are split
-(an MLA pool's compressed cache is whole on every rank), for the dense
-and MoE families: stablelm-3b, qwen3-8b, qwen2-72b, minicpm3-4b,
-deepseek-v2-236b and deepseek-v3-671b. ``--backend`` picks the process
-group: ``nccl`` (the default on cuda) takes a card per rank and refuses N
-above the cards there are; ``gloo`` (the default on cpu) also lets ranks
-share a card. Rank 0 logs what the single-device launcher logs and
-writes the telemetry files. A mesh runs eagerly, and refuses
---spec-decode, --interleave and --http (ROADMAP A9 (g)) and the
-recurrent families (A9 (f)):
+(an MLA pool's compressed cache is whole on every rank), and the
+recurrent families' heads (zamba2-2.7b's Mamba2 heads and state, rwkv6-3b's
+time-mix heads and WKV state; through the bucket engine). ``--backend``
+picks the process group: ``nccl`` (the default on cuda) takes a card per
+rank and refuses N above the cards there are; ``gloo`` (the default on
+cpu) also lets ranks share a card. Rank 0 logs what the single-device
+launcher logs and writes the telemetry files. A mesh runs eagerly, and
+refuses --spec-decode, --interleave and --http (ROADMAP A9 (g)):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
       --requests 8 --mesh 2 --prefill-chunk 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \\
+      --smoke --device cpu --mesh 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
       --smoke --device cpu --mesh 2
 """
 
@@ -190,9 +191,8 @@ def _parser() -> argparse.ArgumentParser:
                          "(requires --kv-block-size > 0)")
     ap.add_argument("--mesh", type=int, default=0, metavar="N",
                     help="tensor-parallel serving over N ranks, one process each (0 = "
-                         "one device, no ranks): the dense and MoE families, GQA or MLA; "
-                         "the recurrent families, whisper and the VLM are refused "
-                         "(ROADMAP A9 (f))")
+                         "one device, no ranks): every arch this launcher serves (the "
+                         "recurrent families through the bucket engine)")
     ap.add_argument("--backend", default=None, choices=list(BACKENDS),
                     help="process group of --mesh: nccl (a card per rank; the default on "
                          "cuda) or gloo (the default on cpu; ranks may share a card)")
@@ -242,7 +242,8 @@ def main(argv=None):
         if on:
             raise NotImplementedError(f"{flag} on a mesh is not ported yet (ROADMAP A9 (g))")
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    serving_plan(cfg, MeshShape((args.mesh,), ("model",)))   # the family and the split shapes
+    _refuse_inputs(ap, args, cfg)
+    serving_plan(cfg, MeshShape((args.mesh,), ("model",)))   # the split shapes
     backend = args.backend or ("nccl" if torch.device(args.device).type == "cuda" else "gloo")
     argv = list(sys.argv[1:] if argv is None else argv)
     return spawn(_mesh_rank, args.mesh, backend=backend, args=(argv,), timeout=3600)[0]
@@ -262,11 +263,15 @@ def _mesh_rank(rank: int, world: int, argv: list):
                   mesh=make_mesh((world,), ("model",)))
 
 
-def _serve(ap, args, device, mesh=None):
-    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+def _refuse_inputs(ap, args, cfg) -> None:
     if cfg.family in ("whisper", "vlm"):
         ap.error(f"--arch {args.arch}: {cfg.family} needs audio/image inputs; this "
                  "text-only launcher cannot serve it")
+
+
+def _serve(ap, args, device, mesh=None):
+    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    _refuse_inputs(ap, args, cfg)
     api = get_model(cfg)
     params = api.init(args.init_seed, device=device, packed=not args.ckpt_dir)
     if args.ckpt_dir:

@@ -17,8 +17,9 @@ from dataclasses import dataclass
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.distributed.sharding import (DataParallel, MeshRules, TensorParallel,
                                               _entry_axes, axis_names, axis_sizes, local_shard,
-                                              logical_to_spec, partition_specs, placements)
-from repro_torch.tree import tree_map
+                                              logical_to_spec, partition_specs, placements,
+                                              shard_shape)
+from repro_torch.tree import tree_leaves, tree_leaves_with_path, tree_map, tree_unflatten_like
 
 # cache-leaf sharding rules (the same machinery as params)
 CACHE_RULES = [
@@ -174,24 +175,33 @@ def input_specs(arch_or_cfg, shape: ShapeSpec, *, kind=None):
 # ---------------------------------------------------------------------------
 
 def _model_split(cfg: ModelConfig, mesh, rules: MeshRules) -> dict[str, bool]:
-    """{"attn", "ffn", "vocab", "experts"}: what the ``model`` axis splits
-    under ``rules`` (mesh_rules_for's), whose entries for the parts it does
-    not split are set to None here. GQA attention splits where its heads,
+    """{"attn", "ffn", "vocab", "experts", "mixer"}: what the ``model`` axis
+    splits under ``rules`` (mesh_rules_for's), whose entries for the parts
+    it does not split are set to None here, and whose ``cuts`` it sets.
+    GQA attention (every family's but RWKV6's) splits where its heads,
     flattened K/V and cache heads all do; MLA's where its heads do (its
     down projections and its compressed cache have no head axis and stay
-    whole on every rank). ``ffn`` covers the dense FFNs and the MoE layers'
-    shared experts, ``experts`` the routed expert stacks. A split FFN must
+    whole on every rank). ``ffn`` covers the dense FFNs, zamba2's shared
+    block's, RWKV6's channel-mix c_k / c_v and the MoE layers' shared
+    experts, ``experts`` the routed expert stacks. ``mixer``: Mamba2's heads
+    where ``heads``, ``mlp`` and ``dconv`` all split (and the shared
+    block's attention with them), RWKV6's time-mix where ``heads`` does;
+    a part the rules replicate runs whole, as repro's. A split FFN must
     give each rank whole packed words of bin_out (d_ff / N a multiple of
-    32), the experts and the vocab must divide: else this raises, naming
-    the shape."""
+    32; a split Mamba2 out always does: a head is 64 channels), the
+    experts and the vocab must divide: else this raises, naming the
+    shape."""
     n = axis_sizes(mesh).get("model", 1)
     names = axis_names(mesh)
 
     def on_model(*logical):
         return n > 1 and all(rules.mesh_axes(a, names) == "model" for a in logical)
-    attn = on_model("heads") if cfg.use_mla else on_model("heads", "kv_heads", "cache_heads")
+    attn = cfg.family != "rwkv6" and (
+        on_model("heads") if cfg.use_mla else on_model("heads", "kv_heads", "cache_heads"))
     ffn, vocab = on_model("mlp"), on_model("vocab")
     experts = bool(cfg.n_experts) and on_model("expert")
+    mixer = {"mamba2_hybrid": attn and on_model("mlp", "dconv"),
+             "rwkv6": on_model("heads")}.get(cfg.family, False)
     from repro_torch.models.lm_common import padded_vocab
     if ffn:
         per = cfg.d_ff // n
@@ -205,8 +215,12 @@ def _model_split(cfg: ModelConfig, mesh, rules: MeshRules) -> dict[str, bool]:
     if vocab and padded_vocab(cfg.vocab) % n:
         raise ValueError(f"the padded vocab {padded_vocab(cfg.vocab)} does not split {n} ways")
     over = {}
+    if not (attn or mixer):
+        over["heads"] = None
     if not attn:
-        over.update(heads=None, kv_heads=None, cache_heads=None)
+        over.update(kv_heads=None, cache_heads=None)
+    if not mixer:
+        over["dconv"] = None
     if not ffn:
         over["mlp"] = None
     if not experts:
@@ -214,33 +228,26 @@ def _model_split(cfg: ModelConfig, mesh, rules: MeshRules) -> dict[str, bool]:
     if not vocab:
         over["vocab"] = None
     rules.rules = dict(rules.rules, **over)
-    return dict(attn=attn, ffn=ffn, vocab=vocab, experts=experts)
-
-
-def _refuse_family(cfg: ModelConfig, what: str) -> None:
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"{what} covers the dense and MoE families (GQA or MLA); {cfg.name!r} "
-            f"({cfg.family}) is not ported yet (ROADMAP A9 (f): TP for the recurrent "
-            "families, whisper and the VLM)")
+    from repro_torch.models import mesh_cuts
+    rules.cuts = mesh_cuts(cfg, mixer) if n > 1 else []
+    return dict(attn=attn, ffn=ffn, vocab=vocab, experts=experts, mixer=mixer)
 
 
 def serving_plan(cfg: ModelConfig, mesh, *, rank: int = 0, group=None
                  ) -> tuple[TensorParallel, MeshRules]:
     """-> (what rank ``rank`` of the ``model`` axis splits, the rules that
-    place its params and caches), for the dense and MoE families, GQA or
-    MLA.
+    place its params and caches), for every family.
 
     mesh_rules_for decides; where it splits the flattened K/V projection
     but not the cache heads (fewer KV heads than ranks), a rank would hold
     part of a head, so the attention block is replicated whole instead
     (GSPMD would gather the split heads back). MLA splits its heads alone
-    (_model_split), and MoE layers their routed experts (``experts``) and
-    shared experts (``ffn``). A split FFN must give each rank whole packed
-    words of bin_out (d_ff / N a multiple of 32), and the experts and the
-    vocab must divide: else this raises, naming the shape. A mesh of one
-    splits nothing: the forward is the single-device one."""
-    _refuse_family(cfg, "tensor-parallel serving")
+    (_model_split), MoE layers their routed experts (``experts``) and
+    shared experts (``ffn``), the recurrent families their heads
+    (``mixer``). A split FFN must give each rank whole packed words of
+    bin_out (d_ff / N a multiple of 32), and the experts and the vocab
+    must divide: else this raises, naming the shape. A mesh of one splits
+    nothing: the forward is the single-device one."""
     sizes = axis_sizes(mesh)
     if "model" not in sizes or any(n > 1 for a, n in sizes.items() if a != "model"):
         raise ValueError(f"serving takes a mesh with one `model` axis, got {sizes}: the "
@@ -261,12 +268,24 @@ def mesh_tensor_parallel(cfg: ModelConfig, mesh) -> tuple[TensorParallel, MeshRu
 def shard_params(api, params, mesh, tp: TensorParallel, rules: MeshRules):
     """Rank ``tp.rank``'s shard of the full ``params`` (latents, packed or
     deployed weights): each leaf cut by its spec (api.deployed_rules under
-    ``rules``) into an allocation of its own; replicated leaves are the
-    full tree's own tensors."""
+    ``rules``), or by ``rules``' cut where one matches its path, into an
+    allocation of its own; replicated leaves are the full tree's own
+    tensors."""
     specs = partition_specs(params, api.deployed_rules, mesh, rules)
     coords = {a: 0 for a in axis_names(mesh)}
     coords["model"] = tp.rank
-    return tree_map(lambda t, s: local_shard(t, s, mesh, coords), params, specs)
+    return tree_unflatten_like(params, [
+        local_shard(t, s, mesh, coords, rules.segments(path))
+        for (path, t), s in zip(tree_leaves_with_path(params), tree_leaves(specs))])
+
+
+def shard_shapes(api, params, mesh, rules: MeshRules):
+    """A tree of (shape, dtype): what a rank holds of each leaf of
+    ``params`` (shapes suffice) under shard_params' cut."""
+    specs = partition_specs(params, api.deployed_rules, mesh, rules)
+    return tree_unflatten_like(params, [
+        (shard_shape(t.shape, s, mesh, rules.segments(path)), t.dtype)
+        for (path, t), s in zip(tree_leaves_with_path(params), tree_leaves(specs))])
 
 
 # ---------------------------------------------------------------------------
@@ -349,7 +368,7 @@ class TrainPlan:
 def train_plan(cfg: ModelConfig, mesh, shape: ShapeSpec | None = None) -> TrainPlan:
     """-> the TrainPlan of rank 0 of a mesh with ``data`` and ``model``
     axes. ``model`` splits as serving_plan does (the GQA dense family
-    only, where it is > 1: MLA and MoE are ROADMAP A9 (l)); ``data``
+    only, where it is > 1: the other families are ROADMAP A9 (l)); ``data``
     splits the batch by mesh_rules_for's ``batch`` rule, and a ``shape``
     whose global batch does not divide over it is refused, as is a
     ``data`` axis > 1 for a config with MoE layers (ROADMAP A9 (j)). fsdp configs keep their params replicated over
@@ -360,13 +379,13 @@ def train_plan(cfg: ModelConfig, mesh, shape: ShapeSpec | None = None) -> TrainP
     if other:
         raise ValueError(f"a training mesh takes `data` and `model` axes, got {sizes}")
     n, d = sizes.get("model", 1), sizes.get("data", 1)
-    if n > 1:
-        _refuse_family(cfg, "tensor-parallel training")
-        if cfg.use_mla or cfg.n_experts:
-            raise NotImplementedError(
-                f"tensor-parallel training of {cfg.name!r} (MLA or MoE) is not ported: the "
-                "backward of the MoE pair rows' gather, with a gradient cut to the rank's "
-                "own pairs, and of MLA's replicated down projections (ROADMAP A9 (l))")
+    if n > 1 and (cfg.family not in ("dense", "moe") or cfg.use_mla or cfg.n_experts):
+        raise NotImplementedError(
+            f"tensor-parallel training of {cfg.name!r} ({cfg.family}"
+            f"{', MLA' if cfg.use_mla else ''}) is not ported: it covers the GQA dense "
+            "family; the others need the backward of the MoE pair rows' gather, of MLA's "
+            "replicated down projections and of the recurrent mixers' norm collective "
+            "(ROADMAP A9 (l): tensor-parallel training beyond the GQA dense family)")
     if d > 1 and cfg.n_experts:
         raise NotImplementedError(
             f"data-parallel training of {cfg.name!r}'s MoE layers is not ported: each rank "

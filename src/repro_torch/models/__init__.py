@@ -104,6 +104,20 @@ class ModelApi(NamedTuple):
         return DEPLOYED_RULES + list(self.param_rules)
 
 
+def mesh_cuts(cfg: ModelConfig, mixer: bool) -> list:
+    """The family's MeshRules.cuts (distributed/sharding.py): the leaves
+    whose rank's part is not the contiguous cut of repro's spec, declared
+    beside the family's PARAM_RULES; ``mixer``: the plan splits the
+    recurrent mixer's heads (launch/specs._model_split)."""
+    if cfg.family == "mamba2_hybrid":
+        from repro_torch.models import zamba2
+        return zamba2.mesh_cuts(cfg, mixer)
+    if cfg.family == "rwkv6":
+        from repro_torch.models import rwkv6_lm
+        return rwkv6_lm.mesh_cuts(cfg, mixer)
+    return []
+
+
 def get_model(cfg: ModelConfig) -> ModelApi:
     from repro_torch.kernels.ops import resolve_impl
     from repro_torch.nn.attention import resolve_kv_cache

@@ -18,6 +18,11 @@ cache is {"self": one cache per self layer in the ``kv_cache`` codec,
 step, as in repro. On a card the causal self prefill and every
 cross-attention run the flash kernel (B3), binary FFNs B2, and an int8 or
 binary pool its insert kernel and kv_decode.
+
+Tensor-parallel (launch/specs.serving_plan): the self blocks as
+lm_common's, the cross blocks' attention by heads (wo row-parallel) and
+their FFN by its hidden width; the gates and the ``cross`` cache (the
+patches) stay whole on every rank.
 """
 
 from __future__ import annotations
@@ -70,8 +75,8 @@ def vlm_init(cfg: ModelConfig, seed: int, *, device="cuda", packed: bool = True)
 def _patch_kv(p: dict, patches: torch.Tensor, cfg: ModelConfig):
     b, n, _ = patches.shape
     dh = cfg.kv_head_dim()
-    return (lc._dense(p["wk"], patches, cfg).reshape(b, n, cfg.n_kv_heads, dh),
-            lc._dense(p["wv"], patches, cfg).reshape(b, n, cfg.n_kv_heads, dh))
+    return (lc._dense(p["wk"], patches, cfg).reshape(b, n, -1, dh),
+            lc._dense(p["wv"], patches, cfg).reshape(b, n, -1, dh))
 
 
 def _cross_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -80,10 +85,10 @@ def _cross_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
     then + tanh(gate_ffn) * the FFN, the residual sums in f32."""
     b, s, _ = x.shape
     h = nn.rmsnorm_apply(p["ln_x1"], x)
-    q = lc._dense(p["xattn"]["wq"], h, cfg).reshape(b, s, cfg.n_heads, cfg.kv_head_dim())
+    q = lc._dense(p["xattn"]["wq"], h, cfg).reshape(b, s, -1, cfg.kv_head_dim())
     k, v = _patch_kv(p["xattn"], patches, cfg)
     o = attn_lib.cross_attention(q, k, v, impl=cfg.attn_impl)
-    a = lc._dense(p["xattn"]["wo"], o.reshape(b, s, -1), cfg)
+    a = lc._out_proj(p["xattn"]["wo"], o.reshape(b, s, -1), cfg)
     x = x + torch.tanh(p["gate_attn"]) * a.to(torch.float32)
     h = nn.rmsnorm_apply(p["ln_x2"], x.to(a.dtype))
     f = lc.ffn_apply(p["xffn"], h, cfg)

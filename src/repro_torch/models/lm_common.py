@@ -176,6 +176,40 @@ def _out_proj(p: dict, o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return _dense(p, o, cfg) if tp is None else row_parallel(p, o, cfg, tp)
 
 
+def embed_tokens(p: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The embedding lookup (``p``: {"table"}). Where the vocab is split,
+    each rank looks up the ids in its rows, leaves zeros for the rest, and
+    the ranks' rows are summed: exact, one rank holds each id."""
+    tp = split_tp("vocab")
+    if tp is None:
+        return nn.embedding_lookup(p, tokens, compute_dtype=cdt(cfg))
+    rows = p["table"].shape[0]
+    local = tokens - tp.rank * rows
+    mine = (local >= 0) & (local < rows)
+    x = nn.embedding_lookup(p, torch.where(mine, local, 0), compute_dtype=cdt(cfg))
+    return tp.all_reduce(x.masked_fill(~mine[..., None], 0))
+
+
+def head_logits(p: dict, x: torch.Tensor, cfg: ModelConfig, *, tied: bool = False
+                ) -> torch.Tensor:
+    """The head over the normed ``x`` (``p``: the head dense, or the
+    embedding where ``tied``), the pad columns masked. Where the vocab is
+    split, each rank's columns are gathered into the full row (exactly),
+    so that the argmax and the sampler see the same row on every rank (and
+    in training, the gradient of the head's input is summed over the
+    ranks' columns)."""
+    tp = split_tp("vocab")
+    if tp is not None:
+        x = tp.copy(x)
+    if tied:
+        logits = nn.embedding_logits(p, x, compute_dtype=cdt(cfg))
+    else:
+        logits = nn.dense_apply(p, x, compute_dtype=cdt(cfg))
+    if tp is not None:
+        logits = tp.gather_last(logits)
+    return mask_pad_logits(logits, cfg.vocab)
+
+
 def cache_kv_heads(cfg: ModelConfig) -> int:
     """KV heads a cache holds here: this rank's share where the heads are
     split, else all of them."""

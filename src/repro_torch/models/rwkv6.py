@@ -11,6 +11,17 @@ are applied at nn.dense_apply's default compute dtype, bf16, whatever
 per head. The WKV recurrence (a ``lax.scan`` over tokens in repro) is a
 loop over tokens in plain torch on every device, a new f32 state each
 step.
+
+Tensor-parallel (a ``mixer`` split, launch/specs.serving_plan), by heads
+as repro's rules place the leaves: a rank's columns of w_r / w_k / w_v /
+w_g, w0 and u, and its heads' WKV state; the decay's low-rank product is
+computed whole and sliced. y and g are gathered (exactly: one all_reduce
+of zero-filled columns), gn runs over the whole y as on one device, and
+the rank's output columns of w_o are gathered. The channel-mix's c_k /
+c_v split as an FFN (``ffn``: c_v row-parallel, a binary one's int32 dot
+summed before its cast), and the rank's columns of c_r gate its columns
+of the summed c_v output before the gather. Every sum but a float c_v's
+partials keeps one device's order.
 """
 
 from __future__ import annotations
@@ -83,21 +94,40 @@ def _wkv_scan(r, k, v, w, u, nh: int, hd: int, state0):
     """The WKV recurrence: r, k, v, w (B, L, d) f32; state0 (B, nh, hd, hd).
 
     y_t = r_t . (S + u * k_t (x) v_t);  S' = diag(w_t) S + k_t (x) v_t
-    -> (y (B, L, d), the final state)."""
+    -> (y (B, L, d), the final state). Each token's operands are views
+    taken once, heads folded into the batch ((B nh, 1, hd) rows, (B nh,
+    hd, 1) columns), so that a step is two bmm (the outer product, one
+    exact product a term, and r_t's contraction, as einsum's) and four
+    elementwise ops: what a dry run's fake trace pays per token."""
     b, length, d = r.shape
-    rr, kk, vv, ww = (t.reshape(b, length, nh, hd) for t in (r, k, v, w))
-    uu = u.reshape(nh, hd)[:, :, None]
-    s, ys = state0, []
-    for t in range(length):
-        kv = kk[:, t, :, :, None] * vv[:, t, :, None, :]           # (B, H, hd, hd)
-        ys.append(torch.einsum("bhk,bhkv->bhv", rr[:, t], s + uu * kv))
-        s = ww[:, t, :, :, None] * s + kv
-    return torch.stack(ys, dim=1).reshape(b, length, d), s
+
+    def steps(t, shape):
+        return t.reshape(b, length, nh, hd).transpose(1, 2).reshape(b * nh, length, *shape) \
+            .unbind(1)
+    uu = u.reshape(1, nh, hd, 1).expand(b, nh, hd, 1).reshape(b * nh, hd, 1)
+    s, ys = state0.reshape(b * nh, hd, hd), []
+    for r_t, k_t, v_t, w_t in zip(steps(r, (1, hd)), steps(k, (hd, 1)), steps(v, (1, hd)),
+                                  steps(w, (hd, 1))):
+        kv = torch.bmm(k_t, v_t)                                    # (B nh, hd, hd)
+        ys.append(torch.bmm(r_t, s + uu * kv))
+        s = w_t * s + kv
+    y = torch.cat(ys, dim=1).reshape(b, nh, length, hd).transpose(1, 2).reshape(b, length, d)
+    return y, s.reshape(b, nh, hd, hd)
+
+
+def _columns(x: torch.Tensor, tp) -> torch.Tensor:
+    """The rank's columns of a whole (..., d) tensor (``x`` itself where
+    nothing is split)."""
+    if tp is None:
+        return x
+    n = x.shape[-1] // tp.size
+    return x[..., tp.rank * n:(tp.rank + 1) * n]
 
 
 def time_mix(p: dict, x: torch.Tensor, cfg: ModelConfig, x_prev, state0):
     """x (B, L, d), normed -> (out, (the last x, the state))."""
-    nh, hd = heads(cfg)
+    _, hd = heads(cfg)
+    tp = lc.split_tp("mixer")
     xf = x.to(torch.float32)
     xs = _shift(xf, x_prev)
 
@@ -106,11 +136,26 @@ def time_mix(p: dict, x: torch.Tensor, cfg: ModelConfig, x_prev, state0):
     cd = lc.cdt(cfg)
     r, k, v, g = (nn.dense_apply(p[name], mix(i).to(cd)).to(torch.float32)
                   for i, name in enumerate(("w_r", "w_k", "w_v", "w_g")))
-    dd = torch.tanh(mix(4) @ p["w_lora_a"]) @ p["w_lora_b"]
+    dd = _columns(torch.tanh(mix(4) @ p["w_lora_a"]) @ p["w_lora_b"], tp)
     w = torch.exp(-torch.exp(p["w0"] + dd))                       # (B, L, d) in (0, 1)
-    y, sfin = _wkv_scan(r, k, v, w, p["u"], nh, hd, state0)
+    y, sfin = _wkv_scan(r, k, v, w, p["u"], r.shape[-1] // hd, hd, state0)
+    if tp is not None:
+        y, g = tp.gather_last(torch.stack([y, g]))
     y = nn.layernorm_apply(p["gn"], y) * F.silu(g)
-    return nn.dense_apply(p["w_o"], y.to(cd)), (xf[:, -1:], sfin)
+    out = nn.dense_apply(p["w_o"], y.to(cd))
+    return (out if tp is None else tp.gather_last(out)), (xf[:, -1:], sfin)
+
+
+def c_v(p: dict, k: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The channel-mix's c_v over the squared relu: row-parallel where the
+    FFN is split (a binary one's int32 dot summed before its cast)."""
+    ffn = lc.split_tp("ffn")
+    if ffn is None:
+        return _dense_or_bin(p["c_v"], k, cfg)
+    if "bin" in p["c_v"]:
+        return binary_dense_apply_any(p["c_v"]["bin"], k, mode=cfg.policy.binary_mode,
+                                      reduce=ffn.all_reduce)
+    return lc.row_parallel(p["c_v"], k, cfg, ffn)
 
 
 def channel_mix(p: dict, x: torch.Tensor, cfg: ModelConfig, x_prev):
@@ -121,9 +166,11 @@ def channel_mix(p: dict, x: torch.Tensor, cfg: ModelConfig, x_prev):
     xr = xf * p["mu_c"][1] + xs * (1 - p["mu_c"][1])
     cd = lc.cdt(cfg)
     k = torch.square(F.relu(_dense_or_bin(p["c_k"], xk.to(cd), cfg).to(torch.float32)))
-    kv = _dense_or_bin(p["c_v"], k.to(cd), cfg).to(torch.float32)
+    kv = c_v(p, k.to(cd), cfg)
     r = torch.sigmoid(nn.dense_apply(p["c_r"], xr.to(cd)).to(torch.float32))
-    return (r * kv).to(x.dtype), xf[:, -1:]
+    tp = lc.split_tp("mixer")
+    out = (r * _columns(kv.to(torch.float32), tp)).to(x.dtype)
+    return (out if tp is None else tp.gather_last(out)), xf[:, -1:]
 
 
 def rwkv_block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict | None = None):
@@ -139,7 +186,11 @@ def rwkv_block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict | N
 
 
 def rwkv_init_cache_block(cfg: ModelConfig, batch: int, *, device) -> dict:
+    """Zero state: the WKV state of the rank's heads (all of them on one
+    device), the token-shift rows whole."""
     nh, hd = heads(cfg)
+    tp = lc.split_tp("mixer")
+    nh = nh if tp is None else nh // tp.size
     f32 = dict(dtype=torch.float32, device=device)
     return {"tm_x": torch.zeros((batch, 1, cfg.d_model), **f32),
             "tm_s": torch.zeros((batch, nh, hd, hd), **f32),

@@ -4,6 +4,8 @@ runs of one binary flag (``_segments``, param keys ``blocks/seg{i}``); the
 port keeps one param dict and one state {"tm_x", "tm_s", "cm_x"} per block,
 in lists. The state is O(1) in the sequence length: there is no KV pool,
 and get_model refuses a ``kv_cache`` codec for this family, as repro does.
+On a ``model`` mesh the blocks split by heads and the channel-mix FFN
+(models/rwkv6.py), the embedding and the head by the vocab.
 """
 
 from __future__ import annotations
@@ -34,6 +36,13 @@ PARAM_RULES = [
     (r"c_r/w$", ("embed", "heads")),
     (r"(ln1|ln2|ln_f|gn)/(scale|bias)$", ("embed",)),
 ]
+
+
+def mesh_cuts(cfg: ModelConfig, mixer: bool) -> list:
+    """MeshRules.cuts: the token-shift mix ``mu`` (5, d) matches repro's
+    ``u$`` rule before its own, so its spec splits d by heads; it mixes
+    the whole x, so it stays whole."""
+    return [(r"(^|/)mu$", ())]
 
 
 def _segments(cfg: ModelConfig) -> list[tuple[int, int, bool]]:
@@ -68,7 +77,7 @@ def rwkv_init(cfg: ModelConfig, seed: int, *, device="cuda", packed: bool = True
 
 def _forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, caches: list):
     """-> (hidden states, one new state per block)."""
-    x = nn.embedding_lookup(params["embed"], tokens, compute_dtype=lc.cdt(cfg))
+    x = lc.embed_tokens(params["embed"], tokens, cfg)
     new = []
     for p, c in zip(params["blocks"], caches):
         x, c = rwkv6.rwkv_block_apply(p, x, cfg, c)
@@ -77,9 +86,7 @@ def _forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, caches: list)
 
 
 def _logits(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    h = nn.layernorm_apply(params["ln_f"], h)
-    return lc.mask_pad_logits(nn.dense_apply(params["head"], h, compute_dtype=lc.cdt(cfg)),
-                              cfg.vocab)
+    return lc.head_logits(params["head"], nn.layernorm_apply(params["ln_f"], h), cfg)
 
 
 def rwkv_init_cache(cfg: ModelConfig, batch: int, max_len: int = 0, *, device) -> list:

@@ -79,35 +79,17 @@ def _mtp_sig(cfg: ModelConfig) -> lc.BlockSig:
 
 
 def _logits(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """The head; where the vocab is split, each rank's columns are gathered
-    into the full row (exactly), so that the argmax and the sampler see
-    the same row on every rank (and in training, the gradient of the
-    head's input is summed over the ranks' columns)."""
+    """The head (vocab-parallel where the vocab is split: lc.head_logits)."""
     x = nn.rmsnorm_apply(p["ln_f"], x)
-    tp = lc.split_tp("vocab")
-    if tp is not None:
-        x = tp.copy(x)
     if cfg.tie_embeddings:
-        logits = nn.embedding_logits(p["embed"], x, compute_dtype=lc.cdt(cfg))
-    else:
-        logits = nn.dense_apply(p["head"], x, compute_dtype=lc.cdt(cfg))
-    if tp is not None:
-        logits = tp.gather_last(logits)
-    return lc.mask_pad_logits(logits, cfg.vocab)
+        return lc.head_logits(p["embed"], x, cfg, tied=True)
+    return lc.head_logits(p["head"], x, cfg)
 
 
 def _embed(p: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """Where the vocab is split, each rank looks up the ids in its rows,
-    leaves zeros for the rest, and the ranks' rows are summed: exact, one
-    rank holds each id."""
-    tp = lc.split_tp("vocab")
-    if tp is None:
-        return nn.embedding_lookup(p["embed"], tokens, compute_dtype=lc.cdt(cfg))
-    rows = p["embed"]["table"].shape[0]
-    local = tokens - tp.rank * rows
-    mine = (local >= 0) & (local < rows)
-    x = nn.embedding_lookup(p["embed"], torch.where(mine, local, 0), compute_dtype=lc.cdt(cfg))
-    return tp.all_reduce(x.masked_fill(~mine[..., None], 0))
+    """The embedding (vocab-parallel where the vocab is split:
+    lc.embed_tokens)."""
+    return lc.embed_tokens(p["embed"], tokens, cfg)
 
 
 def lm_loss(params: dict, cfg: ModelConfig, batch: dict):

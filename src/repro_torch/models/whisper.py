@@ -21,6 +21,12 @@ On a card the encoder's self-attention, the decoder's causal prefill and
 every cross-attention (prefill and decode) run the flash kernel (B3); the
 decoder's one-token self-attention decode stays plain torch, as repro keeps
 it in XLA. A binary FFN runs B2.
+
+Tensor-parallel (launch/specs.serving_plan): every attention, the
+cross-attention's too, splits by heads (wq / wk / wv columns, the rank's
+heads of the self and cross caches, wo row-parallel with its bias added
+once), the FFNs by their hidden width, the embedding and the head by the
+padded vocab; the frames and the position tables stay whole.
 """
 
 from __future__ import annotations
@@ -121,7 +127,7 @@ def _encode(params: dict, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tenso
         h = nn.layernorm_apply(p["ln1"], x)
         q, k, v = lc.gqa_qkv(p["attn"], h, cfg, positions)
         o = attn_lib.cross_attention(q, k, v, impl=cfg.attn_impl)
-        x = x + lc._dense(p["attn"]["wo"], o.reshape(b, t, -1), cfg)
+        x = x + lc._out_proj(p["attn"]["wo"], o.reshape(b, t, -1), cfg)
         h = nn.layernorm_apply(p["ln2"], x)
         x = x + lc.ffn_apply(p["ffn"], h, cfg)
     return nn.layernorm_apply(params["ln_enc"], x)
@@ -129,19 +135,19 @@ def _encode(params: dict, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tenso
 
 def _xattn_kv(p: dict, enc: torch.Tensor, cfg: ModelConfig):
     """The cross-attention's K and V (B, T_enc, Hkv, D) over the encoder's
-    states."""
+    states: the heads these weights hold."""
     b, t, _ = enc.shape
     dh = cfg.kv_head_dim()
-    return (lc._dense(p["wk"], enc, cfg).reshape(b, t, cfg.n_kv_heads, dh),
-            lc._dense(p["wv"], enc, cfg).reshape(b, t, cfg.n_kv_heads, dh))
+    return (lc._dense(p["wk"], enc, cfg).reshape(b, t, -1, dh),
+            lc._dense(p["wv"], enc, cfg).reshape(b, t, -1, dh))
 
 
 def _xattn(p: dict, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            cfg: ModelConfig) -> torch.Tensor:
     b, s, _ = x.shape
-    q = lc._dense(p["wq"], x, cfg).reshape(b, s, cfg.n_heads, cfg.kv_head_dim())
+    q = lc._dense(p["wq"], x, cfg).reshape(b, s, -1, cfg.kv_head_dim())
     o = attn_lib.cross_attention(q, k, v, impl=cfg.attn_impl)
-    return lc._dense(p["wo"], o.reshape(b, s, -1), cfg)
+    return lc._out_proj(p["wo"], o.reshape(b, s, -1), cfg)
 
 
 def _dec_prefill_block(p: dict, x: torch.Tensor, cfg: ModelConfig, enc: torch.Tensor,
@@ -151,7 +157,7 @@ def _dec_prefill_block(p: dict, x: torch.Tensor, cfg: ModelConfig, enc: torch.Te
     h = nn.layernorm_apply(p["ln1"], x)
     q, k, v = lc.gqa_qkv(p["attn"], h, cfg, positions)
     o = attn_lib.prefill_attention(q, k, v, chunk=cfg.attn_chunk, impl=cfg.attn_impl)
-    x = x + lc._dense(p["attn"]["wo"], o.reshape(b, s, -1), cfg)
+    x = x + lc._out_proj(p["attn"]["wo"], o.reshape(b, s, -1), cfg)
     h = nn.layernorm_apply(p["ln2"], x)
     ek, ev = _xattn_kv(p["xattn"], enc, cfg)
     x = x + _xattn(p["xattn"], h, ek, ev, cfg)
@@ -160,13 +166,12 @@ def _dec_prefill_block(p: dict, x: torch.Tensor, cfg: ModelConfig, enc: torch.Te
 
 
 def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    x = nn.embedding_lookup(params["embed"], tokens, compute_dtype=lc.cdt(cfg))
+    x = lc.embed_tokens(params["embed"], tokens, cfg)
     return x + params["pos_emb"][:tokens.shape[1]].to(lc.cdt(cfg))[None]
 
 
 def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    x = nn.layernorm_apply(params["ln_f"], x)
-    return lc.mask_pad_logits(lc._dense(params["head"], x, cfg), cfg.vocab)
+    return lc.head_logits(params["head"], nn.layernorm_apply(params["ln_f"], x), cfg)
 
 
 def whisper_loss(params: dict, cfg: ModelConfig, batch: dict):
@@ -201,12 +206,11 @@ def whisper_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def whisper_init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device) -> list:
-    dh, dt = cfg.kv_head_dim(), lc.cdt(cfg)
+    dh, dt, hkv = cfg.kv_head_dim(), lc.cdt(cfg), lc.cache_kv_heads(cfg)
 
     def one():
-        c = attn_lib.init_kv_cache(batch, max_len, cfg.n_kv_heads, dh, dt, device=device)
-        c["ek"] = torch.zeros((batch, cfg.n_audio_frames, cfg.n_kv_heads, dh), dtype=dt,
-                              device=device)
+        c = attn_lib.init_kv_cache(batch, max_len, hkv, dh, dt, device=device)
+        c["ek"] = torch.zeros((batch, cfg.n_audio_frames, hkv, dh), dtype=dt, device=device)
         c["ev"] = torch.zeros_like(c["ek"])
         return c
     return [one() for _ in range(cfg.n_layers)]
@@ -217,7 +221,7 @@ def whisper_decode(params: dict, cfg: ModelConfig, caches: list, tokens: torch.T
     row's position is its cache length, read on the device (no host
     sync)."""
     b = tokens.shape[0]
-    x = nn.embedding_lookup(params["embed"], tokens, compute_dtype=lc.cdt(cfg))
+    x = lc.embed_tokens(params["embed"], tokens, cfg)
     pos_emb = params["pos_emb"][caches[0]["len"].to(torch.int64)]          # (B, d)
     x = x + pos_emb.to(x.dtype)[:, None, :]
     for p, c in zip(params["dec_blocks"], caches):
@@ -225,7 +229,7 @@ def whisper_decode(params: dict, cfg: ModelConfig, caches: list, tokens: torch.T
         q, k, v = lc.gqa_qkv(p["attn"], h, cfg, c["len"][:, None])
         attn_lib.cache_update_decode(c, k, v)
         o = attn_lib.decode_attention(q, c["k"], c["v"], kv_len=c["len"], impl=cfg.attn_impl)
-        x = x + lc._dense(p["attn"]["wo"], o.reshape(b, 1, -1), cfg)
+        x = x + lc._out_proj(p["attn"]["wo"], o.reshape(b, 1, -1), cfg)
         h = nn.layernorm_apply(p["ln2"], x)
         x = x + _xattn(p["xattn"], h, c["ek"], c["ev"], cfg)
         h = nn.layernorm_apply(p["ln3"], x)

@@ -14,6 +14,11 @@ On a card the binary blocks' ``in_zx`` and ``out`` run B2, the shared
 block's prefill attention B3, and an int8 pool the insert kernel (every
 prefill and step) and kv_decode (every step). The SSD, the conv and the
 recurrent update stay plain torch, as repro keeps them in XLA.
+
+Tensor-parallel (launch/specs.serving_plan): the Mamba2 blocks split by
+their heads (models/mamba2.py), the shared block as a GQA block (its
+heads, its codec caches' KV heads, wo row-parallel; its FFN's hidden
+width), the embedding and the head by the vocab.
 """
 
 from __future__ import annotations
@@ -48,6 +53,13 @@ PARAM_RULES = [
     (r"shared/ffn/w_down/w$", ("mlp", "embed")),
     (r"(norm|ln1|ln2|ln_f)/(scale|bias)$", ("embed",)),
 ]
+
+
+def mesh_cuts(cfg: ModelConfig, mixer: bool) -> list:
+    """MeshRules.cuts: the Mamba2 blocks' (mamba2.mesh_cuts). Where their
+    heads do not split, the spec's ``mlp`` may still split the shared
+    block's FFN, so the blocks' leaves and state are cut whole."""
+    return mamba2.mesh_cuts(cfg, mixer, r"^blocks/\d+/")
 
 
 def _flags(cfg: ModelConfig) -> list[bool]:
@@ -108,7 +120,7 @@ def _shared_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig, positions, max_l
     b, s, _ = x.shape
     q, k, v = lc.gqa_qkv(p["attn"], nn.rmsnorm_apply(p["ln1"], x), cfg, positions)
     o = attn_lib.prefill_attention(q, k, v, chunk=cfg.attn_chunk, impl=cfg.attn_impl)
-    x = x + lc._dense(p["attn"]["wo"], o.reshape(b, s, -1), cfg)
+    x = x + lc._out_proj(p["attn"]["wo"], o.reshape(b, s, -1), cfg)
     cache = kvc.get_codec(cfg.kv_cache).from_prefill(k, v, max_len)
     return x + lc.ffn_apply(p["ffn"], nn.rmsnorm_apply(p["ln2"], x), cfg), cache
 
@@ -125,7 +137,7 @@ def zamba_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     (prefill), else None)."""
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)
-    x = nn.embedding_lookup(params["embed"], tokens, compute_dtype=lc.cdt(cfg))
+    x = lc.embed_tokens(params["embed"], tokens, cfg)
     mcaches, acaches = [], []
     for i, p in enumerate(params["blocks"]):
         if collect_caches:
@@ -143,9 +155,7 @@ def zamba_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 
 def _logits(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    h = nn.rmsnorm_apply(params["ln_f"], h)
-    return lc.mask_pad_logits(nn.dense_apply(params["head"], h, compute_dtype=lc.cdt(cfg)),
-                              cfg.vocab)
+    return lc.head_logits(params["head"], nn.rmsnorm_apply(params["ln_f"], h), cfg)
 
 
 def zamba_loss(params: dict, cfg: ModelConfig, batch: dict):
@@ -167,14 +177,14 @@ def zamba_init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device) -> d
     codec = kvc.get_codec(cfg.kv_cache)
     return {"mamba": [mamba2.mamba_init_cache(cfg, batch, device=device)
                       for _ in range(cfg.n_layers)],
-            "attn": [codec.init(batch, max_len, cfg.n_kv_heads, cfg.kv_head_dim(), lc.cdt(cfg),
-                                device=device) for _ in range(n_shared_calls(cfg))]}
+            "attn": [codec.init(batch, max_len, lc.cache_kv_heads(cfg), cfg.kv_head_dim(),
+                                lc.cdt(cfg), device=device) for _ in range(n_shared_calls(cfg))]}
 
 
 def zamba_decode(params: dict, cfg: ModelConfig, caches: dict, tokens: torch.Tensor):
     """tokens (B, 1) -> (logits (B, Vp), caches): new mamba states; each
     shared invocation's codec cache written in place."""
-    x = nn.embedding_lookup(params["embed"], tokens, compute_dtype=lc.cdt(cfg))
+    x = lc.embed_tokens(params["embed"], tokens, cfg)
     new_m, new_a = [], []
     for i, (p, c) in enumerate(zip(params["blocks"], caches["mamba"])):
         x, c = mamba2.mamba_decode(p, x, cfg, c)

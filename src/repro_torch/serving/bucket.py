@@ -19,8 +19,9 @@ bits (serving/sampling.py), so the tokens equal repro's.
 ``mesh=`` (a DeviceMesh with one ``model`` axis, one process a rank) serves
 tensor-parallel as ServeEngine's does (serving/engine.py): each rank cuts
 its shard of ``params`` and runs the sharded forward, and every rank gets
-the same tokens. The dense and MoE families, GQA or MLA; the recurrent
-families on a mesh are ROADMAP A9 (f) and refused, naming it.
+the same tokens. Every family the engine serves: a group's prefill builds
+the rank's own caches (its heads of a Mamba2 or WKV state and of the
+shared block's pool) from the sharded forward's local shapes.
 """
 
 from __future__ import annotations

@@ -53,6 +53,7 @@ from repro_torch.core.binarize import packed_len
 from repro_torch.kernels import kv_decode as kvd
 from repro_torch.kernels import kv_quant as kvq
 from repro_torch.nn import attention as attn_lib
+from repro_torch.tree import tree_leaves, tree_leaves_with_path, tree_unflatten_like
 
 _INDEX_LEAVES = ("len", "table")
 
@@ -96,19 +97,29 @@ def cache_insert_slots(pool: list, new: list, slots: torch.Tensor) -> list:
     return pool
 
 
-def _leaf_bytes(c: dict, name: str, t: torch.Tensor) -> int:
+def _leaf_bytes(name: str, t: torch.Tensor, paged: bool) -> int:
     """A leaf's bytes, without a paged layer's spare hole block."""
-    if name not in _INDEX_LEAVES and "table" in c:
+    if name not in _INDEX_LEAVES and paged:
         t = t[:-1]
     return t.numel() * t.element_size()
 
 
-def kv_pool_bytes(caches: list) -> int:
+def _pool_leaves(caches) -> list:
+    """[(path, leaf name, leaf, paged)] of a cache tree of any family (a
+    list of layer dicts, zamba2's {"mamba", "attn"}, the VLM's {"self",
+    "cross"}) in tree_leaves_with_path's order; ``paged``: the leaf's layer
+    holds a ``table``."""
+    leaves = tree_leaves_with_path(caches)
+    paged = {p.rpartition("/")[0] for p, _ in leaves if p.rpartition("/")[2] == "table"}
+    return [(p, p.rpartition("/")[2], t, p.rpartition("/")[0] in paged) for p, t in leaves]
+
+
+def kv_pool_bytes(caches) -> int:
     """Resident bytes of the pool without the small ``len`` / ``table``
     leaves (and a paged pool's spare block), so the number compares directly
-    with bytes_per_token * tokens."""
-    return sum(_leaf_bytes(c, name, t)
-               for c in caches for name, t in c.items() if name not in _INDEX_LEAVES)
+    with bytes_per_token * tokens; a recurrent state's leaves count whole."""
+    return sum(_leaf_bytes(name, t, paged) for _, name, t, paged in _pool_leaves(caches)
+               if name not in _INDEX_LEAVES)
 
 
 def kv_pool_byte_breakdown(caches: list) -> dict:
@@ -119,7 +130,7 @@ def kv_pool_byte_breakdown(caches: list) -> dict:
         for name, t in c.items():
             role = ("index" if name in _INDEX_LEAVES
                     else "scales" if name.endswith("_s") else "values")
-            out[role] += _leaf_bytes(c, name, t)
+            out[role] += _leaf_bytes(name, t, "table" in c)
     return out
 
 
@@ -138,9 +149,13 @@ def kv_pool_byte_breakdown(caches: list) -> dict:
 #
 # and any leading dims (the slot batch or a paged pool's block axis) are
 # unsharded. MLA's compressed ``c`` / ``kr`` leaves have no head axis and
-# stay replicated. The same spec covers the contiguous pool (B, T, H, D),
-# the paged pool (n_blocks + 1, block, H, D) and prefill outputs: a rank
-# holds its heads of every one of them.
+# stay replicated. The recurrent states follow repro's CACHE_RULES: Mamba2's
+# ``h`` and RWKV6's ``tm_s`` (B, H, P, N) split their heads, Mamba2's
+# ``conv`` (B, W - 1, C) its channels (MeshRules.cuts keep B and C whole),
+# and RWKV6's ``tm_x`` / ``cm_x`` and the VLM's ``cross`` stay whole. The
+# same spec covers the contiguous pool (B, T, H, D), the paged pool
+# (n_blocks + 1, block, H, D) and prefill outputs: a rank holds its heads
+# of every one of them.
 # ---------------------------------------------------------------------------
 
 _KV_VALUE_LEAVES = frozenset(["k", "v", "ek", "ev", "k_q", "v_q", "k_p", "v_p"])
@@ -153,7 +168,6 @@ def cache_partition_specs(caches, mesh, mesh_rules):
     do); ``mesh_rules`` comes from launch/specs.mesh_rules_for, so that the
     head-count fallbacks apply."""
     from repro_torch.distributed.sharding import axis_names
-    from repro_torch.tree import tree_leaves_with_path, tree_unflatten_like
     names = axis_names(mesh)
     head = mesh_rules.mesh_axes("cache_heads", names)
     seq = mesh_rules.mesh_axes("cache_seq", names)
@@ -164,30 +178,34 @@ def cache_partition_specs(caches, mesh, mesh_rules):
             return (None,) * (leaf.ndim - 3) + (seq, head, None)
         if name in _KV_SCALE_LEAVES:
             return (None,) * (leaf.ndim - 2) + (seq, head)
+        if name in ("h", "tm_s"):
+            return (None, mesh_rules.mesh_axes("heads", names), None, None)
+        if name == "conv":
+            return (None, None, mesh_rules.mesh_axes("dconv", names))
         return ()
     return tree_unflatten_like(caches, [spec_for(p, t) for p, t in
                                         tree_leaves_with_path(caches)])
 
 
-def kv_pool_bytes_per_device(caches: list, mesh=None, mesh_rules=None) -> int:
+def kv_pool_bytes_per_device(caches, mesh=None, mesh_rules=None) -> int:
     """The bytes of kv_pool_bytes that each device holds of the whole pool
-    ``caches`` (shapes suffice) under cache_partition_specs: kv_pool_bytes
-    itself without a mesh, about kv_bytes / N with the head axis split N
-    ways, and kv_bytes for an all-MLA pool, whose compressed leaves every
-    rank holds whole."""
+    ``caches`` (shapes suffice) under cache_partition_specs and the rules'
+    cuts: kv_pool_bytes itself without a mesh, about kv_bytes / N with the
+    head axis split N ways, and kv_bytes for an all-MLA pool, whose
+    compressed leaves every rank holds whole."""
     if mesh is None:
         return kv_pool_bytes(caches)
     from repro_torch.distributed.sharding import shard_shape
-    specs = cache_partition_specs(caches, mesh, mesh_rules)
+    specs = tree_leaves(cache_partition_specs(caches, mesh, mesh_rules))
     total = 0
-    for c, spec in zip(caches, specs):
-        for name, t in c.items():
-            if name in _INDEX_LEAVES:
-                continue
-            shape = list(t.shape)
-            if "table" in c:
-                shape[0] -= 1              # a paged layer's spare hole block
-            total += math.prod(shard_shape(shape, spec[name], mesh)) * t.element_size()
+    for (path, name, t, paged), spec in zip(_pool_leaves(caches), specs):
+        if name in _INDEX_LEAVES:
+            continue
+        shape = list(t.shape)
+        if paged:
+            shape[0] -= 1                  # a paged layer's spare hole block
+        total += math.prod(shard_shape(shape, spec, mesh, mesh_rules.segments(path))) \
+            * t.element_size()
     return total
 
 

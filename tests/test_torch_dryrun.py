@@ -13,6 +13,9 @@ CPU, on smoke configs and small MeshShapes, with no process group:
 * a rank's argument bytes = its shard shapes' sum = the bytes of the real
   trees (specs.shard_params / TrainPlan.shard, adamw_init, init_cache);
 * flops_counted within 10% of the analytic count (dense smoke configs);
+* the recurrent families, whisper and the VLM on a model axis: every
+  part splits, the all_reduces are the call sites, the argument bytes the
+  rank's real trees (Mamba2's cut by heads);
 * the refusals recorded ``skipped`` with their ROADMAP items, long_500k
   with cell_is_runnable's reason, the CLI's records with repro's keys;
 * perf.run_pair prints repro's table, one row a variant.
@@ -206,8 +209,8 @@ def test_flops_counted_near_the_analytic_count(arch, shape):
 
 
 @pytest.mark.parametrize("arch,shape,dims,item", [
-    ("rwkv6-3b", DECODE, (1, 2), "A9 (f)"), ("zamba2-2.7b", TRAIN, (1, 2), "A9 (f)"),
-    ("whisper-base", PREFILL, (2, 1), "A9 (f)"), ("deepseek-v2-236b", TRAIN, (2, 1), "A9 (j)"),
+    ("rwkv6-3b", TRAIN, (1, 2), "A9 (l)"), ("zamba2-2.7b", TRAIN, (1, 2), "A9 (l)"),
+    ("whisper-base", TRAIN, (1, 2), "A9 (l)"), ("deepseek-v2-236b", TRAIN, (2, 1), "A9 (j)"),
     ("minicpm3-4b", TRAIN, (1, 2), "A9 (l)")])
 def test_refused_cells_are_skipped_naming_the_roadmap(arch, shape, dims, item):
     rec = _cell(arch, shape, dims)
@@ -238,6 +241,65 @@ def test_mla_and_moe_cells_run_on_a_model_axis(arch, shape):
         # the whole compressed cache is held and read on each rank
         assert rl["hbm_bytes"] - total.hbm_bytes / 2 >= AC.kv_cache_bytes(cfg, shape) / 2
         assert rec["memory"]["cache_bytes"] >= AC.kv_cache_bytes(cfg, shape)
+
+
+# all_reduces of one step on a model axis of 2, from the call sites: a
+# Mamba2 block 2 (out, gnorm's sum), a shared-block call 2 (wo, the FFN's
+# down product), an RWKV6 block 4 (y and g gathered, w_o's columns, c_v,
+# the channel-mix's columns), a whisper decoder block 3 (wo, the cross wo,
+# the FFN) and an encoder block 2, a VLM self or cross block 2; the
+# embedding and the logits 1 each
+def _family_all_reduces(cfg, kind):
+    if cfg.family == "mamba2_hybrid":
+        return 2 * cfg.n_layers + 2 * (cfg.n_layers // cfg.attn_every) + 2
+    if cfg.family == "rwkv6":
+        return 4 * cfg.n_layers + 2
+    if cfg.family == "whisper":
+        return 3 * cfg.n_layers + (2 * cfg.enc_layers if kind == "prefill" else 0) + 2
+    return 2 * (cfg.n_layers + cfg.n_layers // cfg.cross_every) + 2
+
+
+@pytest.mark.parametrize("shape", [DECODE, PREFILL], ids=["decode", "prefill"])
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-3b", "whisper-base",
+                                  "llama-3.2-vision-11b"])
+def test_recurrent_and_encdec_cells_run_on_a_model_axis(arch, shape):
+    """The recurrent families, whisper and the VLM on a model axis of 2:
+    every part splits, the all_reduces are the call sites, and a rank's
+    argument bytes are its real trees' (the Mamba2 cut: x channels of
+    conv beside B and C whole, in_bcdt whole)."""
+    cfg = smoke_config(arch)
+    rec = _cell(arch, shape, (1, 2), cfg)
+    assert rec["status"] == "ok"
+    recurrent = cfg.family in ("mamba2_hybrid", "rwkv6")
+    want = {"attn": cfg.family != "rwkv6", "ffn": True, "vocab": True, "experts": False}
+    assert rec["split"] == (dict(want, mixer=True) if recurrent else want)
+    assert rec["collectives"]["all-reduce"]["count"] == _family_all_reduces(cfg, shape.kind)
+    api = get_model(cfg)
+    mesh = MeshShape((2,), ("model",))
+    tp, rules = S.serving_plan(cfg, mesh)
+    low = dryrun.lower_cell(arch, shape.name, cfg_override=cfg, shape=shape,
+                            mesh=_mesh((1, 2)))[0]
+    params = (api.init_deployed(0, device="cpu") if low.weights == "deployed"
+              else api.init(0, device="cpu", packed=False))
+    assert rec["memory"]["params_bytes"] == _nbytes(S.shard_params(api, params, mesh, tp, rules))
+
+
+@pytest.mark.parametrize("shape", [DECODE, PREFILL], ids=["decode", "prefill"])
+@pytest.mark.parametrize("arch,model", [("zamba2-2.7b", 4), ("whisper-base", 8),
+                                        ("llama-3.2-vision-11b", 4)])
+def test_roofline_counts_a_family_s_whole_attention_on_every_rank(arch, model, shape):
+    """zamba2's 2 smoke Mamba heads at 4 ranks (its mixer and shared
+    attention whole), whisper's 4 heads at 8 (d_ff 256: a word a rank), the
+    VLM's 2 KV heads at 4: the roofline counts what stays whole on every
+    rank, as the rank's counted products show (within 10%)."""
+    cfg = smoke_config(arch).replace(d_ff=256) if model == 8 else smoke_config(arch)
+    rec = _cell(arch, shape, (1, model), cfg)
+    assert rec["status"] == "ok" and not rec["split"]["attn"] and rec["split"]["ffn"]
+    assert not rec["split"].get("mixer", False)
+    rl = rec["roofline"]
+    assert abs(rec["cost"]["flops_counted"] - rl["flops"]) <= 0.1 * rl["flops"]
+    total = AC.step_cost(cfg, shape)
+    assert rl["flops"] > total.flops_total / model and rl["hbm_bytes"] > total.hbm_bytes / model
 
 
 @pytest.mark.parametrize("arch", DENSE)
@@ -273,9 +335,12 @@ def test_cli_writes_a_record_a_cell_with_repro_keys(tmp_path, monkeypatch):
     assert files == sorted(["stablelm-3b__decode_32k__nodes32x8.json"] +
                            [f"whisper-base__{s}__nodes32x8.json"
                             for s in ("decode_32k", "long_500k", "prefill_32k", "train_4k")])
-    assert [r["status"] for r in recs] == ["skipped"] * 4
+    # whisper's 4 smoke heads do not split 8 ways: its attention runs whole
+    # on every rank of the model axis, its FFNs and vocab split
+    assert [r["status"] for r in recs] == ["ok", "skipped", "ok", "skipped"]
+    assert recs[0]["split"] == {"attn": False, "ffn": True, "vocab": True, "experts": False}
     with open(tmp_path / "whisper-base__train_4k__nodes32x8.json") as f:
-        assert "ROADMAP A9 (f)" in json.load(f)["reason"]
+        assert "ROADMAP A9 (l)" in json.load(f)["reason"]
     # resumable: the records are read back, not redone
     again = dryrun.sweep(multi_pod_values=(False,), out_dir=out, only_arch="whisper-base")
     assert again == recs

@@ -21,9 +21,10 @@
   ServeEngine's directly, and a MoE layer's routed output over a rank's
   experts (binary and float) equals one device's exactly (tolerance 0:
   each pair row is one rank's, so the sum over the ranks adds zeros).
-* The launcher: --mesh 2 --device cpu (gloo) gives --mesh 0's tokens;
-  --backend nccl refuses more ranks than cards; --spec-decode, --http and
-  a recurrent arch refuse a mesh.
+* The launcher: --mesh 2 --device cpu (gloo) gives --mesh 0's tokens
+  (zamba2-2.7b's too, through the bucket engine); --backend nccl refuses
+  more ranks than cards; --spec-decode and --http refuse a mesh, whisper
+  and the VLM the launcher (they need audio / image inputs).
 
 Repro's own mesh engine is not run here: tests/test_engine_parity.py runs
 it. Each rank runs one thread and its process group's timeout bounds it.
@@ -326,7 +327,20 @@ def test_launcher_mesh_gloo_equals_single(tmp_path):
 def test_launcher_mesh_refusals():
     with pytest.raises(RuntimeError, match="nccl takes one card per rank"):
         serve.main(LAUNCH + ["--mesh", "2", "--backend", "nccl"])
-    for extra in (["--spec-decode", "2"], ["--http", "0"], ["--arch", "rwkv6-3b"],
-                  ["--arch", "zamba2-2.7b"]):
+    for extra in (["--spec-decode", "2"], ["--http", "0"]):
         with pytest.raises(NotImplementedError, match="ROADMAP A9"):
             serve.main(LAUNCH + ["--mesh", "2"] + extra)
+    # whisper and the VLM need audio / image inputs: refused before any rank
+    for arch in ("whisper-base", "llama-3.2-vision-11b"):
+        with pytest.raises(SystemExit):
+            serve.main(LAUNCH + ["--mesh", "2", "--arch", arch])
+
+
+def test_launcher_mesh_serves_zamba2_as_one_device():
+    """--arch zamba2-2.7b --smoke --mesh 2 --device cpu: the bucket engine
+    on two gloo ranks gives --mesh 0's tokens."""
+    argv = ["--arch", "zamba2-2.7b", "--smoke", "--device", "cpu", "--requests", "3",
+            "--prompt-lens", "5,9", "--max-new", "3"]
+    want = serve.main(argv + ["--mesh", "0"])
+    assert serve.main(argv + ["--mesh", "2"]) == want
+    assert sorted(want) == [0, 1, 2] and all(len(v) == 3 for v in want.values())

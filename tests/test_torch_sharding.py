@@ -13,8 +13,9 @@ uses): no process group, no second process.
   the 2-kv-head fallback at mesh 4, MLA latents replicated, prefill
   outputs), leaf for leaf equal to repro's, and the per-device bytes;
 * the serving plan: what it splits (the MLA and MoE families too: heads,
-  experts, shared experts), what it refuses, and each shard an allocation
-  of its own.
+  experts, shared experts; the recurrent families' mixers, whisper and
+  the VLM), what it refuses, and each shard an allocation of its own;
+  Mamba2's in_zx and conv cut by heads, B and C whole.
 """
 
 import collections
@@ -100,9 +101,8 @@ def _assert_specs_match(cfg, port_tree, port_specs, repro_tree, repro_specs, wha
 @pytest.mark.parametrize("arch", ARCHS)
 def test_param_specs_equal_repro(arch):
     api, japi = get_model(get_config(arch)), jax_get_model(jax_get_config(arch))
-    # the deployed trees (DEPLOYED_RULES first) where a mesh serves them
-    served = api.cfg.family in ("dense", "moe")
-    for deployed in (False, True) if served else (False,):
+    # the deployed trees (DEPLOYED_RULES first): a mesh serves every arch
+    for deployed in (False, True):
         p_abs = S.abstract_params(api, deployed=deployed)
         jp = jax.eval_shape(lambda: japi.init_deployed(jax.random.PRNGKey(0)) if deployed
                             else japi.init(jax.random.PRNGKey(0)))
@@ -296,15 +296,65 @@ def test_serving_plan_refuses():
     # d_ff 128 over 8 ranks leaves 16 bits of bin_out's K a rank: no whole word
     with pytest.raises(ValueError, match="d_ff 128"):
         S.serving_plan(cfg, FakeMesh(("model",), {"model": 8}))
-    for arch in ("zamba2-2.7b", "rwkv6-3b", "whisper-base", "llama-3.2-vision-11b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9 \\(f\\)"):
-            S.serving_plan(smoke_config(arch), MESH2)
+    # the recurrent families, whisper and the VLM are planned (ROADMAP A9
+    # (f)): at full width on 2 ranks every part splits, the mixer where the
+    # family has one; zamba2 at 32 ranks keeps its 80 Mamba heads whole
+    # (and the shared block's heads, which mesh_rules_for ties to them)
+    for arch, mixer in (("zamba2-2.7b", True), ("rwkv6-3b", True), ("whisper-base", False),
+                        ("llama-3.2-vision-11b", False)):
+        tp, rules = S.serving_plan(get_config(arch), MESH2)
+        assert (tp.attn, tp.ffn, tp.vocab, tp.mixer) == (arch != "rwkv6-3b", True, True,
+                                                          mixer), arch
+    tp, rules = S.serving_plan(get_config("zamba2-2.7b"), FakeMesh(("model",), {"model": 32}))
+    assert (tp.attn, tp.mixer, tp.ffn) == (False, False, True)
+    assert rules.segments("blocks/3/in_zx/bin/w_packed") == ()
+    # rwkv6 at 16 ranks: its 40 heads would run whole, but c_v's K = 8960 /
+    # 16 is 17.5 words a rank
+    with pytest.raises(ValueError, match="d_ff 8960 does not split into 16"):
+        S.serving_plan(get_config("rwkv6-3b"), FakeMesh(("model",), {"model": 16}))
+    # the VLM at 16 ranks: 8 KV heads, its attention whole
+    tp, _ = S.serving_plan(get_config("llama-3.2-vision-11b"),
+                           FakeMesh(("model",), {"model": 16}))
+    assert (tp.attn, tp.ffn, tp.vocab) == (False, True, True)
     # the experts must divide: 8 smoke experts over 16 ranks (the smoke
     # widths at 16 ranks otherwise split: d_ff 512 is 32 bits a rank)
     moe = smoke_config("deepseek-v2-236b").replace(d_ff=512, n_heads=16, n_kv_heads=16,
                                                     vocab=4096)
     with pytest.raises(ValueError, match="n_experts 8 does not split into 16"):
         S.serving_plan(moe, FakeMesh(("model",), {"model": 16}))
+
+
+def test_mamba_cut_takes_each_half_by_heads():
+    """A rank's in_zx holds its heads' z columns and x columns (repro's
+    contiguous cut would give rank 0 all of z), its conv channels its x
+    channels beside B and C whole, in allocations of their own; the same
+    cut sizes its conv state."""
+    cfg = smoke_config("zamba2-2.7b")
+    api = get_model(cfg)
+    params = api.init(0, device="cpu")
+    tp, rules = S.serving_plan(cfg, MESH2)
+    di, ds = cfg.expand * cfg.d_model, cfg.d_state
+    assert tp.mixer and di == 128
+    for r in range(2):
+        local = S.shard_params(api, params, MESH2, shd.TensorParallel(2, r), rules)
+        half = slice(r * 64, (r + 1) * 64)
+        for i, blk in enumerate(params["blocks"]):
+            mine = local["blocks"][i]
+            zx = blk["in_zx"]["bin"] if "bin" in blk["in_zx"] else blk["in_zx"]
+            got = mine["in_zx"]["bin"] if "bin" in mine["in_zx"] else mine["in_zx"]
+            for name, dim in (("w_latent", 1), ("w", 1), ("scale", 0), ("w_packed", 0)):
+                if name in zx:
+                    want = torch.cat([zx[name].narrow(dim, half.start, 64),
+                                      zx[name].narrow(dim, di + half.start, 64)], dim=dim)
+                    assert torch.equal(got[name], want), (i, name)
+                    assert got[name].is_contiguous() and got[name].data_ptr() % 16 == 0
+            want = torch.cat([blk["conv_w"][:, half], blk["conv_w"][:, di:]], dim=1)
+            assert torch.equal(mine["conv_w"], want) and mine["conv_w"].shape[1] == 64 + 2 * ds
+            assert torch.equal(mine["in_bcdt"]["w"], blk["in_bcdt"]["w"])
+            assert torch.equal(mine["gnorm"]["scale"], blk["gnorm"]["scale"][half])
+    conv = torch.empty((2, cfg.d_conv - 1, di + 2 * ds), device="meta")
+    assert shd.shard_shape(conv.shape, (None, None, "model"), MESH2,
+                           rules.segments("mamba/0/conv")) == (2, 3, 64 + 2 * ds)
 
 
 @pytest.mark.parametrize("arch", ["minicpm3-4b", "deepseek-v2-236b", "deepseek-v3-671b"])

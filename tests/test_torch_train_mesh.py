@@ -337,11 +337,11 @@ def test_train_plan_splits_as_serving_and_refuses():
     assert plan.dp.size == 2 and plan.rules.rules["batch"] == ("data",)
     assert not S.train_plan(cfg.replace(fsdp=True), _Mesh({"data": 2})).rules.fsdp
     # a data axis takes any family without MoE layers; a model axis > 1
-    # only the GQA dense one: MLA and MoE are A9 (l), the rest A9 (f)
+    # only the GQA dense one: every other family is A9 (l)
     for arch in ("minicpm3-4b", "zamba2-2.7b", "rwkv6-3b", "whisper-base"):
         assert S.train_plan(smoke_config(arch), _Mesh({"data": 2, "model": 1})).dp.size == 2
-    for arch, item in (("minicpm3-4b", "l"), ("deepseek-v2-236b", "l"), ("zamba2-2.7b", "f"),
-                       ("rwkv6-3b", "f"), ("whisper-base", "f")):
+    for arch, item in (("minicpm3-4b", "l"), ("deepseek-v2-236b", "l"), ("zamba2-2.7b", "l"),
+                       ("rwkv6-3b", "l"), ("whisper-base", "l")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP A9 \\({item}\\)"):
             S.train_plan(smoke_config(arch), _Mesh({"data": 1, "model": 2}))
     with pytest.raises(ValueError, match="does not split over data 2"):
@@ -351,7 +351,7 @@ def test_train_plan_splits_as_serving_and_refuses():
     with pytest.raises(ValueError, match="does not split over data 2"):
         train_cli.main(["--smoke", "--device", "cpu", "--batch", "3", "--mesh",
                         "2x1:data,model"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A9 \\(f\\)"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A9 \\(l\\)"):
         train_cli.main(["--smoke", "--device", "cpu", "--arch", "rwkv6-3b", "--mesh",
                         "1x2:data,model"])
     for bad in ("2x2", "2x:data,model", "2x2:data"):
